@@ -1,0 +1,75 @@
+"""Layers that keep fp32 parameters and compute in the input's dtype.
+
+The JAX package keeps every parameter in fp32 and casts it to the compute
+dtype at the op (flax ``Dense``/``Conv`` with ``dtype=``); these layers do
+the same, so a bf16 model rounds each weight exactly where the JAX one
+does.  The norms follow flax's arithmetic: fp32 statistics, the variance
+as E[x^2] - E[x]^2, and y = (x - mean) * (rsqrt(var + eps) * scale) + bias.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def _cast(p: torch.Tensor | None, dtype: torch.dtype) -> torch.Tensor | None:
+    return None if p is None else p.to(dtype)
+
+
+class Linear(nn.Linear):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype))
+
+
+class Conv2d(nn.Conv2d):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype))
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose2d(
+            x, self.weight.to(x.dtype), _cast(self.bias, x.dtype), self.stride,
+            self.padding, self.output_padding, self.groups, self.dilation,
+        )
+
+
+class BatchNorm2d(nn.Module):
+    """Eval-mode BatchNorm over NCHW with running statistics."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        c = (slice(None), None, None)
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        y = (x.float() - self.running_mean[c]) * mul[c] + self.bias[c]
+        return y.to(x.dtype)
+
+
+class GroupNorm(nn.Module):
+    """GroupNorm over NCHW with flax's fast-variance statistics."""
+
+    def __init__(self, groups: int, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.groups, self.eps = groups, eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, C, H, W = x.shape
+        G = self.groups
+        xg = x.float().reshape(B, G, C // G, H, W)
+        mean = xg.mean(dim=(2, 3, 4), keepdim=True)
+        var = torch.clamp((xg * xg).mean(dim=(2, 3, 4), keepdim=True) - mean * mean, min=0.0)
+        shape = (1, G, C // G, 1, 1)
+        mul = torch.rsqrt(var + self.eps) * self.weight.reshape(shape)
+        y = (xg - mean) * mul + self.bias.reshape(shape)
+        return y.reshape(B, C, H, W).to(x.dtype)

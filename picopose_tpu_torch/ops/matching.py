@@ -1,0 +1,156 @@
+"""Stage-1/2 feature matching: similarity volume and template selection.
+
+Counterpart of picopose_tpu/ops/matching.py, with the scoring of
+``match_templates`` on a shared bank done by a CUDA kernel on the card
+(``kernels/csrc/matching.cu``, replacing
+picopose_tpu/ops/pallas/matching.py::match_scores_pallas) and by its plain
+version on the CPU.  The kernel is bound by operations: at B = 16 queries
+against N = 162 bf16 views (S = 256, C = 1024) it does 348 GFLOP of
+products over 93 MB of input.  The TPU kernel's whole (S, S) fp32 block
+(256 KB) does not fit a Hopper block's shared memory, so the kernel
+computes sim in 128 x 128 passes (bf16 on the tensor cores from
+shared-memory tiles, fp32 on the CUDA cores) and keeps only row/column
+maxima and sim[:,0], sim[0,:] per block.
+
+Two reference quirks are kept on purpose:
+  * the similarity volume's query-spatial unflattening is TRANSPOSED: the
+    volume at spatial (h, w) holds query patch (row=w, col=h);
+  * the matching score multiplies a query-indexed mask with template-
+    indexed argmax-validity terms at the same index i (aligned-index
+    product).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from picopose_tpu_torch import kernels
+from picopose_tpu_torch.ops.resize import resize_nearest
+
+
+def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
+    """F.normalize semantics: x / max(||x||, eps)."""
+    n = torch.linalg.vector_norm(x, dim=dim, keepdim=True)
+    return x / torch.clamp(n, min=eps)
+
+
+def _mask_to_grid(mask: torch.Tensor, hw: tuple[int, int]) -> torch.Tensor:
+    """(B, Hm, Wm) crop mask -> (B, h, w) by nearest downsampling."""
+    return resize_nearest(mask, hw)
+
+
+def feature_similarity_volume(
+    tem_feat: torch.Tensor, query_feat: torch.Tensor, tem_mask: torch.Tensor
+) -> torch.Tensor:
+    """Masked cosine-similarity volume between one template and the query.
+
+    tem_feat, query_feat: (B, h, w, C); tem_mask: (B, Hm, Wm).  Returns
+    (B, h, w, h*w) = relu(cos(query[t], tem[s]) * tem_mask[s]); channel s is
+    the template patch (row-major), spatial (h, w) the query patch
+    (row=w, col=h).
+    """
+    B, h, w, C = tem_feat.shape
+    q = l2_normalize(query_feat).reshape(B, h * w, C)
+    t = l2_normalize(tem_feat).reshape(B, h * w, C)
+    m = _mask_to_grid(tem_mask, (h, w)).reshape(B, 1, h * w).to(q.dtype)
+    sim = torch.matmul(q, t.transpose(1, 2)) * m  # (B, t = query, s = template)
+    sim = torch.clamp(sim, min=0.0)
+    # transposed unflattening of the query index: t == w*h_dim + h
+    return sim.reshape(B, w, h, h * w).transpose(1, 2)
+
+
+def match_scores_plain(
+    q_norm: torch.Tensor, q_mask: torch.Tensor, t_norm: torch.Tensor
+) -> torch.Tensor:
+    """The kernel's arithmetic in PyTorch ops: (B, S, C), (B, S), (N, S, C)
+    -> (B, N) scores, 8 views at a time (the (B, 8, S, S) fp32 block is
+    34 MB at B = 16, S = 256)."""
+    B, S, _ = q_norm.shape
+    qf = q_norm.float()
+    qm = q_mask.float()[:, None, :, None]  # rows of sim are query patches
+    qv = (q_mask > 0)[:, None, :]
+    out = []
+    for s0 in range(0, t_norm.shape[0], 8):
+        tc = t_norm[s0 : s0 + 8].float()
+        sim = torch.einsum("bsc,ntc->bnst", qf, tc) * qm
+        rowmax = sim.amax(dim=3)
+        t_valid = sim[..., 0] < rowmax
+        colmax = sim.amax(dim=2)
+        s_valid = sim[:, :, 0, :] < colmax
+        w = (qv & t_valid & s_valid).float()
+        count = w.sum(-1)
+        total = (rowmax * w).sum(-1)
+        out.append(torch.where(count > 0, total / S, torch.zeros_like(total)))
+    return torch.cat(out, dim=1)
+
+
+def match_scores_cuda(
+    q_norm: torch.Tensor, q_mask: torch.Tensor, t_norm: torch.Tensor
+) -> torch.Tensor:
+    """Launch the CUDA kernel: q (B, S, C) and t (N, S, C) both bf16 or both
+    fp32, q_mask (B, S); S and C multiples of 16."""
+    if not (q_norm.is_cuda and q_mask.is_cuda and t_norm.is_cuda):
+        raise ValueError("match_scores_cuda takes CUDA tensors")
+    B, S, C = q_norm.shape
+    N = t_norm.shape[0]
+    if t_norm.shape[1:] != (S, C) or q_mask.shape != (B, S):
+        raise ValueError("shapes must be q (B, S, C), q_mask (B, S), t (N, S, C)")
+    if q_norm.dtype != t_norm.dtype or q_norm.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError("match kernel takes q and t both bf16 or both fp32")
+    if S % 16 or C % 16:
+        raise ValueError(f"match kernel takes S and C multiples of 16, got {S}, {C}")
+    q_norm, t_norm = kernels.contiguous_aligned(q_norm), kernels.contiguous_aligned(t_norm)
+    q_mask = q_mask.to(torch.float32).contiguous()
+    out = torch.empty((B, N), dtype=torch.float32, device=q_norm.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(q_norm.device):
+        kernels.launch(
+            "match_scores", q_norm.data_ptr(), q_mask.data_ptr(), t_norm.data_ptr(),
+            out.data_ptr(), B, N, S, C, int(q_norm.dtype == torch.bfloat16),
+            kernels.stream_of(q_norm),
+        )
+    return out
+
+
+def match_scores(
+    q_norm: torch.Tensor, q_mask: torch.Tensor, t_norm: torch.Tensor
+) -> torch.Tensor:
+    """(B, N) matching scores: the kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    if q_norm.device.type == "cpu":
+        return match_scores_plain(q_norm, q_mask, t_norm)
+    return match_scores_cuda(q_norm, q_mask, t_norm)
+
+
+def top_k(scores: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k along the last axis, ties to the lower index (lax.top_k order)."""
+    vals, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def match_templates(
+    tem_feats: torch.Tensor,
+    query_feat: torch.Tensor,
+    query_mask: torch.Tensor,
+    topk: int = 5,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Score every view of a shared (N, h, w, C) bank against each query;
+    return top-k (scores, ids), both (B, topk).
+
+    Per view: sim[t, s] = cos(query[t], tem[s]) * query_mask[t]; the score
+    is sum_t max_s sim[t, s] * valid[t] / (h*w), valid combining the query
+    mask with the argmax-nonzero consistency terms.  Features are
+    normalised in fp32; on a bf16 bank the normalised operands are rounded
+    to bf16 before scoring, as the JAX package's kernel path does.
+    """
+    if tem_feats.ndim != 4:
+        raise ValueError("match_templates takes a shared (N, h, w, C) bank")
+    N, h, w, C = tem_feats.shape
+    B, S = query_feat.shape[0], h * w
+    q = l2_normalize(query_feat.float()).reshape(B, S, C)
+    qm = _mask_to_grid(query_mask, (h, w)).reshape(B, S).float()
+    t = l2_normalize(tem_feats.float()).reshape(N, S, C)
+    if tem_feats.dtype == torch.bfloat16:
+        q, t = q.to(torch.bfloat16), t.to(torch.bfloat16)
+    return top_k(match_scores(q, qm, t), topk)
