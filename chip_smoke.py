@@ -9,18 +9,28 @@ Phases (any failure exits non-zero before the result line):
   2. each kernel at the main path's shapes against its plain PyTorch
      version (stated tolerance), with kernel / plain / library-call times
      (CUDA events, inputs rotated so L2 does not hold them) and its bound;
-  3. the port's stages 1-2 at full ViT-L width (dinov2_vitl14, taps
-     5/11/17/23, bf16, seeded random weights): build_bank over 162 views
-     (chunk 32), then select_templates + stage2_poses for 16 queries x 5
-     hypotheses, with every kernel's launch counter set to 0 just before
-     and read just after; outputs checked (finite, ids in range, each query
-     finds its own template view, R^T R = I), then bank-build and per-batch
-     times and a profile of one batch (device time by kernel, idle share);
+     the corr-window kernel at all six (grid, pooled) level pairs of a
+     batch and the warp kernel at its three grids, 80 streams sharing 16
+     query maps (group 5), windows pushed past the map edges;
+  3. the main path at full ViT-L width (dinov2_vitl14, taps 5/11/17/23,
+     bf16, seeded random weights): build_bank over 162 views (chunk 32),
+     then run_batch for 16 queries x 5 hypotheses with 150 PnP
+     iterations, with every kernel's launch counter set to 0 just before
+     and read just after (6 corr-window and 3 warp launches per batch);
+     outputs checked (shapes, finite, R^T R = I, ratios in [-1, 1] ranked
+     best first; each query finds its own template view); then bank-build
+     times, the stages-1-2 batch time alone, the
+     run_batch time and crops/s, and profiles (device time by kernel, the
+     share of the stage-3 convs and of PnP, idle share);
   4. the same path at a small size (vit_tiny_test, 6 views, 2 queries) on
-     the card against the plain CPU path at the same weights, fp32 and bf16.
+     the card against the plain CPU path at the same weights, fp32 and
+     bf16: stages 1-2, the stage-3 flows and certainties, and ransac_pnp
+     on identical correspondences with identical draws.
 Then the kernels as one JSON line, the card line, and the result line.
 TF32 is off for matmuls and convolutions throughout.  Inputs and weights
-are drawn from SEED.
+are drawn from SEED; the stage-3 heads' predict convs are scaled
+(``calm_stage3_heads_``) so stage 3 refines the stage-2 seed and PnP sees
+thousands of correspondences per hypothesis, as a trained model gives it.
 """
 
 from __future__ import annotations
@@ -133,11 +143,112 @@ def kernel_checks(g: torch.Generator) -> dict:
         bound=bound(q.numel() * 2 + qm.numel() * 4 + t.numel() * 2 + B * Nv * 4,
                     2 * B * Nv * S * S * C, H100_BF16_FLOPS),
     )
+    out.update(stage3_kernel_checks(g))
     for name, r in out.items():
         print(f"[kernel] {name}: max_abs_err {r['err']!r} ({r['tol']}), kernel {r['ms']!r} ms, "
               f"plain {r['plain_ms']!r} ms, library {r['library_ms']!r} ms, "
               f"bound {r['bound'][0]!r} ms ({r['bound'][1]})")
     return out
+
+
+def stage3_kernel_checks(g: torch.Generator) -> dict:
+    """K4 and K5 at the flow decoder's shapes for 16 queries x 5 hypotheses
+    (80 streams over 16 query maps, C = 256, bf16).  Times are summed over
+    the calls of one batch (K4: six (G, Hp) pairs, K5: three grids) and
+    reported per launch, so launches x ms is the batch's device time."""
+    import torch.nn.functional as F
+
+    from picopose_tpu_torch.geom.grids import pixel_coords_grid
+    from picopose_tpu_torch.ops import corr as CO
+    from picopose_tpu_torch.ops import sample as SA
+
+    dev = torch.device("cuda")
+    B2, group, C = 16, 5, 256
+    B = B2 * group
+    sets = {16: 6, 32: 3, 64: 1}  # input sets rotated per call: > 50 MB of L2
+
+    def centres(G, level):
+        flow = torch.randn(B, G, G, 2, generator=g, device=dev) * 3
+        flow[:, ::5] += torch.sign(torch.randn(B, 1, G, 2, generator=g, device=dev)) * G * 0.9
+        return ((pixel_coords_grid(G, G, device=dev) + flow) / 2.0**level).reshape(B, G * G, 2)
+
+    def rows(n, P):
+        return torch.randn(n, P, C, generator=g, device=dev).bfloat16()
+
+    tol = dict(atol=1e-2, rtol=2**-7)  # one bf16 step where fp32 sums straddle a rounding boundary
+    res = {}
+    corr = dict(ms=0.0, plain_ms=0.0, b=0.0, f=0.0, err=0.0, n=0)
+    for G, levels in ((16, 1), (32, 2), (64, 3)):
+        for level in range(levels):
+            Hp = G >> level
+            args = [(rows(B, G * G), rows(B2, Hp * Hp), centres(G, level), Hp, Hp, 2, group)
+                    for _ in range(sets[G])]
+            got, ref = CO.corr_window_cuda(*args[0]), CO.corr_window_plain(*args[0])
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), ref.float(), **tol)
+            err = (got.float() - ref.float()).abs().max().item()
+            ms, plain = cuda_ms(CO.corr_window_cuda, args), cuda_ms(CO.corr_window_plain, args[:1], iters=3)
+            nbytes = (B * G * G * C + B2 * Hp * Hp * C) * 2 + B * G * G * (2 * 4 + 25 * 2)
+            flops = B * G * G * 36 * C * 2
+            bd = bound(nbytes, flops, H100_BF16_FLOPS)
+            print(f"[kernel] corr_window G={G} Hp={Hp}: max_abs_err {err!r}, kernel {ms!r} ms, "
+                  f"plain {plain!r} ms, bound {bd[0]!r} ms ({bd[1]})")
+            corr.update(ms=corr["ms"] + ms, plain_ms=corr["plain_ms"] + plain, err=max(corr["err"], err),
+                        n=corr["n"] + 1, b=corr["b"] + nbytes / H100_BYTES_PER_S * 1e3,
+                        f=corr["f"] + flops / H100_BF16_FLOPS * 1e3)
+            del args, got, ref
+    n = corr["n"]
+    print(f"[kernel] corr_window per batch ({n} calls): kernel {corr['ms']!r} ms, plain {corr['plain_ms']!r} ms")
+    res["corr_window"] = dict(
+        err=corr["err"], tol="atol 1e-2 + rtol 2^-7", ms=corr["ms"] / n, plain_ms=corr["plain_ms"] / n,
+        library_ms=None, bound=(max(corr["b"], corr["f"]) / n, "bytes" if corr["b"] >= corr["f"] else "operations"),
+    )
+
+    warp = dict(ms=0.0, plain_ms=0.0, lib=0.0, b=0.0, err=0.0, n=0)
+    for G in (16, 32, 64):
+        args = [(rows(B2, G * G), centres(G, 0), G, G, group) for _ in range(sets[G])]
+        got, ref = SA.warp_cuda(*args[0]), SA.warp_plain(*args[0])
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), ref.float(), **tol)
+        err = (got.float() - ref.float()).abs().max().item()
+
+        def library_args(feat, cen, H, W, group):
+            # expanded NCHW input and normalised grid; grid_sample takes one
+            # dtype, so the grid is bf16 too
+            x = feat.reshape(B2, H, W, C).permute(0, 3, 1, 2).repeat_interleave(group, 0).contiguous()
+            return x, (cen * (2.0 / (G - 1)) - 1.0).reshape(B, G, G, 2).to(x.dtype)
+
+        lib_args = [library_args(*a) for a in args]
+        lib = cuda_ms(lambda x, grid: F.grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
+                                                    align_corners=True), lib_args)
+        ms, plain = cuda_ms(SA.warp_cuda, args), cuda_ms(SA.warp_plain, args[:1], iters=3)
+        nbytes = (B2 * G * G * C + B * G * G * C) * 2 + B * G * G * 2 * 4
+        bd = bound(nbytes, B * G * G * 4 * C * 2, H100_BF16_FLOPS)
+        print(f"[kernel] warp G={G}: max_abs_err {err!r}, kernel {ms!r} ms, plain {plain!r} ms, "
+              f"grid_sample {lib!r} ms, bound {bd[0]!r} ms ({bd[1]})")
+        warp.update(ms=warp["ms"] + ms, plain_ms=warp["plain_ms"] + plain, lib=warp["lib"] + lib,
+                    err=max(warp["err"], err), n=warp["n"] + 1, b=warp["b"] + bd[0])
+        del args, lib_args, got, ref
+    n = warp["n"]
+    print(f"[kernel] warp per batch ({n} calls): kernel {warp['ms']!r} ms, plain {warp['plain_ms']!r} ms, "
+          f"grid_sample {warp['lib']!r} ms")
+    res["warp"] = dict(
+        err=warp["err"], tol="atol 1e-2 + rtol 2^-7", ms=warp["ms"] / n, plain_ms=warp["plain_ms"] / n,
+        library_ms=warp["lib"] / n, bound=(warp["b"] / n, "bytes"),
+    )
+    return res
+
+
+def calm_stage3_heads_(model) -> None:
+    """Scale the flow heads' predict convs by 0.01 and set the mask heads'
+    predict bias to 4: stage 3 then refines the stage-2 seed and keeps most
+    cells valid.  Unscaled random heads scramble the flow and leave ~1% of
+    the cells valid, on which RANSAC works on a handful of noisy points."""
+    with torch.no_grad():
+        for head in model.flow_decoder.flow_pred:
+            head.predict.weight.mul_(0.01)
+        for head in model.flow_decoder.mask_pred:
+            head.predict.bias.fill_(4.0)
 
 
 def synthetic_world(n_views: int, queries: list[int], seed: int):
@@ -191,9 +302,10 @@ def check_outputs(name, scores, ids, pred_Ms, poses, n_views, expected_top1):
     check(orth < 1e-4, f"{name}: stage-2 rotations orthonormal")
 
 
-def profile_batch(run) -> float:
+def profile_batch(run, top: int = 16) -> tuple[float, float]:
     """Device time by kernel over one call of ``run`` (torch.profiler);
-    returns the device's busy ms."""
+    returns the device's busy ms and the device ms under aten::conv2d and
+    aten::conv_transpose2d."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -203,74 +315,164 @@ def profile_batch(run) -> float:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     dev_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    tot_us = lambda e: getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+    averages = prof.key_averages()
+    events = [e for e in averages if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
     busy_ms = sum(dev_us(e) for e in events) / 1e3
-    print(f"[profile] device busy {busy_ms!r} ms ({wall_ms!r} ms wall under the profiler)")
-    for e in sorted(events, key=dev_us, reverse=True)[:16]:
+    conv_ms = sum(tot_us(e) for e in averages if e.key in ("aten::conv2d", "aten::conv_transpose2d")) / 1e3
+    print(f"[profile] device busy {busy_ms!r} ms, convolutions {conv_ms!r} ms "
+          f"({wall_ms!r} ms wall under the profiler)")
+    for e in sorted(events, key=dev_us, reverse=True)[:top]:
         print(f"[profile] {dev_us(e) / 1e3!r} ms x{e.count} {e.key[:100]}")
-    return busy_ms
+    return busy_ms, conv_ms
 
 
-def full_slice(seed: int) -> dict:
+def host_ms(fn, runs: int) -> list[float]:
+    """Host-clock ms of ``runs`` calls of ``fn``, each around synchronised work."""
+    out = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def check_eval_output(name: str, out, B: int, hyp: int) -> None:
+    """run_batch's ranked poses: shapes, finite, rotations, ranked ratios.
+    A non-finite pose is printed with its hypothesis before the failure."""
+    R, t, ratio, ok, score = out
+    check(R.shape == (B, hyp, 3, 3) and t.shape == (B, hyp, 3), f"{name}: pose shapes")
+    check(ratio.shape == (B, hyp) and ok.shape == (B, hyp) and score.shape == (B, hyp), f"{name}: shapes")
+    bad = ~(torch.isfinite(R).flatten(2).all(-1) & torch.isfinite(t).all(-1))
+    for b, h in bad.nonzero().tolist():
+        print(f"[{name}] non-finite pose at query {b}, ranked hypothesis {h}: success "
+              f"{bool(ok[b, h])}, ratio {ratio[b, h].item()!r}, R {R[b, h].tolist()}, t {t[b, h].tolist()}")
+    check(not bool(bad.any()), f"{name}: every R and t finite")
+    check(bool(torch.isfinite(score).all()), f"{name}: template scores finite")
+    Rd = R.double()
+    orth = (Rd.transpose(-1, -2) @ Rd - torch.eye(3, dtype=Rd.dtype, device=Rd.device)).abs().amax().item()
+    check(orth < 1e-4, f"{name}: rotations orthonormal (max |R^T R - I| = {orth!r})")
+    check(bool(((ratio >= -1) & (ratio <= 1)).all()), f"{name}: inlier ratios in [-1, 1]")
+    check(bool((ratio[:, :-1] >= ratio[:, 1:]).all()), f"{name}: ranked best first")
+    print(f"[{name}] max |R^T R - I| = {orth!r}; PnP success share {ok.float().mean().item()!r}; "
+          f"best inlier ratio per query {ratio[:, 0].tolist()!r}")
+
+
+def full_width(seed: int) -> dict:
     """Phase 3: the main path at full ViT-L width; returns launch counts."""
     from picopose_tpu_torch import kernels
-    from picopose_tpu_torch.eval.pipeline import build_bank, select_templates, stage2_poses
+    from picopose_tpu_torch.eval.pipeline import (
+        build_bank, run_batch, select_templates, stage2_poses, stage3_correspondences,
+    )
     from picopose_tpu_torch.models import PicoPose
+    from picopose_tpu_torch.ops.pnp import ransac_pnp
     from picopose_tpu_torch.utils.weights import init_random_
 
-    n_views, B, hyp, chunk = 162, 16, 5, 32
+    n_views, B, hyp, chunk, iters = 162, 16, 5, 32, 150
     model = PicoPose("dinov2_vitl14", (5, 11, 17, 23), torch.bfloat16, device="cuda")
     init_random_(model, seed)
+    calm_stage3_heads_(model)
     queries = list(range(0, n_views, 10))[:B]
     bank_np, batch = synthetic_world(n_views, queries, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
     kernels.reset_launches()
-    bank, scores, ids, pred_Ms, poses = run_slice(model, bank_np, batch, hyp, chunk)
+    bank = build_bank(model, *bank_np, chunk=chunk)
+    out = run_batch(model, batch, bank, hyp=hyp, pnp_iters=iters, generator=g)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    print(f"[slice] launches during the main-path run: {launches}")
+    print(f"[main] launches during the main-path run (build_bank + run_batch): {launches}")
     for name in kernels.KERNELS:
         check(launches.get(name, 0) > 0, f"kernel {name} launched on the main path")
-    check(ids.shape == (B, hyp) and poses.shape == (B * hyp, 4, 4), "output shapes")
-    check_outputs("slice", scores, ids, pred_Ms, poses, n_views, queries)
-    print(f"[slice] peak device memory {torch.cuda.max_memory_allocated() / 2**30!r} GiB")
+    check(launches["corr_window"] == 6 and launches["warp"] == 3, "6 corr-window and 3 warp launches per batch")
+    print(f"[main] peak device memory {torch.cuda.max_memory_allocated() / 2**30!r} GiB")
+    check_eval_output("run_batch", out, B, hyp)
 
-    # bank build and per-batch times, host clock around synchronised work
     dev_bank = [torch.as_tensor(a, device="cuda") for a in bank_np]
     dev_batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    feats_real, scores, ids = select_templates(model, dev_batch, bank, hyp=hyp)
+    pred_Ms, poses = stage2_poses(model, dev_batch, bank, feats_real, ids)
+    check(ids.shape == (B, hyp) and poses.shape == (B * hyp, 4, 4), "output shapes")
+    check_outputs("main", scores, ids, pred_Ms, poses, n_views, queries)
+    torch.testing.assert_close(out.template_score, scores, atol=1e-5, rtol=0)  # stage 1's scores
 
-    def host_ms(fn, runs):
-        out = []
-        for _ in range(runs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            out.append((time.perf_counter() - t0) * 1e3)
-        return out
-
-    def one_batch():
+    # bank build and per-batch times, host clock around synchronised work
+    def stages_1_2():
         feats_real, _, ids = select_templates(model, dev_batch, bank, hyp=hyp)
         stage2_poses(model, dev_batch, bank, feats_real, ids)
 
+    def one_batch():
+        run_batch(model, dev_batch, bank, hyp=hyp, pnp_iters=iters, generator=g)
+
     bank_ms = host_ms(lambda: build_bank(model, *dev_bank, chunk=chunk), 4)[1:]
-    batch_ms = host_ms(one_batch, 21)[1:]
-    per_batch = float(np.median(batch_ms))
-    print(f"[slice] bank build (162 views, chunk 32) ms, 3 runs after one warm-up: {bank_ms!r}")
-    print(f"[slice] per batch (16 queries, hyp 5, stages 1-2) ms, 20 runs after one warm-up: "
-          f"median {per_batch!r}, min {min(batch_ms)!r}, max {max(batch_ms)!r} "
+    s12_ms = host_ms(stages_1_2, 21)[1:]
+    batch_ms = host_ms(one_batch, 13)[1:]
+    s12, per_batch = float(np.median(s12_ms)), float(np.median(batch_ms))
+    print(f"[main] bank build (162 views, chunk 32) ms, 3 runs after one warm-up: {bank_ms!r}")
+    print(f"[main] stages 1-2 per batch (16 queries, hyp 5) ms, 20 runs after one warm-up: "
+          f"median {s12!r}, min {min(s12_ms)!r}, max {max(s12_ms)!r} = {B / s12 * 1e3!r} crops/s")
+    print(f"[main] run_batch (16 queries, hyp 5, {iters} PnP iterations) ms, 12 runs after one "
+          f"warm-up: median {per_batch!r}, min {min(batch_ms)!r}, max {max(batch_ms)!r} "
           f"= {B / per_batch * 1e3!r} crops/s at the median")
-    print("[profile] one batch of 16 queries (select_templates + stage2_poses):")
-    busy_ms = profile_batch(one_batch)
-    print(f"[profile] device idle share against the unprofiled median: {1 - busy_ms / per_batch!r}")
+
+    # phase times of one batch on the host clock (synchronised between phases)
+    corr = stage3_correspondences(model, dev_batch, bank, feats_real, ids, pred_Ms)
+    real_K = dev_batch["real_K"].repeat_interleave(hyp, 0)
+    pnp = lambda: ransac_pnp(corr.model_pts, corr.pts2d, real_K, corr.valid, iters=iters, generator=g)
+    phases = {
+        "stage 1": lambda: select_templates(model, dev_batch, bank, hyp=hyp),
+        "stage 2": lambda: stage2_poses(model, dev_batch, bank, feats_real, ids),
+        "stage 3": lambda: stage3_correspondences(model, dev_batch, bank, feats_real, ids, pred_Ms),
+        "PnP": pnp,
+    }
+    print("[main] phase medians ms (5 runs after one warm-up): "
+          + ", ".join(f"{k} {float(np.median(host_ms(f, 6)[1:]))!r}" for k, f in phases.items()))
+    print(f"[main] valid correspondences per hypothesis: mean {corr.valid.float().sum(1).mean().item()!r} "
+          f"of {corr.valid.shape[1]}")
+
+    print("[profile] one batch of 16 queries, stages 1-2 (select_templates + stage2_poses):")
+    busy12, _ = profile_batch(stages_1_2)
+    print(f"[profile] stages 1-2 device idle share against the unprofiled median: {1 - busy12 / s12!r}")
+    print("[profile] one run_batch of 16 queries x 5 hypotheses:")
+    busy, _ = profile_batch(one_batch, top=24)
+    print("[profile] stage 3 alone (query DPT + flow decoder + correspondences):")
+    _, conv3 = profile_batch(phases["stage 3"], top=8)
+    print("[profile] PnP alone:")
+    busy_pnp, _ = profile_batch(pnp, top=8)
+    print(f"[profile] run_batch: device busy {busy!r} ms of the {per_batch!r} ms median; idle share "
+          f"{1 - busy / per_batch!r}; stage-3 convolutions {conv3!r} ms = {conv3 / busy!r} of busy; "
+          f"PnP device {busy_pnp!r} ms = {busy_pnp / busy!r} of busy")
     return launches
+
+
+def pnp_scene(rng, B: int, N: int):
+    """(pts3d, pts2d, K, valid) CPU tensors: B poses, N model points each
+    projected with 0.3 px noise, 30% of them moved anywhere in the image,
+    70% valid."""
+    K = np.array([[572.4, 0, 320.0], [0, 573.6, 240.0], [0, 0, 1.0]])
+    X = rng.uniform(-0.08, 0.08, size=(B, N, 3))
+    px = np.empty((B, N, 2))
+    for b in range(B):
+        q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+        R = q * np.sign(np.linalg.det(q))
+        t = np.array([rng.uniform(-0.1, 0.1), rng.uniform(-0.1, 0.1), rng.uniform(0.6, 1.5)])
+        p = X[b] @ R.T + t
+        px[b] = p[:, :2] / p[:, 2:] * [K[0, 0], K[1, 1]] + [K[0, 2], K[1, 2]] + rng.normal(0, 0.3, (N, 2))
+        out = rng.random(N) < 0.3
+        px[b, out] = rng.uniform([0, 0], [640, 480], size=(int(out.sum()), 2))
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32)
+    return f32(X), f32(px), f32(np.tile(K, (B, 1, 1))), torch.as_tensor(rng.random((B, N)) < 0.7)
 
 
 def small_reference(seed: int) -> None:
     """Phase 4: kernels on the card against the plain CPU path, same weights."""
+    from picopose_tpu_torch.eval.pipeline import stage3_correspondences
     from picopose_tpu_torch.models import PicoPose
+    from picopose_tpu_torch.ops.pnp import draw_samples, ransac_pnp
     from picopose_tpu_torch.utils.weights import init_random_
 
     def rel(got, ref):  # relative RMS error ||got - ref|| / ||ref||
@@ -279,10 +481,12 @@ def small_reference(seed: int) -> None:
 
     bank_np, batch = synthetic_world(6, [1, 4], seed + 1)
     # fp32: other summation orders only; bf16: other rounding points, and
-    # only the selected (best) hypothesis is compared
-    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 3e-2)):
+    # only the selected (best) hypothesis is compared; stage 3 runs on the
+    # CPU's template ids and stage-2 affines on both sides
+    for dtype, tol, tol3 in ((torch.float32, 1e-5, 1e-4), (torch.bfloat16, 3e-2, 3e-2)):
         cpu = PicoPose("vit_tiny_test", (0, 1, 2, 3), dtype, device="cpu")
         init_random_(cpu, seed)
+        calm_stage3_heads_(cpu)
         gpu = PicoPose("vit_tiny_test", (0, 1, 2, 3), dtype, device="cuda")
         gpu.load_state_dict(cpu.state_dict())
         ref = run_slice(cpu, bank_np, batch, 3, 4)
@@ -301,6 +505,33 @@ def small_reference(seed: int) -> None:
         errs["poses"] = rel(got[4][best], ref[4][best])
         print(f"[{name}] card vs CPU relative RMS errors: {errs!r}, bound {tol!r}")
         check(all(v <= tol for v in errs.values()), f"{name}: card agrees with the CPU path")
+
+        ids, pred_Ms = ref[2], ref[3]
+        with torch.inference_mode():
+            f_ref = cpu.features(torch.as_tensor(batch["real_rgb"]))
+            f_got = gpu.features(torch.as_tensor(batch["real_rgb"], device="cuda"))
+        c_ref = stage3_correspondences(cpu, batch, ref[0], f_ref, ids, pred_Ms)
+        c_got = stage3_correspondences(gpu, batch, got[0], f_got, ids.cuda(), pred_Ms.cuda())
+        errs3 = {f"flow{l}": rel(a, b) for l, (a, b) in enumerate(zip(c_got.flows, c_ref.flows))}
+        errs3.update({f"cert{l}": rel(a, b) for l, (a, b) in enumerate(zip(c_got.certs, c_ref.certs))})
+        print(f"[{name}] stage 3 card vs CPU relative RMS errors: {errs3!r}, bound {tol3!r}; "
+              f"valid masks equal for {(c_got.valid.cpu() == c_ref.valid).float().mean().item()!r} of cells")
+        check(all(v <= tol3 for v in errs3.values()), f"{name}: stage 3 on the card agrees with the CPU")
+
+    # PnP on identical correspondences with identical draws: a scene
+    # whose points project through one pose (0.3 px noise, 30% outliers,
+    # 70% valid), since the synthetic views' random points have no pose
+    args = pnp_scene(np.random.default_rng(seed + 2), 6, 4096)
+    draws = draw_samples(args[3], 150, 6, 1024, torch.Generator().manual_seed(seed))
+    p_ref = ransac_pnp(*args, sample_idx=draws[0], subset_idx=draws[1])
+    p_got = ransac_pnp(*(a.cuda() for a in args), sample_idx=draws[0].cuda(), subset_idx=draws[1].cuda())
+    torch.cuda.synchronize()
+    d = {k: (a.cpu().float() - b.float()).abs().max().item() for k, a, b in zip("R t ratio".split(), p_got, p_ref)}
+    print(f"[small] ransac_pnp card vs CPU max abs errors {d!r}; success {p_got.success.tolist()} "
+          f"vs {p_ref.success.tolist()}; ratios {p_ref.inlier_ratio.tolist()!r}")
+    check(bool(p_ref.success.all()), "small: PnP solves the scene")
+    check(torch.equal(p_got.success.cpu(), p_ref.success), "small: PnP success agrees")
+    check(d["ratio"] <= 1e-3 and d["R"] <= 1e-3 and d["t"] <= 1e-3, "small: PnP on the card agrees with the CPU")
 
 
 def main() -> int:
@@ -330,8 +561,8 @@ def main() -> int:
     checks = kernel_checks(g)
     print(f"[phase] kernel checks {time.perf_counter() - t0!r} s")
     t0 = time.perf_counter()
-    launches = full_slice(SEED)
-    print(f"[phase] full-width slice {time.perf_counter() - t0!r} s")
+    launches = full_width(SEED)
+    print(f"[phase] full-width main path {time.perf_counter() - t0!r} s")
     t0 = time.perf_counter()
     small_reference(SEED)
     print(f"[phase] small reference {time.perf_counter() - t0!r} s")
@@ -341,6 +572,8 @@ def main() -> int:
         "layernorm": "picopose_tpu/ops/pallas/layernorm.py:51",
         "attention": "picopose_tpu/ops/pallas/flash_attention.py:69",
         "match_scores": "picopose_tpu/ops/pallas/matching.py:81",
+        "corr_window": "picopose_tpu/ops/pallas/corr.py:327",
+        "warp": "picopose_tpu/ops/pallas/warp.py:102",
     }
     rows = []
     for name, (source, _, _) in kernels.KERNELS.items():

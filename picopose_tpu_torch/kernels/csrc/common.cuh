@@ -28,6 +28,41 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// One 16-byte vector of T (8 bf16 or 4 fp32) per lane: loads through the
+// read-only path and widened to fp32, stores rounded once from fp32.
+template <typename T> struct Vec16 { static constexpr int N = 16 / sizeof(T); };
+
+__device__ __forceinline__ void load16(const float* p, float* out) {
+  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+  out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+}
+__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
+  const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
+  const auto* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void store16(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store16(__nv_bfloat16* p, const float* v) {
+  uint4 raw;
+  auto* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  *reinterpret_cast<uint4*>(p) = raw;
+}
+
+// v rounded to T and widened back (the TPU kernels' weight rounding).
+template <typename T> __device__ __forceinline__ float round_to(float v) {
+  return to_f(from_f<T>(v));
+}
+
 }  // namespace pp
 
 // Every library exports the runtime's message for the codes it returns.

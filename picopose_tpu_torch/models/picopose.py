@@ -1,9 +1,11 @@
-"""PicoPose's neural stages 1-2 and the DPT pyramid head.
+"""PicoPose's neural stages: ViT taps, stage 2, the DPT pyramids and the
+stage-3 flow decoder.
 
 Counterpart of picopose_tpu/models/picopose.py: ``features`` (stage-1 ViT
-taps), ``stage2`` (similarity volume + affine head, fp32) and ``dpt``
-(template/query pyramids).  Geometry and matching are plain functions
-composed around the model by eval/pipeline.py.
+taps), ``stage2`` (similarity volume + affine head, fp32), ``dpt``
+(template/query pyramids), ``flow`` and ``stage3`` (flow decoding, fp32
+flows and certainties out).  Geometry, matching and PnP are plain
+functions composed around the model by eval/pipeline.py.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from picopose_tpu_torch.device import resolve_device
 from picopose_tpu_torch.models.affine_head import AffineRegressor
 from picopose_tpu_torch.models.dinov2 import VIT_CONFIGS, FeatureExtractor
 from picopose_tpu_torch.models.dpt import DPTHead
+from picopose_tpu_torch.models.flow import FlowDecoder
 from picopose_tpu_torch.ops.matching import feature_similarity_volume
 
 
@@ -40,6 +43,7 @@ class PicoPose(nn.Module):
             self.feature_extractor = FeatureExtractor(vit_type, blocks_to_take, compute_dtype)
             self.affine_regressor = AffineRegressor()
             self.dpt_head = DPTHead(in_channels=cfg.embed_dim)
+            self.flow_decoder = FlowDecoder()
         self.eval()
 
     def features(self, images: torch.Tensor) -> list[torch.Tensor]:
@@ -54,3 +58,18 @@ class PicoPose(nn.Module):
     def dpt(self, feats: list[torch.Tensor]) -> list[torch.Tensor]:
         """DPT pyramid of a 4-level backbone stack, in the compute dtype."""
         return self.dpt_head([x.to(self.compute_dtype) for x in feats])
+
+    def flow(self, tem_pyr, real_pyr, init_flow: torch.Tensor, init_certainty: torch.Tensor):
+        """Flow decoding over DPT pyramids (the query side may be shared by
+        consecutive template streams, see FlowDecoder); pyramids in the
+        compute dtype, flow and certainty in and out in fp32."""
+        flows, certs = self.flow_decoder(
+            [x.to(self.compute_dtype) for x in tem_pyr],
+            [x.to(self.compute_dtype) for x in real_pyr],
+            init_flow.float(), init_certainty.float(),
+        )
+        return [f.float() for f in flows], [c.float() for c in certs]
+
+    def stage3(self, tem_feats, real_feats, init_flow, init_certainty):
+        """DPT on both backbone stacks, then flow decoding."""
+        return self.flow(self.dpt(tem_feats), self.dpt(real_feats), init_flow, init_certainty)

@@ -1,11 +1,13 @@
 """Torch-semantics image resizing on NHWC (or NHW) tensors.
 
-Counterpart of picopose_tpu/ops/resize.py:30-76, written as gather + lerp
+Counterpart of picopose_tpu/ops/resize.py:30-85, written as gather + lerp
 so the rounding matches the JAX package (the lerp runs in the input's
 dtype) rather than ``F.interpolate``'s fp32 internal math:
 
   * nearest: src = floor(dst * in/out) (mask downsampling);
-  * bilinear, align_corners=True: src = dst * (in-1)/(out-1) (DPT fusion).
+  * bilinear, align_corners=True: src = dst * (in-1)/(out-1) (DPT fusion,
+    flow and certainty upsampling);
+  * 2x2 average pooling (the correlation pyramid).
 """
 
 from __future__ import annotations
@@ -51,3 +53,12 @@ def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
 
     top = lerp(x.index_select(1, ylo), x.index_select(1, yhi), wy, 1)
     return lerp(top.index_select(2, xlo), top.index_select(2, xhi), wx, 2)
+
+
+def avg_pool2d(x: torch.Tensor, k: int = 2) -> torch.Tensor:
+    """(B, H, W, C) average pool with kernel = stride = k (H, W divisible
+    by k).  The mean is taken in fp32 and rounded once to x's dtype, as
+    ``jnp.mean`` does for bf16."""
+    B, H, W, C = x.shape
+    pooled = x.reshape(B, H // k, k, W // k, k, C).float().mean(dim=(2, 4))
+    return pooled.to(x.dtype)

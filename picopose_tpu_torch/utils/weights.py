@@ -11,8 +11,10 @@ Layout rules, flax -> torch (the port keeps its own copy of them):
   * LayerNorm / GroupNorm / BatchNorm scale -> weight; the BatchNorm
     batch_stats mean / var -> running_mean / running_var;
   * LayerScale gamma, cls_token and pos_embed as they are;
-  * the affine head's fc1 keeps its NHWC row order (the port flattens NHWC).
-Flow-decoder parameters are not read: stage 3 is not in the port yet.
+  * the affine head's fc1 keeps its NHWC row order (the port flattens NHWC);
+  * the flow decoder's per-level modules (flax ``proj_{l}_conv``,
+    ``encoder_{l}``, ``flow_pred_{l}``, ...) -> ModuleList entries
+    (``proj_conv.{l}``, ``encoder.{l}``, ``flow_pred.{l}``, ...).
 """
 
 from __future__ import annotations
@@ -107,6 +109,18 @@ def _dpt(out: dict, params: Mapping, stats: Mapping, p: str) -> None:
         _conv(out, f"{p}.refinenet{rn}.out_conv", rp["out_conv"])
 
 
+def _flow_decoder(out: dict, params: Mapping, stats: Mapping, p: str) -> None:
+    levels = sum(1 for k in params if k.endswith("_conv") and k.startswith("proj_"))
+    for l in range(levels):
+        _conv(out, f"{p}.proj_conv.{l}", params[f"proj_{l}_conv"])
+        _batch_norm(out, f"{p}.proj_bn.{l}", params[f"proj_{l}_bn"], stats[f"proj_{l}_bn"])
+        for name, tree in params[f"encoder_{l}"].items():
+            _conv(out, f"{p}.encoder.{l}.{name}", tree)
+        for head in ("flow_pred", "mask_pred"):
+            for name, tree in params[f"{head}_{l}"].items():  # layers_0/1, predict
+                _conv(out, f"{p}.{head}.{l}.{name}", tree)
+
+
 def state_dict_from_flax(variables: Mapping[str, Any]) -> dict[str, np.ndarray]:
     """The JAX package's PicoPose variables (``params`` and ``batch_stats``,
     as arrays) -> the port's PicoPose state dict, as fp32 numpy arrays."""
@@ -116,6 +130,7 @@ def state_dict_from_flax(variables: Mapping[str, Any]) -> dict[str, np.ndarray]:
     _dinov2(out, params["feature_extractor"]["dinov2"], "feature_extractor.dinov2.")
     _affine_regressor(out, params["affine_regressor"], "affine_regressor")
     _dpt(out, params["dpt_head"], stats["dpt_head"], "dpt_head")
+    _flow_decoder(out, params["flow_decoder"], stats["flow_decoder"], "flow_decoder")
     return out
 
 

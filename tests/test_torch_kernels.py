@@ -21,9 +21,12 @@ import pytest
 import torch
 
 from picopose_tpu_torch import kernels
+from picopose_tpu_torch.geom.grids import pixel_coords_grid
 from picopose_tpu_torch.ops import attention as A
+from picopose_tpu_torch.ops import corr as CO
 from picopose_tpu_torch.ops import layernorm as L
 from picopose_tpu_torch.ops import matching as M
+from picopose_tpu_torch.ops import sample as S
 
 
 @pytest.fixture
@@ -46,6 +49,63 @@ def test_every_kernel_source_exports_its_entry_point(name):
     assert m, f"{source} does not export {entry}"
     assert len(m.group(1).split(",")) == len(argtypes)
     assert "PP_EXPORT_ERROR_STRING" in text
+
+
+def test_stage3_kernels_are_in_the_table():
+    assert kernels.KERNELS["corr_window"][0] == "corr.cu"
+    assert kernels.KERNELS["warp"][0] == "warp.cu"
+
+
+def _centres(g, B, G, level, device):
+    """(B, G*G, 2) window centres of a level-``level`` lookup: the pixel
+    grid plus a flow that pushes some windows past every edge and a few
+    far off the map."""
+    flow = torch.randn(B, G, G, 2, generator=g, device=device) * 3
+    flow[:, ::5] += torch.sign(torch.randn(B, 1, G, 2, generator=g, device=device)) * G * 0.9
+    flow[:, 1, :3] = 1e4
+    return ((pixel_coords_grid(G, G, device=device) + flow) / 2.0**level).reshape(B, G * G, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,level,group", [(16, 0, 1), (32, 1, 5), (64, 0, 5), (64, 2, 5), (32, 0, 3)])
+def test_corr_window_kernel_matches_plain(cuda_device, dtype, G, level, group):
+    g = torch.Generator(device=cuda_device).manual_seed(G + level)
+    B2, C, Hp = 2, 256, G >> level
+    f1 = torch.randn(B2 * group, G * G, C, generator=g, device=cuda_device).to(dtype)
+    f2 = torch.randn(B2, Hp * Hp, C, generator=g, device=cuda_device).to(dtype)
+    cen = _centres(g, B2 * group, G, level, cuda_device)
+    got = CO.corr_window_cuda(f1, f2, cen, Hp, Hp, 2, group)
+    torch.cuda.synchronize()
+    ref = CO.corr_window_plain(f1, f2, cen, Hp, Hp, 2, group)
+    assert got.dtype == dtype and got.shape == (B2 * group, G * G, 25)
+    assert bool((got[:, G : G + 3] == 0).all())  # windows far off the map
+    torch.testing.assert_close(got.float(), ref.float(), **_bf16_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,group", [(16, 1), (32, 5), (64, 5)])
+def test_warp_kernel_matches_plain(cuda_device, dtype, G, group):
+    g = torch.Generator(device=cuda_device).manual_seed(G + group)
+    B2, C = 2, 256
+    feat = torch.randn(B2, G * G, C, generator=g, device=cuda_device).to(dtype)
+    cen = _centres(g, B2 * group, G, 0, cuda_device)
+    got = S.warp_cuda(feat, cen, G, G, group)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and bool((got[:, G : G + 3] == 0).all())
+    torch.testing.assert_close(got.float(), S.warp_plain(feat, cen, G, G, group).float(), **_bf16_tol(dtype))
+
+
+@pytest.mark.cuda
+def test_stage3_launch_counts(cuda_device):
+    f1 = torch.randn(6, 32, 32, 64, device=cuda_device)
+    f2 = torch.randn(2, 32, 32, 64, device=cuda_device)
+    flow = torch.randn(6, 32, 32, 2, device=cuda_device)
+    kernels.reset_launches()
+    CO.corr_lookup(f1, f2, flow, 2, 3, group=3)
+    S.warp_by_flow(f2, flow, group=3)
+    assert kernels.LAUNCHES["corr_window"] == 3 and kernels.LAUNCHES["warp"] == 1
 
 
 @pytest.mark.cuda

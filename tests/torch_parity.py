@@ -47,3 +47,23 @@ def assert_close(got, ref, atol, rtol=0.0, what=""):
     ref = np.asarray(ref, np.float64)
     assert got.shape == ref.shape, (what, got.shape, ref.shape)
     np.testing.assert_allclose(got, ref, atol=atol, rtol=rtol, err_msg=what)
+
+
+def jax_pnp_draws(key, valid, iters: int, sample: int = 6, score_subset: int = 1024):
+    """The random draws ``picopose_tpu.ops.pnp.ransac_pnp`` makes from
+    ``key`` for the (B, N) ``valid`` mask, recovered as its
+    ``_ransac_pnp_single`` makes them (pnp.py:299-323): (sample_idx
+    (B, iters, sample), subset_idx (B, min(score_subset, N))), numpy."""
+    valid = np.asarray(valid, bool)
+    B, N = valid.shape
+    keys = jax.random.split(key, B)
+    sample_idx, subset_idx = [], []
+    for b in range(B):
+        k_hyp, k_sub = jax.random.split(keys[b])
+        v = jnp.asarray(valid[b])
+        table = jnp.argsort(jnp.logical_not(v))
+        nv = jnp.maximum(v.astype(jnp.float32).sum().astype(jnp.int32), 1)
+        sample_idx.append(table[jax.random.randint(k_hyp, (iters, sample), 0, nv)])
+        keys_sub = jnp.where(v, jax.random.uniform(k_sub, (N,)), -jnp.inf)
+        subset_idx.append(jax.lax.top_k(keys_sub, min(score_subset, N))[1])
+    return np.stack(sample_idx), np.stack(subset_idx)
