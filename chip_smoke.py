@@ -7,21 +7,27 @@ Phases (any failure exits non-zero before the result line):
   1. the card's name and power limit; build every CUDA kernel of the port
      from picopose_tpu_torch/kernels/csrc (one nvcc per source, in parallel);
   2. each kernel at the main path's shapes against its plain PyTorch
-     version (stated tolerance), with kernel / plain / library-call times
-     (CUDA events, inputs rotated so L2 does not hold them) and its bound;
-     the corr-window kernel at all six (grid, pooled) level pairs of a
-     batch and the warp kernel at its three grids, 80 streams sharing 16
-     query maps (group 5), windows pushed past the map edges;
+     version (stated tolerance), with kernel / plain / library-call device
+     times (kernel time per call in a torch.profiler trace, inputs rotated
+     so L2 does not hold them), the per-call time back to back on the
+     host clock where the host can dominate (K1, K2), and its bound; K1 at
+     the query batch's and a bank chunk's (rows, 257, 1024); K2 at
+     contiguous (16, 16, 257, 64) and on views of a (B, 257, 3, 16, 64)
+     qkv projection for B = 16 and 32, with SDPA on the same tensors; the
+     corr-window kernel at all six (grid, pooled) level pairs of a batch
+     and the warp kernel at its three grids, 80 streams sharing 16 query
+     maps (group 5), windows pushed past the map edges;
   3. the main path at full ViT-L width (dinov2_vitl14, taps 5/11/17/23,
      bf16, seeded random weights): build_bank over 162 views (chunk 32),
      then run_batch for 16 queries x 5 hypotheses with 150 PnP
      iterations, with every kernel's launch counter set to 0 just before
-     and read just after (6 corr-window and 3 warp launches per batch);
-     outputs checked (shapes, finite, R^T R = I, ratios in [-1, 1] ranked
-     best first; each query finds its own template view); then bank-build
-     times, the stages-1-2 batch time alone, the
-     run_batch time and crops/s, and profiles (device time by kernel, the
-     share of the stage-3 convs and of PnP, idle share);
+     and read just after (168 attention, 336 LN, 6 corr-window and 3 warp
+     launches; attention copies no q, k, v); outputs checked (shapes,
+     finite, R^T R = I, ratios in [-1, 1] ranked best first; each query
+     finds its own template view); then bank-build times and a profile of
+     one bank build (K1/K2 device ms, copy kernels), the stages-1-2 batch
+     time alone, the run_batch time and crops/s, and profiles (device time
+     by kernel, the share of the stage-3 convs and of PnP, idle share);
   4. the same path at a small size (vit_tiny_test, 6 views, 2 queries) on
      the card against the plain CPU path at the same weights, fp32 and
      bf16: stages 1-2, the stage-3 flows and certainties, and ransac_pnp
@@ -69,6 +75,34 @@ def cuda_ms(fn, inputs, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def dev_us(e) -> float:
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+
+
+def device_ms(fn, inputs, iters: int = 20) -> float:
+    """Device ms per call: the kernel time of ``iters`` calls, summed over a
+    torch.profiler trace (so host overhead between launches is left out),
+    inputs cycled as in ``cuda_ms``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for a in inputs:
+        fn(*a)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(*inputs[i % len(inputs)])
+        torch.cuda.synchronize()
+    us = sum(dev_us(e) for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    check(us > 0, "the profiler saw device time")
+    return us / iters / 1e3
+
+
+def timed(fn, inputs, iters: int = 20) -> tuple[float, float]:
+    """(device ms per call, ms per call back to back on the host clock)."""
+    return device_ms(fn, inputs, iters), cuda_ms(fn, inputs, iters)
+
+
 def bound(nbytes: float, flops: float, peak: float) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -86,34 +120,63 @@ def kernel_checks(g: torch.Generator) -> dict:
     rn = lambda *s: torch.randn(*s, generator=g, device=dev)
     out = {}
 
-    # K1: LayerNorm of the (16, 257, 1024) bf16 residual stream
-    xs = [(rn(16, 257, 1024) * 3 + 1.5).bfloat16() for _ in range(8)]  # 8 x 8.4 MB > 50 MB L2
+    # K1: LayerNorm of the bf16 residual stream, query batch and bank chunk
     scale, bias = rn(1024) * 0.2 + 1, rn(1024) * 0.5
-    args = [(x, scale, bias) for x in xs]
-    got, ref = L.layernorm_cuda(*args[0]), L.layernorm_plain(*args[0])
-    torch.cuda.synchronize()
-    # one bf16 rounding step apart at most: rtol 2^-7
-    torch.testing.assert_close(got.float(), ref.float(), atol=1e-3, rtol=2**-7)
     w16, b16 = scale.bfloat16(), bias.bfloat16()
-    out["layernorm"] = dict(
-        err=(got.float() - ref.float()).abs().max().item(), tol="atol 1e-3 + rtol 2^-7",
-        ms=cuda_ms(L.layernorm_cuda, args), plain_ms=cuda_ms(L.layernorm_plain, args),
-        library_ms=cuda_ms(lambda x, s, b: F.layer_norm(x, (1024,), w16, b16, 1e-6), args),
-        bound=bound(2 * xs[0].numel() * 2 + 2 * 1024 * 4, 8 * xs[0].numel(), H100_FP32_FLOPS),
-    )
+    for rows in (16, 32):
+        xs = [(rn(rows, 257, 1024) * 3 + 1.5).bfloat16() for _ in range(8)]  # 8 x >= 8.4 MB > 50 MB L2
+        args = [(x, scale, bias) for x in xs]
+        got, ref = L.layernorm_cuda(*args[0]), L.layernorm_plain(*args[0])
+        torch.cuda.synchronize()
+        # one bf16 rounding step apart at most: rtol 2^-7
+        torch.testing.assert_close(got.float(), ref.float(), atol=1e-3, rtol=2**-7)
+        r = dict(
+            err=(got.float() - ref.float()).abs().max().item(), tol="atol 1e-3 + rtol 2^-7",
+            ms_call=cuda_ms(L.layernorm_cuda, args), plain_ms=device_ms(L.layernorm_plain, args),
+            bound=bound(2 * xs[0].numel() * 2 + 2 * 1024 * 4, 8 * xs[0].numel(), H100_FP32_FLOPS),
+        )
+        r["ms"], r["library_ms"], r["library_call"] = (
+            device_ms(L.layernorm_cuda, args),
+            *timed(lambda x, s, b: F.layer_norm(x, (1024,), w16, b16, 1e-6), args),
+        )
+        print(f"[kernel] layernorm ({rows}, 257, 1024) bf16: device ms kernel {r['ms']!r}, "
+              f"F.layer_norm {r['library_ms']!r}; per call back to back kernel {r['ms_call']!r}, "
+              f"F.layer_norm {r['library_call']!r}; bound {r['bound'][0]!r} ms")
+        out.setdefault("layernorm", r)  # the query batch's shape goes in the JSON line
+        del xs, args, got, ref
 
-    # K2: attention of the ViT-L query batch, (16, 16, 257, 64) bf16
-    qkvs = [tuple(rn(16, 16, 257, 64).bfloat16() for _ in range(3)) for _ in range(3)]  # 76 MB
-    got, ref = A.attention_cuda(*qkvs[0]), A.attention_plain(*qkvs[0])
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got.float(), ref.float(), atol=1e-2, rtol=2**-7)
-    BH, N, D = 16 * 16, 257, 64
-    out["attention"] = dict(
-        err=(got.float() - ref.float()).abs().max().item(), tol="atol 1e-2 + rtol 2^-7",
-        ms=cuda_ms(A.attention_cuda, qkvs), plain_ms=cuda_ms(A.attention_plain, qkvs),
-        library_ms=cuda_ms(F.scaled_dot_product_attention, qkvs),
-        bound=bound(4 * BH * N * D * 2, 4 * BH * N * N * D, H100_BF16_FLOPS),
-    )
+    # K2: the ViT-L's attention in bf16: contiguous (16, 16, 257, 64), then
+    # the main path's layout (views of a (B, N, 3, H, D) qkv projection) at
+    # the query batch (B = 16) and a bank chunk (B = 32); SDPA on the same
+    # tensors
+    N, H, D = 257, 16, 64
+    for layout, B in (("contiguous", 16), ("qkv views", 16), ("qkv views", 32)):
+        sets = []
+        for _ in range(3):  # 3 x >= 25 MB: rotated past L2
+            if layout == "contiguous":
+                sets.append(tuple(rn(B, H, N, D).bfloat16() for _ in range(3)))
+            else:
+                qkv = rn(B, N, 3, H, D).bfloat16()
+                sets.append(tuple(qkv[:, :, i].transpose(1, 2) for i in range(3)))
+        A.INPUT_COPIES.clear()
+        got, ref = A.attention_cuda(*sets[0]), A.attention_plain(*sets[0])
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), ref.float(), atol=1e-2, rtol=2**-7)
+        check(not A.INPUT_COPIES, f"attention reads {layout} in place: {dict(A.INPUT_COPIES)}")
+        BH = B * H
+        r = dict(
+            err=(got.float() - ref.float()).abs().max().item(), tol="atol 1e-2 + rtol 2^-7",
+            ms_call=cuda_ms(A.attention_cuda, sets), plain_ms=device_ms(A.attention_plain, sets[:1], 5),
+            bound=bound(4 * BH * N * D * 2, 4 * BH * N * N * D, H100_BF16_FLOPS),
+        )
+        r["ms"] = device_ms(A.attention_cuda, sets)
+        r["library_ms"], r["library_call"] = timed(F.scaled_dot_product_attention, sets)
+        print(f"[kernel] attention ({B}, {H}, {N}, {D}) bf16 {layout}: max_abs_err {r['err']!r}; device ms "
+              f"kernel {r['ms']!r}, SDPA {r['library_ms']!r}; per call back to back kernel "
+              f"{r['ms_call']!r}, SDPA {r['library_call']!r}; bound {r['bound'][0]!r} ms")
+        if (layout, B) == ("qkv views", 16):
+            out["attention"] = r  # the main path's query batch goes in the JSON line
+        del sets, got, ref
 
     # K3: 16 queries against a 162-view bf16 bank (S = 256, C = 1024); each
     # query is a noisy copy of one view so the table has structure
@@ -137,9 +200,9 @@ def kernel_checks(g: torch.Generator) -> dict:
 
     out["match_scores"] = dict(
         err=(got - ref).abs().max().item(), tol="atol 1e-5",
-        ms=cuda_ms(M.match_scores_cuda, margs, iters=10),
-        plain_ms=cuda_ms(M.match_scores_plain, margs, iters=5),
-        library_ms=cuda_ms(library, margs, iters=5),
+        ms=device_ms(M.match_scores_cuda, margs, iters=10),
+        plain_ms=device_ms(M.match_scores_plain, margs, iters=5),
+        library_ms=device_ms(library, margs, iters=5),
         bound=bound(q.numel() * 2 + qm.numel() * 4 + t.numel() * 2 + B * Nv * 4,
                     2 * B * Nv * S * S * C, H100_BF16_FLOPS),
     )
@@ -187,7 +250,7 @@ def stage3_kernel_checks(g: torch.Generator) -> dict:
             torch.cuda.synchronize()
             torch.testing.assert_close(got.float(), ref.float(), **tol)
             err = (got.float() - ref.float()).abs().max().item()
-            ms, plain = cuda_ms(CO.corr_window_cuda, args), cuda_ms(CO.corr_window_plain, args[:1], iters=3)
+            ms, plain = device_ms(CO.corr_window_cuda, args), device_ms(CO.corr_window_plain, args[:1], iters=3)
             nbytes = (B * G * G * C + B2 * Hp * Hp * C) * 2 + B * G * G * (2 * 4 + 25 * 2)
             flops = B * G * G * 36 * C * 2
             bd = bound(nbytes, flops, H100_BF16_FLOPS)
@@ -219,9 +282,9 @@ def stage3_kernel_checks(g: torch.Generator) -> dict:
             return x, (cen * (2.0 / (G - 1)) - 1.0).reshape(B, G, G, 2).to(x.dtype)
 
         lib_args = [library_args(*a) for a in args]
-        lib = cuda_ms(lambda x, grid: F.grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
-                                                    align_corners=True), lib_args)
-        ms, plain = cuda_ms(SA.warp_cuda, args), cuda_ms(SA.warp_plain, args[:1], iters=3)
+        lib = device_ms(lambda x, grid: F.grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
+                                                      align_corners=True), lib_args)
+        ms, plain = device_ms(SA.warp_cuda, args), device_ms(SA.warp_plain, args[:1], iters=3)
         nbytes = (B2 * G * G * C + B * G * G * C) * 2 + B * G * G * 2 * 4
         bd = bound(nbytes, B * G * G * 4 * C * 2, H100_BF16_FLOPS)
         print(f"[kernel] warp G={G}: max_abs_err {err!r}, kernel {ms!r} ms, plain {plain!r} ms, "
@@ -302,10 +365,10 @@ def check_outputs(name, scores, ids, pred_Ms, poses, n_views, expected_top1):
     check(orth < 1e-4, f"{name}: stage-2 rotations orthonormal")
 
 
-def profile_batch(run, top: int = 16) -> tuple[float, float]:
+def profile_batch(run, top: int = 16) -> tuple[float, float, list]:
     """Device time by kernel over one call of ``run`` (torch.profiler);
-    returns the device's busy ms and the device ms under aten::conv2d and
-    aten::conv_transpose2d."""
+    returns the device's busy ms, the device ms under aten::conv2d and
+    aten::conv_transpose2d, and the device events by kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -314,7 +377,6 @@ def profile_batch(run, top: int = 16) -> tuple[float, float]:
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    dev_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
     tot_us = lambda e: getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
     averages = prof.key_averages()
     events = [e for e in averages if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
@@ -324,7 +386,27 @@ def profile_batch(run, top: int = 16) -> tuple[float, float]:
           f"({wall_ms!r} ms wall under the profiler)")
     for e in sorted(events, key=dev_us, reverse=True)[:top]:
         print(f"[profile] {dev_us(e) / 1e3!r} ms x{e.count} {e.key[:100]}")
-    return busy_ms, conv_ms
+    return busy_ms, conv_ms, events
+
+
+def profile_bank(build) -> None:
+    """One bank build's device time, its trunk kernels (K1, K2) and every
+    copy kernel in it; fails if attention took another kernel than the
+    Hopper one."""
+    busy, _, events = profile_batch(build, top=12)
+
+    def part(match):
+        sel = [e for e in events if match(e.key)]
+        return sum(dev_us(e) for e in sel) / 1e3, sum(e.count for e in sel)
+
+    k1, k2 = part(lambda k: "layernorm" in k), part(lambda k: "attention_hopper" in k)
+    other = part(lambda k: "attention_" in k and "hopper" not in k)
+    copies = [e for e in events if "copy" in e.key.lower()]
+    print(f"[bank] device busy {busy!r} ms; K1 layernorm {k1[0]!r} ms x{k1[1]}; K2 attention "
+          f"{k2[0]!r} ms x{k2[1]}; copy kernels {sum(dev_us(e) for e in copies) / 1e3!r} ms")
+    for e in copies:
+        print(f"[bank] copy kernel {dev_us(e) / 1e3!r} ms x{e.count} {e.key[:120]}")
+    check(k2[1] == 144 and other[1] == 0, "the bank build's 144 attention launches all take the Hopper kernel")
 
 
 def host_ms(fn, runs: int) -> list[float]:
@@ -367,6 +449,7 @@ def full_width(seed: int) -> dict:
         build_bank, run_batch, select_templates, stage2_poses, stage3_correspondences,
     )
     from picopose_tpu_torch.models import PicoPose
+    from picopose_tpu_torch.ops.attention import INPUT_COPIES
     from picopose_tpu_torch.ops.pnp import ransac_pnp
     from picopose_tpu_torch.utils.weights import init_random_
 
@@ -381,6 +464,7 @@ def full_width(seed: int) -> dict:
     torch.cuda.reset_peak_memory_stats()
 
     kernels.reset_launches()
+    INPUT_COPIES.clear()
     bank = build_bank(model, *bank_np, chunk=chunk)
     out = run_batch(model, batch, bank, hyp=hyp, pnp_iters=iters, generator=g)
     torch.cuda.synchronize()
@@ -389,6 +473,9 @@ def full_width(seed: int) -> dict:
     for name in kernels.KERNELS:
         check(launches.get(name, 0) > 0, f"kernel {name} launched on the main path")
     check(launches["corr_window"] == 6 and launches["warp"] == 3, "6 corr-window and 3 warp launches per batch")
+    # 24 blocks x (6 bank chunks + 1 query batch): one attention and two LNs each
+    check(launches["attention"] == 168 and launches["layernorm"] == 336, "168 attention and 336 LN launches")
+    check(not INPUT_COPIES, f"attention read q, k, v in place on the main path: {dict(INPUT_COPIES)}")
     print(f"[main] peak device memory {torch.cuda.max_memory_allocated() / 2**30!r} GiB")
     check_eval_output("run_batch", out, B, hyp)
 
@@ -413,6 +500,8 @@ def full_width(seed: int) -> dict:
     batch_ms = host_ms(one_batch, 13)[1:]
     s12, per_batch = float(np.median(s12_ms)), float(np.median(batch_ms))
     print(f"[main] bank build (162 views, chunk 32) ms, 3 runs after one warm-up: {bank_ms!r}")
+    print("[profile] one bank build (162 views, chunk 32):")
+    profile_bank(lambda: build_bank(model, *dev_bank, chunk=chunk))
     print(f"[main] stages 1-2 per batch (16 queries, hyp 5) ms, 20 runs after one warm-up: "
           f"median {s12!r}, min {min(s12_ms)!r}, max {max(s12_ms)!r} = {B / s12 * 1e3!r} crops/s")
     print(f"[main] run_batch (16 queries, hyp 5, {iters} PnP iterations) ms, 12 runs after one "
@@ -435,14 +524,14 @@ def full_width(seed: int) -> dict:
           f"of {corr.valid.shape[1]}")
 
     print("[profile] one batch of 16 queries, stages 1-2 (select_templates + stage2_poses):")
-    busy12, _ = profile_batch(stages_1_2)
+    busy12, _, _ = profile_batch(stages_1_2)
     print(f"[profile] stages 1-2 device idle share against the unprofiled median: {1 - busy12 / s12!r}")
     print("[profile] one run_batch of 16 queries x 5 hypotheses:")
-    busy, _ = profile_batch(one_batch, top=24)
+    busy, _, _ = profile_batch(one_batch, top=24)
     print("[profile] stage 3 alone (query DPT + flow decoder + correspondences):")
-    _, conv3 = profile_batch(phases["stage 3"], top=8)
+    _, conv3, _ = profile_batch(phases["stage 3"], top=8)
     print("[profile] PnP alone:")
-    busy_pnp, _ = profile_batch(pnp, top=8)
+    busy_pnp, _, _ = profile_batch(pnp, top=8)
     print(f"[profile] run_batch: device busy {busy!r} ms of the {per_batch!r} ms median; idle share "
           f"{1 - busy / per_batch!r}; stage-3 convolutions {conv3!r} ms = {conv3 / busy!r} of busy; "
           f"PnP device {busy_pnp!r} ms = {busy_pnp / busy!r} of busy")

@@ -15,6 +15,7 @@ run went through the kernels.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -30,11 +31,12 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_S = ctypes.c_char_p  # int64 values packed with struct.pack
 
 # kernel name -> (source file, C entry point, argument types)
 KERNELS = {
     "layernorm": ("layernorm.cu", "pp_layernorm", [_P, _P, _P, _P, _L, _I, _F, _I, _P]),
-    "attention": ("attention.cu", "pp_attention", [_P, _P, _P, _P, _I, _I, _I, _F, _I, _P]),
+    "attention": ("attention.cu", "pp_attention", [_P, _P, _P, _P, _I, _I, _I, _I, _S, _F, _I, _P]),
     "match_scores": ("matching.cu", "pp_match_scores", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "corr_window": ("corr.cu", "pp_corr_window", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P]),
     "warp": ("warp.cu", "pp_warp", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
@@ -43,6 +45,7 @@ KERNELS = {
 LAUNCHES: collections.Counter = collections.Counter()
 
 _libs: dict[str, ctypes.CDLL] = {}
+_entries: dict[str, object] = {}  # kernel name -> its C entry point
 _lock = threading.Lock()
 
 
@@ -75,6 +78,7 @@ def _load(name: str, path: str) -> None:
     fn.argtypes, fn.restype = argtypes, ctypes.c_int
     lib.pp_error_string.argtypes, lib.pp_error_string.restype = [_I], ctypes.c_char_p
     _libs[name] = lib
+    _entries[name] = fn
 
 
 def build(names=None, verbose: bool = False) -> dict[str, str]:
@@ -121,12 +125,13 @@ def launch(name: str, *args) -> None:
 
     Raises if the launch was refused; a fault during the run shows at the
     next synchronisation."""
-    if name not in _libs:
+    fn = _entries.get(name)
+    if fn is None:
         build([name])
-    lib = _libs[name]
-    err = getattr(lib, KERNELS[name][1])(*args)
+        fn = _entries[name]
+    err = fn(*args)
     if err != 0:
-        msg = lib.pp_error_string(err).decode()
+        msg = _libs[name].pp_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err} ({msg})")
     LAUNCHES[name] += 1
 
@@ -148,4 +153,15 @@ def stream_of(t) -> int:
     """Raw handle of the current CUDA stream on ``t``'s device."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+def on_device_of(t):
+    """A context that makes ``t``'s card the current device, as the C entry
+    points launch there; a no-op when it already is."""
+    import torch
+
+    index = t.get_device()
+    if index == torch._C._cuda_getDevice():
+        return contextlib.nullcontext()
+    return torch.cuda.device(index)

@@ -1,37 +1,572 @@
-// Fused softmax attention for short sequences: (BH, N, D) -> (BH, N, D).
+// Softmax attention for short sequences: (B, H, N, D) -> (B, H, N, D).
 //
 // Replaces picopose_tpu/ops/pallas/flash_attention.py::flash_attention
 // (_attn_kernel): S = Q K^T in fp32 from storage-dtype operands, the scale
-// applied to the fp32 scores, keys >= N masked, fp32 softmax, P rounded to
-// V's dtype, P V accumulated in fp32, output in Q's dtype.
+// applied to the fp32 scores, keys >= N masked, fp32 softmax over the whole
+// row, P rounded to V's dtype once, P V accumulated in fp32, output in Q's
+// dtype.
 //
 // Bound: bytes.  At (16*16, 257, 64) bf16 the kernel must move 33.7 MB
 // (~10 us at 3.35 TB/s) for 4.3 GFLOP (~4.4 us on the bf16 tensor cores).
 //
-// bf16 (the main path): one block of 4 warps per (batch*head, 64 query
-// rows).  K, V of the head and the Q tile are copied to shared memory in
-// 16-byte cp.async pieces, all in flight at once (rows padded by 16 bytes, keys padded to a multiple of 16
-// with zero rows: the ragged edge is masked here, not padded to 384 as on
-// the TPU).  Each warp owns 16 query rows and walks the keys in chunks of
-// 64 with tensor-core (wmma / mma.sync) products into a small fp32 scratch.
-// The softmax must see the whole row before P is rounded to bf16 (as the
-// TPU kernel does), so the chunked Q K^T is recomputed in two passes --
-// row maximum and sum, then P and P V -- instead of keeping a 16 x N fp32
-// score block per warp: the products are cheap, shared memory is not.
-// fp32: one warp per query row on the CUDA cores (keys spread over lanes,
-// P shuffled to the lane owning each output column).
+// Three kernels, chosen by shape in pp_attention:
+//
+// bf16, N <= 272 (the main path, N = 257): Hopper's wgmma, TMA and
+// mbarriers.  q, k and v are read in place by strides (the ViT hands views
+// of its (B, N, 3, H, D) qkv projection), O is written by strides (the ViT
+// passes a (B, N, H, D) buffer, so its head merge is a view).  One
+// persistent block per SM walks over (batch, head) pairs; per head, one
+// producer warp loads K and V once (two 136-row TMA boxes each, keys past N
+// zero-filled) into a double-buffered slot, so the next head's K/V arrive
+// while this head computes, and the Q tiles of 64 rows into a ring of two
+// slots per consumer.  Two consumer warpgroups take the head's row tiles in
+// turn (the 257th row's tile is one tile among five, and the turns run on
+// across heads, so neither consumer idles on it); warps whose 16 rows all
+// lie past N skip the softmax.  A consumer computes S = Q K^T for its 64
+// rows over all 272 keys with SS wgmma (m64n256k16 + m64n16k16 per 16 of
+// D: 136 fp32 registers a thread), so Q K^T is computed once and the
+// score row never leaves registers.  The row maximum and sum are quad
+// shuffles in the accumulator layout; P = exp2(s*c - m*c) * (1/l), with
+// c = D^-0.5 * log2(e) folded in and the reciprocal of the row sum taken
+// once per row, is rounded to bf16 once the whole row is known (the TPU
+// kernel's rounding, hence no online softmax) and packed straight into
+// wgmma's register-A fragments: the accumulator layout of a k16 column
+// chunk is the A layout.  O += P V is 17 RS wgmmas with V read from shared
+// memory as a transposed (MN-major) B operand.  Swizzle: 128 B for D = 64
+// (one row), 64 B for D = 32.  setmaxnreg gives the consumers 240
+// registers and the producer warpgroup 24.
+//
+// bf16, 272 < N <= 512: one block of 4 warps per (batch*head, 64 query
+// rows) with K, V and the Q tile copied to shared memory by cp.async; each
+// warp computes 16 query rows with wmma (mma.sync) products, recomputing
+// the chunked Q K^T in two passes (row maximum and sum, then P and P V).
+//
+// fp32 (any N <= 512): one warp per query row on the CUDA cores (keys
+// spread over lanes, P shuffled to the lane owning each output column); V
+// is read from device memory where it does not fit beside K (N = 512 at
+// D = 64).
+//
+// The last two take contiguous (BH, N, D) tensors only.
 
 #include "common.cuh"
 
+#include <cuda.h>  // CUtensorMap and its enums (the encoder is fetched at run time)
 #include <cuda_pipeline.h>
 #include <mma.h>
 
+#include <cstdint>
+
+// internal linkage throughout: a function-local static of a template would
+// otherwise be one object across every library loaded in the process
 namespace {
+namespace hop {
+
+using bf16 = __nv_bfloat16;
+constexpr int kMaxKeys = 272;   // a score row held in registers: n256 + n16
+constexpr int kRows = 64;       // query rows per tile (wgmma M)
+constexpr int kKvBox = 136;     // rows per K/V TMA box; two boxes cover 272
+constexpr int kConsumers = 2;   // consumer warpgroups
+constexpr int kQSlots = 2;      // Q tiles in flight per consumer
+constexpr int kThreads = 128 * (1 + kConsumers);
+constexpr int kPSteps = kMaxKeys / 16;  // k16 steps of P V
+
+template <int D>
+struct Layout {
+  static constexpr int kRowBytes = D * 2;
+  static constexpr int kGroup = 8 * kRowBytes;      // one 8-row swizzle atom
+  static constexpr int kKv = kMaxKeys * kRowBytes;  // K or V of one head
+  static constexpr int kQ = kRows * kRowBytes;
+  static constexpr int kK0 = 0;                     // K[2]
+  static constexpr int kV0 = 2 * kKv;               // V[2]
+  static constexpr int kQ0 = 4 * kKv;               // Q[consumer][slot]
+  static constexpr int kBar = kQ0 + kConsumers * kQSlots * kQ;
+  static constexpr int kNumBars = 4 + 2 * kConsumers * kQSlots;
+  static constexpr int kBytes = kBar + kNumBars * 8 + 1024;  // + alignment slack
+  static_assert(kKv % 1024 == 0 && kQ % 1024 == 0 && (kKvBox * kRowBytes) % kGroup == 0,
+                "tiles must start on swizzle-pattern boundaries");
+  static_assert(kPSteps == 17, "P V steps: 16 from the n256 chunk, 1 from the n16 chunk");
+};
+
+struct Args {
+  bf16* o;
+  long long o_sb, o_sh, o_sn;     // output strides in elements (D contiguous)
+  int N, H, BH;
+  int roles_q, roles_k, roles_v;  // per sorted map dim: 0 = n, 1 = h, 2 = b
+  float scale_log2;               // D^-0.5 * log2(e)
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// spin until the barrier's phase with the given parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// coordinate of sorted map dim k (of n, h, b) for this tile
+__device__ __forceinline__ int coord(int roles, int k, int row, int h, int b) {
+  const int r = (roles >> (2 * k)) & 3;
+  return r == 0 ? row : (r == 1 ? h : b);
+}
+
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int roles, int row, int h, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(0),
+      "r"(coord(roles, 0, row, h, b)), "r"(coord(roles, 1, row, h, b)),
+      "r"(coord(roles, 2, row, h, b))
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a tile whose rows are one swizzle
+// width long (128 B for D = 64, 64 B for D = 32), 8-row atoms packed.
+// K-major (Q, K): the stride between 8-row groups is SBO, LBO unused.
+// MN-major (V as the transposed B of P V): SBO steps 8 keys; the row is
+// one atom wide in D, so LBO is unused too and set to the same stride.
+template <int D>
+__device__ __forceinline__ uint64_t desc(uint32_t addr, bool mn_major) {
+  constexpr uint64_t kSwizzle = D == 64 ? 1 : 2;  // 128 B : 64 B
+  constexpr uint64_t kGroup16 = Layout<D>::kGroup >> 4;
+  const uint64_t lbo = mn_major ? kGroup16 : 1;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (lbo << 16) | (kGroup16 << 32) |
+         (kSwizzle << 62);
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keep the compiler from moving accesses of wgmma registers across the
+// asynchronous window
+template <int n>
+__device__ __forceinline__ void pin(float (&r)[n]) {
+#pragma unroll
+  for (int i = 0; i < n; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int n>
+__device__ __forceinline__ void pin(uint32_t (&r)[n][4]) {
+#pragma unroll
+  for (int i = 0; i < n; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+#define PP_F4(a, i) "+f"(a[i]), "+f"(a[i + 1]), "+f"(a[i + 2]), "+f"(a[i + 3])
+#define PP_F8(a, i) PP_F4(a, i), PP_F4(a, i + 4)
+
+// d (+)= A B with A, B from shared memory, both K-major
+__device__ __forceinline__ void mma_ss_n256(float (&d)[128], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 0;\n}\n"
+      : PP_F8(d, 0), PP_F8(d, 8), PP_F8(d, 16), PP_F8(d, 24), PP_F8(d, 32), PP_F8(d, 40),
+        PP_F8(d, 48), PP_F8(d, 56), PP_F8(d, 64), PP_F8(d, 72), PP_F8(d, 80), PP_F8(d, 88),
+        PP_F8(d, 96), PP_F8(d, 104), PP_F8(d, 112), PP_F8(d, 120)
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+__device__ __forceinline__ void mma_ss_n16(float (&d)[8], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : PP_F8(d, 0)
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// d (+)= A B with A from registers, B from shared memory MN-major
+__device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                       int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : PP_F8(d, 0), PP_F8(d, 8), PP_F8(d, 16), PP_F8(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+__device__ __forceinline__ void mma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b,
+                                       int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : PP_F8(d, 0), PP_F8(d, 8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+#undef PP_F8
+#undef PP_F4
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// 2^x on the SFU (ex2.approx: ~2 ulp, denormal results flushed; 2^-inf = 0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Accumulator layout of m64nNk16 (per warp 16 rows): element i sits at row
+// r + 8 * ((i >> 1) & 1), column 8 * (i >> 2) + 2 * qd + (i & 1), with
+// r = lane / 4 and qd = lane % 4; the n256 chunk holds keys 0..255, the
+// n16 chunk keys 256..271.
+template <int D>
+__device__ __forceinline__ void consume_tile(const Args& args, uint32_t qs, uint32_t ks,
+                                             uint32_t vs, int row0, int b, int h,
+                                             uint64_t* q_empty) {
+  constexpr int kRowBytes = Layout<D>::kRowBytes;
+  const int lane = threadIdx.x % 32;
+  const int r = lane / 4, qd = lane % 4;
+  float sc[128], st[8];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) sc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) st[i] = 0.f;
+
+  pin(sc);
+  pin(st);
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint64_t a = desc<D>(qs + kk * 32, false);
+    mma_ss_n256(sc, a, desc<D>(ks + kk * 32, false), kk);
+    mma_ss_n16(st, a, desc<D>(ks + 256 * kRowBytes + kk * 32, false), kk);
+  }
+  wg_commit();
+  wg_wait_all();
+  pin(sc);
+  pin(st);
+  __syncwarp();
+  if (lane == 0) mbar_arrive(q_empty);  // this warp is done with the Q tile
+
+  const int N = args.N;
+  uint32_t pa[kPSteps][4];
+  if (row0 < N) {  // warp-uniform: past N the rows are zero-filled and unused
+    // keys >= N to -inf: the n16 chunk always, the n256 chunk when N < 256
+    if (N < 256) {
+#pragma unroll
+      for (int i = 0; i < 128; ++i)
+        if (8 * (i >> 2) + 2 * qd + (i & 1) >= N) sc[i] = -CUDART_INF_F;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (256 + 8 * (i >> 2) + 2 * qd + (i & 1) >= N) st[i] = -CUDART_INF_F;
+    // four partial maxima and sums per row (by column group j % 4), so the
+    // reductions are four short dependency chains instead of one long one
+    float m0[4], m1[4], l0[4], l1[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) m0[j] = m1[j] = -CUDART_INF_F, l0[j] = l1[j] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 128; ++i) {
+      if (i & 2) m1[(i >> 2) & 3] = fmaxf(m1[(i >> 2) & 3], sc[i]);
+      else m0[(i >> 2) & 3] = fmaxf(m0[(i >> 2) & 3], sc[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (i & 2) m1[i >> 2] = fmaxf(m1[i >> 2], st[i]);
+      else m0[i >> 2] = fmaxf(m0[i >> 2], st[i]);
+    }
+    float r0 = fmaxf(fmaxf(m0[0], m0[1]), fmaxf(m0[2], m0[3]));
+    float r1 = fmaxf(fmaxf(m1[0], m1[1]), fmaxf(m1[2], m1[3]));
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      r0 = fmaxf(r0, __shfl_xor_sync(0xffffffffu, r0, o));
+      r1 = fmaxf(r1, __shfl_xor_sync(0xffffffffu, r1, o));
+    }
+    const float c2 = args.scale_log2, mc0 = -r0 * c2, mc1 = -r1 * c2;
+#pragma unroll
+    for (int i = 0; i < 128; ++i) {
+      const float p = exp2_approx(fmaf(sc[i], c2, (i & 2) ? mc1 : mc0));
+      sc[i] = p;
+      if (i & 2) l1[(i >> 2) & 3] += p; else l0[(i >> 2) & 3] += p;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float p = exp2_approx(fmaf(st[i], c2, (i & 2) ? mc1 : mc0));
+      st[i] = p;
+      if (i & 2) l1[i >> 2] += p; else l0[i >> 2] += p;
+    }
+    float s0 = (l0[0] + l0[1]) + (l0[2] + l0[3]), s1 = (l1[0] + l1[1]) + (l1[2] + l1[3]);
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+      s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+    }
+    const float i0 = 1.f / s0, i1 = 1.f / s1;
+    // k16 step u of P V: columns 16u..16u+15 are accumulator elements
+    // 8u..8u+7, already in register-A order
+#pragma unroll
+    for (int u = 0; u < 16; ++u) {
+      const float* e = sc + 8 * u;
+      pa[u][0] = pack_bf16(e[0] * i0, e[1] * i0);
+      pa[u][1] = pack_bf16(e[2] * i1, e[3] * i1);
+      pa[u][2] = pack_bf16(e[4] * i0, e[5] * i0);
+      pa[u][3] = pack_bf16(e[6] * i1, e[7] * i1);
+    }
+    pa[16][0] = pack_bf16(st[0] * i0, st[1] * i0);
+    pa[16][1] = pack_bf16(st[2] * i1, st[3] * i1);
+    pa[16][2] = pack_bf16(st[4] * i0, st[5] * i0);
+    pa[16][3] = pack_bf16(st[6] * i1, st[7] * i1);
+  } else {
+#pragma unroll
+    for (int u = 0; u < kPSteps; ++u)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) pa[u][j] = 0u;
+  }
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  pin(o);
+  pin(pa);
+  wg_fence();
+#pragma unroll
+  for (int u = 0; u < kPSteps; ++u)
+    mma_rs(o, pa[u], desc<D>(vs + u * 16 * kRowBytes, true), u);
+  wg_commit();
+  wg_wait_all();
+  pin(o);
+
+  const int n0 = row0 + r, n1 = n0 + 8;
+  bf16* ob = args.o + b * args.o_sb + h * args.o_sh + 2 * qd;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    if (n0 < N)
+      *reinterpret_cast<__nv_bfloat162*>(ob + n0 * args.o_sn + 8 * j) =
+          __floats2bfloat162_rn(o[4 * j], o[4 * j + 1]);
+    if (n1 < N)
+      *reinterpret_cast<__nv_bfloat162*>(ob + n1 * args.o_sn + 8 * j) =
+          __floats2bfloat162_rn(o[4 * j + 2], o[4 * j + 3]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+attention_hopper_kernel(const __grid_constant__ CUtensorMap qmap,
+                        const __grid_constant__ CUtensorMap kmap,
+                        const __grid_constant__ CUtensorMap vmap, const Args args) {
+  using L = Layout<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* kv_full = bars;                        // [slot]
+  uint64_t* kv_empty = bars + 2;                   // [slot]
+  uint64_t* q_full = bars + 4;                     // [consumer * kQSlots + slot]
+  uint64_t* q_empty = q_full + kConsumers * kQSlots;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(kv_full + s, 1);
+      mbar_init(kv_empty + s, kConsumers * 4);  // every consumer warp
+    }
+    for (int i = 0; i < kConsumers * kQSlots; ++i) {
+      mbar_init(q_full + i, 1);
+      mbar_init(q_empty + i, 4);  // the owning consumer's warps
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Tile g = it * tiles + t (t-th row tile of this block's it-th head)
+  // belongs to consumer g % 2, as its (g / 2)-th tile.
+  const int tiles = (args.N + kRows - 1) / kRows;
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      int it = 0;
+      for (int bh = blockIdx.x; bh < args.BH; bh += gridDim.x, ++it) {
+        const int b = bh / args.H, h = bh % args.H, s = it & 1;
+        mbar_wait(kv_empty + s, ((it >> 1) & 1) ^ 1);
+        mbar_expect_tx(kv_full + s, 2 * L::kKv);
+        for (int box = 0; box < kMaxKeys / kKvBox; ++box) {
+          const int off = box * kKvBox * L::kRowBytes;
+          tma_load(smem + L::kK0 + s * L::kKv + off, &kmap, kv_full + s, args.roles_k,
+                   box * kKvBox, h, b);
+          tma_load(smem + L::kV0 + s * L::kKv + off, &vmap, kv_full + s, args.roles_v,
+                   box * kKvBox, h, b);
+        }
+        for (int t = 0; t < tiles; ++t) {
+          const int g = it * tiles + t, lt = g / kConsumers;
+          const int i = (g % kConsumers) * kQSlots + lt % kQSlots;
+          mbar_wait(q_empty + i, ((lt / kQSlots) & 1) ^ 1);
+          mbar_expect_tx(q_full + i, L::kQ);
+          tma_load(smem + L::kQ0 + i * L::kQ, &qmap, q_full + i, args.roles_q, t * kRows, h, b);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int c = wg - 1, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    int it = 0;
+    for (int bh = blockIdx.x; bh < args.BH; bh += gridDim.x, ++it) {
+      const int b = bh / args.H, h = bh % args.H, s = it & 1;
+      mbar_wait(kv_full + s, (it >> 1) & 1);
+      const uint32_t ks = smem_u32(smem + L::kK0 + s * L::kKv);
+      const uint32_t vs = smem_u32(smem + L::kV0 + s * L::kKv);
+      for (int t = 0; t < tiles; ++t) {
+        const int g = it * tiles + t, lt = g / kConsumers;
+        if (g % kConsumers != c) continue;
+        const int i = c * kQSlots + lt % kQSlots;
+        mbar_wait(q_full + i, (lt / kQSlots) & 1);
+        consume_tile<D>(args, smem_u32(smem + L::kQ0 + i * L::kQ), ks, vs,
+                        t * kRows + warp * 16, b, h, q_empty + i);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(kv_empty + s);  // this warp is done with K, V
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, without linking libcuda
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &res);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                                  cudaEnableDefault, &res);
+#endif
+    return e == cudaSuccess && res == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
+                                                                 : nullptr;
+  }();
+  return fn;
+}
+
+// A 4-D tensor map over the (B, H, N, D) view at ptr (strides in elements,
+// D contiguous), its three outer dims sorted by stride; a box is box_rows
+// rows of one (b, h).  Returns the roles word for coord(), or -1.
+template <int D>
+int encode(CUtensorMap* map, const void* ptr, int B, int H, int N, long long sb,
+           long long sh, long long sn, int box_rows) {
+  const long long size[3] = {N, H, B}, stride[3] = {sn, sh, sb};
+  int order[3] = {0, 1, 2};
+  for (int i = 1; i < 3; ++i)
+    for (int j = i; j > 0 && stride[order[j]] < stride[order[j - 1]]; --j) {
+      const int t = order[j];
+      order[j] = order[j - 1];
+      order[j - 1] = t;
+    }
+  cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), 0, 0, 0};
+  cuuint64_t strides[3];
+  cuuint32_t box[4] = {static_cast<cuuint32_t>(D), 1, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  int roles = 0;
+  for (int k = 0; k < 3; ++k) {
+    dims[k + 1] = static_cast<cuuint64_t>(size[order[k]]);
+    strides[k] = static_cast<cuuint64_t>(stride[order[k]]) * sizeof(bf16);
+    if (order[k] == 0) box[k + 1] = static_cast<cuuint32_t>(box_rows);
+    roles |= order[k] << (2 * k);
+  }
+  const CUresult r = encode_tiled()(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+      unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      D == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? roles : -1;
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int N,
+           const long long* st, float scale, cudaStream_t stream) {
+  if (encode_tiled() == nullptr) return cudaErrorNotSupported;
+  CUtensorMap qm, km, vm;
+  Args a{};
+  a.roles_q = encode<D>(&qm, q, B, H, N, st[0], st[1], st[2], kRows);
+  a.roles_k = encode<D>(&km, k, B, H, N, st[3], st[4], st[5], kKvBox);
+  a.roles_v = encode<D>(&vm, v, B, H, N, st[6], st[7], st[8], kKvBox);
+  if (a.roles_q < 0 || a.roles_k < 0 || a.roles_v < 0) return cudaErrorInvalidPitchValue;
+  a.o = static_cast<bf16*>(o);
+  a.o_sb = st[9];
+  a.o_sh = st[10];
+  a.o_sn = st[11];
+  a.N = N;
+  a.H = H;
+  a.BH = B * H;
+  a.scale_log2 = scale * 1.4426950408889634f;
+  constexpr int smem = Layout<D>::kBytes;
+  // per device, once: the shared-memory opt-in and the SM count
+  static int sms_of[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (sms_of[dev] == 0) {
+    e = cudaFuncSetAttribute(attention_hopper_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    int sms = 0;
+    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return e;
+    sms_of[dev] = sms;
+  }
+  const int grid = a.BH < sms_of[dev] ? a.BH : sms_of[dev];
+  attention_hopper_kernel<D><<<grid, kThreads, smem, stream>>>(qm, km, vm, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace hop
 
 constexpr int kMaxKeys = 512;
 constexpr size_t kMaxSmem = 232448;  // what one Hopper block may opt in to
 
-// ---- bf16: tensor cores --------------------------------------------------
+// ---- bf16, 272 < N <= 512: wmma tensor cores, two passes ------------------
 
 using bf16 = __nv_bfloat16;
 constexpr int kTcWarps = 4;
@@ -222,9 +757,12 @@ constexpr int kSlots = kMaxKeys / 32;
 template <int D>
 __host__ __device__ constexpr int key_stride() { return D + 1; }
 
+// K, the warps' query rows and (v_shared) V; without V it is read from
+// device memory (through L1) where the block's 227 KB cannot hold it, as
+// at N = 512, D = 64
 template <int D>
-size_t smem_bytes(int N) {
-  return static_cast<size_t>(N) * (key_stride<D>() + D) * sizeof(float) +
+size_t smem_bytes(int N, bool v_shared) {
+  return static_cast<size_t>(N) * (key_stride<D>() + (v_shared ? D : 0)) * sizeof(float) +
          kWarps * D * sizeof(float);
 }
 
@@ -232,18 +770,18 @@ template <int D>
 __global__ void __launch_bounds__(kWarps * 32)
 attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o, int N,
-                     float scale) {
+                     float scale, bool v_shared) {
   constexpr int KS = key_stride<D>();
   constexpr int DPL = D / 32;  // output columns per lane
   extern __shared__ __align__(128) unsigned char smem[];
   float* ks = reinterpret_cast<float*>(smem);
-  float* vs = ks + N * KS;
-  float* qs = vs + N * D;
+  float* qs = ks + N * KS + (v_shared ? N * D : 0);
 
   const size_t base = static_cast<size_t>(blockIdx.y) * N * D;
+  const float* vs = v_shared ? ks + N * KS : v + base;
   for (int i = threadIdx.x; i < N * D; i += blockDim.x) {
     ks[(i / D) * KS + (i % D)] = k[base + i];
-    vs[i] = v[base + i];
+    if (v_shared) ks[N * KS + i] = v[base + i];
   }
   __syncthreads();
 
@@ -305,7 +843,8 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int BH, int N,
                float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>(N);
+  const bool v_shared = smem_bytes<D>(N, true) <= kMaxSmem;
+  const size_t smem = smem_bytes<D>(N, v_shared);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(attention_f32_kernel<D>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -314,23 +853,39 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int BH, int
   const dim3 grid((N + kRowsPerBlock - 1) / kRowsPerBlock, BH);
   attention_f32_kernel<D><<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), N, scale);
+      static_cast<const float*>(v), static_cast<float*>(o), N, scale, v_shared);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int pp_attention(const void* q, const void* k, const void* v, void* o,
-                            int BH, int N, int D, float scale, int is_bf16,
-                            void* stream) {
-  if (BH <= 0 || BH > 65535 || N <= 0 || N > kMaxKeys) return cudaErrorInvalidValue;
+// q, k, v: (B, H, N, D) with strides st[0..2], st[3..5], st[6..8] (b, h, n;
+// elements, D contiguous); o: strides st[9..11].  bf16 with N <= 272 takes
+// any such 16-byte-aligned strides (the Hopper kernel); the other kernels
+// take contiguous (B, H, N, D) tensors only.
+extern "C" int pp_attention(const void* q, const void* k, const void* v, void* o, int B,
+                            int H, int N, int D, const long long* st, float scale,
+                            int is_bf16, void* stream) {
+  if (B <= 0 || H <= 0 || N <= 0 || N > kMaxKeys) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
+  if (is_bf16 && N <= hop::kMaxKeys) {
+    if (D == 64) return hop::launch<64>(q, k, v, o, B, H, N, st, scale, s);
+    if (D == 32) return hop::launch<32>(q, k, v, o, B, H, N, st, scale, s);
+    return cudaErrorInvalidValue;
+  }
+  const long long BH = static_cast<long long>(B) * H;
+  if (BH > 65535) return cudaErrorInvalidValue;
+  for (int t = 0; t < 4; ++t)  // contiguous (B, H, N, D)
+    if (st[3 * t] != static_cast<long long>(H) * N * D || st[3 * t + 1] != static_cast<long long>(N) * D ||
+        st[3 * t + 2] != D)
+      return cudaErrorInvalidValue;
+  const int bh = static_cast<int>(BH);
   if (is_bf16) {
-    if (D == 64) return launch_tc<64>(q, k, v, o, BH, N, scale, s);
-    if (D == 32) return launch_tc<32>(q, k, v, o, BH, N, scale, s);
+    if (D == 64) return launch_tc<64>(q, k, v, o, bh, N, scale, s);
+    if (D == 32) return launch_tc<32>(q, k, v, o, bh, N, scale, s);
   } else {
-    if (D == 64) return launch_f32<64>(q, k, v, o, BH, N, scale, s);
-    if (D == 32) return launch_f32<32>(q, k, v, o, BH, N, scale, s);
+    if (D == 64) return launch_f32<64>(q, k, v, o, bh, N, scale, s);
+    if (D == 32) return launch_f32<32>(q, k, v, o, bh, N, scale, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -136,7 +136,9 @@ class Attention(nn.Module):
         B, N, C = x.shape
         H = self.num_heads
         qkv = self.qkv(x).reshape(B, N, 3, H, C // H)
-        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))  # (B, H, N, D)
+        # (B, H, N, D) views, which the bf16 kernel reads in place; its
+        # output is a view of a (B, N, H, D) buffer, so the merge is a view
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
         out = attention(q, k, v).transpose(1, 2).reshape(B, N, C)
         return self.proj(out)
 

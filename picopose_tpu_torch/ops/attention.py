@@ -2,26 +2,48 @@
 plain PyTorch on the CPU.
 
 Replaces picopose_tpu/ops/pallas/flash_attention.py::flash_attention (one
-call per ViT block).  The kernel is ``kernels/csrc/attention.cu``: one
-block per (batch*head, 64 query rows) with the head's K and V in shared
-memory; for bf16 each warp computes 16 query rows with tensor-core
-products, recomputing Q K^T per pass (maximum and sum, then P V) so the softmax
-sees whole rows before P is rounded; fp32 runs one warp per query row on
-the CUDA cores.  Bound by bytes at the main path's (16, 16, 257, 64)
-bf16: 33.7 MB moved (~10 us at 3.35 TB/s) against 4.3 GFLOP (~4.4 us on
-the bf16 tensor cores).
+call per ViT block).  The kernels are in ``kernels/csrc/attention.cu``:
 
-Semantics (both versions): fp32 scores from storage-dtype operands, the
+- bf16 with N <= 272 (the main path, N = 257): Hopper's wgmma, TMA and
+  mbarriers.  It reads q, k and v in place by strides (the ViT passes
+  views of its (B, N, 3, H, D) qkv projection) and writes a (B, N, H, D)
+  buffer, returned as its (B, H, N, D) transposed view, so the ViT's head
+  merge is a view.  Q K^T is computed once per 64-row tile, the score row
+  stays in registers, and P is rounded to bf16 once the whole row is
+  known.
+- bf16 with 272 < N <= 512: the two-pass wmma kernel (Q K^T recomputed
+  for the row maximum and sum, then for P V).
+- fp32: one warp per query row on the CUDA cores.
+
+The last two take contiguous tensors: for them, and for views whose
+strides or alignment TMA cannot take, the wrapper copies q, k and v and
+counts the copy in ``INPUT_COPIES`` under its reason.  Bound by bytes at
+the main path's (16, 16, 257, 64) bf16: 33.7 MB moved (~10 us at 3.35
+TB/s) against 4.3 GFLOP (~4.4 us on the bf16 tensor cores).
+
+Semantics (every version): fp32 scores from storage-dtype operands, the
 scale D^-0.5 applied to the fp32 scores, fp32 softmax, P rounded to V's
 dtype, P V summed in fp32, output in Q's dtype.  For D = 64 the scale is a
-power of two, so this equals scaling Q first; for D = 32 it is not.
+power of two, so this equals scaling Q first; for D = 32 it is not.  The
+Hopper kernel takes exp2 with D^-0.5 * log2(e) folded into one FMA and
+multiplies by the reciprocal of the row sum; either may move a P element
+by one bf16 step against the plain version.
 """
 
 from __future__ import annotations
 
+import collections
+import struct
+
 import torch
 
 from picopose_tpu_torch import kernels
+
+# the longest key row the Hopper kernel holds in registers (hop::kMaxKeys)
+HOPPER_MAX_KEYS = 272
+
+# calls whose q, k, v the wrapper had to copy, by reason
+INPUT_COPIES: collections.Counter = collections.Counter()
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -30,6 +52,22 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     p = torch.softmax(s, dim=-1).to(v.dtype)
     return torch.matmul(p.float(), v.float()).to(q.dtype)
+
+
+def copy_reason(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str | None:
+    """None if the Hopper kernel reads (B, H, N, D) q, k, v where they lie;
+    else why the wrapper copies them: that kernel takes bf16 with N <= 272
+    and TMA takes a contiguous last dim with other strides and the start on
+    the 16-byte grid."""
+    if q.dtype != torch.bfloat16:
+        return "fp32: the CUDA-core kernel takes contiguous tensors"
+    if q.shape[2] > HOPPER_MAX_KEYS:
+        return f"N > {HOPPER_MAX_KEYS}: the two-pass kernel takes contiguous tensors"
+    for t in (q, k, v):
+        sb, sh, sn, sd = t.stride()
+        if sd != 1 or t.data_ptr() % 16 or sb % 8 or sh % 8 or sn % 8 or min(sb, sh, sn) <= 0:
+            return "strides or start off the 16-byte grid TMA needs"
+    return None
 
 
 def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -44,14 +82,22 @@ def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.T
     B, H, N, D = q.shape
     if D not in (32, 64) or N > 512:
         raise ValueError(f"attention kernel takes D in (32, 64) and N <= 512, got {D}, {N}")
-    q, k, v = (kernels.contiguous_aligned(x) for x in (q, k, v))
-    o = torch.empty_like(q)
+    reason = copy_reason(q, k, v)
+    if reason is None:
+        o = torch.empty(B, N, H, D, dtype=q.dtype, device=q.device).transpose(1, 2)
+    else:
+        INPUT_COPIES[reason] += 1
+        q, k, v = (kernels.contiguous_aligned(x) for x in (q, k, v))
+        o = torch.empty_like(q)
     if q.numel() == 0:
         return o
-    with torch.cuda.device(q.device):
+    strides = struct.pack(
+        "12q", *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3]
+    )
+    with kernels.on_device_of(q):
         kernels.launch(
             "attention", q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            B * H, N, D, float(D ** -0.5), int(q.dtype == torch.bfloat16),
+            B, H, N, D, strides, D ** -0.5, int(q.dtype == torch.bfloat16),
             kernels.stream_of(q),
         )
     return o

@@ -81,7 +81,7 @@ def corr_window_cuda(
     out = torch.empty((B, P, (2 * radius + 1) ** 2), dtype=f1.dtype, device=f1.device)
     if out.numel() == 0:
         return out
-    with torch.cuda.device(f1.device):
+    with kernels.on_device_of(f1):
         kernels.launch(
             "corr_window", f1.data_ptr(), f2.data_ptr(), cen.data_ptr(),
             out.data_ptr(), B, P, Hp, Wp, C, radius, group, float(C) ** -0.5,

@@ -1,10 +1,13 @@
 """LayerNorm over the last axis: a CUDA kernel on the card, plain PyTorch on the CPU.
 
 Replaces picopose_tpu/ops/pallas/layernorm.py::layernorm_pallas (the ViT
-trunk's 48 LNs per forward).  The kernel is
-``kernels/csrc/layernorm.cu``: one block per token row, bound by bytes
-(a (16, 257, 1024) bf16 stream is 16.8 MB in and out, ~5 us at 3.35 TB/s);
-it reads each row from device memory once and writes it once.
+trunk's 48 LNs per forward).  The kernel is ``kernels/csrc/layernorm.cu``:
+one warp per token row, 8 rows per block, bound by bytes (a (16, 257,
+1024) bf16 stream is 16.8 MB in and out, ~5 us at 3.35 TB/s).  At the ViT
+widths (models/dinov2.py::VIT_CONFIGS: 128, 384, 768, 1024, 1536) each lane
+keeps its share of the row in registers,
+so x is read once and y written once in 16-byte vectors; any other C that
+is a multiple of 16 bytes takes a loop that reads the row twice.
 
 Semantics (both versions): fp32 sums of x and of x*x with the square taken
 in x's dtype, var = max(E[x^2] - E[x]^2, 0), fp32 affine with fp32
@@ -16,7 +19,6 @@ from __future__ import annotations
 import torch
 
 from picopose_tpu_torch import kernels
-
 
 def layernorm_plain(
     x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-6
@@ -32,6 +34,23 @@ def layernorm_plain(
     return y.to(x.dtype)
 
 
+def check_width(C: int, dtype: torch.dtype) -> None:
+    """Raise unless the kernel takes rows of C elements of ``dtype``: C must
+    fill whole 16-byte vectors."""
+    vec = 16 // dtype.itemsize
+    if C <= 0 or C % vec:
+        raise ValueError(f"layernorm kernel takes C a multiple of {vec} for {dtype}, got {C}")
+
+
+def _f32_vector(p: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``p`` as a contiguous fp32 vector on ``like``'s device, 16-byte aligned
+    for the kernel's float4 loads (``p`` itself when it already is)."""
+    if (p.dtype == torch.float32 and p.get_device() == like.get_device() and p.is_contiguous()
+            and p.data_ptr() % 16 == 0):
+        return p
+    return kernels.contiguous_aligned(p.to(device=like.device, dtype=torch.float32), 16)
+
+
 def layernorm_cuda(
     x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-6
 ) -> torch.Tensor:
@@ -43,16 +62,17 @@ def layernorm_cuda(
     C = x.shape[-1]
     if scale.shape != (C,) or bias.shape != (C,):
         raise ValueError(f"scale/bias must be ({C},)")
-    x = x.contiguous()
-    scale = scale.to(device=x.device, dtype=torch.float32).contiguous()
-    bias = bias.to(device=x.device, dtype=torch.float32).contiguous()
+    check_width(C, x.dtype)
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        x = kernels.contiguous_aligned(x, 16)
+    scale, bias = _f32_vector(scale, x), _f32_vector(bias, x)
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
-    with torch.cuda.device(x.device):
+    with kernels.on_device_of(x):
         kernels.launch(
             "layernorm", x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            y.data_ptr(), x.numel() // C, C, float(eps),
+            y.data_ptr(), x.numel() // C, C, eps,
             int(x.dtype == torch.bfloat16), kernels.stream_of(x),
         )
     return y

@@ -104,7 +104,7 @@ def match_scores_cuda(
     out = torch.empty((B, N), dtype=torch.float32, device=q_norm.device)
     if out.numel() == 0:
         return out
-    with torch.cuda.device(q_norm.device):
+    with kernels.on_device_of(q_norm):
         kernels.launch(
             "match_scores", q_norm.data_ptr(), q_mask.data_ptr(), t_norm.data_ptr(),
             out.data_ptr(), B, N, S, C, int(q_norm.dtype == torch.bfloat16),

@@ -75,7 +75,7 @@ def warp_cuda(feat: torch.Tensor, cen: torch.Tensor, H: int, W: int, group: int 
     out = torch.empty((B, P, C), dtype=feat.dtype, device=feat.device)
     if out.numel() == 0:
         return out
-    with torch.cuda.device(feat.device):
+    with kernels.on_device_of(feat):
         kernels.launch(
             "warp", feat.data_ptr(), cen.data_ptr(), out.data_ptr(), B, P, H, W,
             C, group, int(feat.dtype == torch.bfloat16), kernels.stream_of(feat),

@@ -155,7 +155,72 @@ def test_match_kernel_matches_plain(cuda_device, dtype, S, C):
 def test_launch_counts_and_cpu_dispatch(cuda_device):
     x = torch.randn(2, 5, 64, device=cuda_device)
     w, b = torch.ones(64, device=cuda_device), torch.zeros(64, device=cuda_device)
+    q = torch.randn(1, 2, 17, 32, device=cuda_device).bfloat16()
     kernels.reset_launches()
     L.layernorm(x, w, b)
     L.layernorm(x.cpu(), w.cpu(), b.cpu())
-    assert kernels.LAUNCHES["layernorm"] == 1
+    A.attention(q, q, q)
+    A.attention(q.cpu(), q.cpu(), q.cpu())
+    assert kernels.LAUNCHES["layernorm"] == 1 and kernels.LAUNCHES["attention"] == 1
+
+
+def _qkv_views(g, B, N, H, D, dtype, device):
+    """(B, H, N, D) views of a (B, N, 3, H, D) projection, as the ViT hands them."""
+    qkv = torch.randn(B, N, 3, H, D, generator=g, device=device).to(dtype)
+    return [qkv[:, :, i].transpose(1, 2) for i in range(3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("N", [17, 257, 272, 273, 512])
+@pytest.mark.parametrize("B,H", [(1, 16), (32, 16)])
+def test_attention_kernel_on_qkv_views(cuda_device, dtype, D, N, B, H):
+    """Every attention kernel on the ViT's strided views: the Hopper kernel
+    (bf16, N <= 272), the two-pass wmma kernel (bf16, N > 272) and the fp32
+    kernel, at BH = 16 and at a bank chunk's BH = 512."""
+    g = torch.Generator(device=cuda_device).manual_seed(N + D)
+    q, k, v = _qkv_views(g, B, N, H, D, dtype, cuda_device)
+    got = A.attention_cuda(q, k, v)
+    torch.cuda.synchronize()
+    assert got.shape == (B, H, N, D) and got.dtype == dtype
+    torch.testing.assert_close(got.float(), A.attention_plain(q, k, v).float(), **_bf16_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("N", [17, 257, 272])
+def test_attention_reads_qkv_views_in_place(cuda_device, D, N):
+    """bf16 with N <= 272 (the main path) allocates its output and nothing
+    else: no copy of q, k or v."""
+    g = torch.Generator(device=cuda_device).manual_seed(N)
+    B, H = 4, 8
+    q, k, v = _qkv_views(g, B, N, H, D, torch.bfloat16, cuda_device)
+    A.attention_cuda(q, k, v)  # built and warm
+    torch.cuda.synchronize()
+    copies = dict(A.INPUT_COPIES)
+    before = torch.cuda.memory_allocated(cuda_device)
+    got = A.attention_cuda(q, k, v)
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated(cuda_device) - before
+    out_bytes = got.numel() * got.element_size()
+    assert out_bytes <= grown < 2 * out_bytes  # the output's block; a copy of q alone would double it
+    assert dict(A.INPUT_COPIES) == copies
+    assert got.transpose(1, 2).is_contiguous()  # a (B, N, H, D) buffer: the head merge is a view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [128, 384, 768, 1024, 1536])  # models/dinov2.py::VIT_CONFIGS
+def test_layernorm_kernel_at_vit_widths(cuda_device, dtype, C):
+    """Each ViT width (register-resident rows) with a row count that is no
+    multiple of the 8 rows a block takes."""
+    g = torch.Generator(device=cuda_device).manual_seed(C)
+    x = (torch.randn(3, 333, C, generator=g, device=cuda_device) * 3 + 1.5).to(dtype)
+    scale = torch.randn(C, generator=g, device=cuda_device) * 0.2 + 1
+    bias = torch.randn(C, generator=g, device=cuda_device) * 0.5
+    got = L.layernorm_cuda(x, scale, bias)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    tol = dict(atol=1e-5, rtol=0) if dtype == torch.float32 else dict(atol=1e-3, rtol=2**-7)
+    torch.testing.assert_close(got.float(), L.layernorm_plain(x, scale, bias).float(), **tol)

@@ -15,7 +15,13 @@ import torch
 from picopose_tpu.ops.layernorm import layernorm_xla
 from picopose_tpu.ops.pallas.layernorm import layernorm_pallas
 from picopose_tpu_torch import kernels
-from picopose_tpu_torch.ops.layernorm import layernorm, layernorm_cuda, layernorm_plain
+from picopose_tpu_torch.models.dinov2 import VIT_CONFIGS
+from picopose_tpu_torch.ops.layernorm import (
+    check_width,
+    layernorm,
+    layernorm_cuda,
+    layernorm_plain,
+)
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5), "bfloat16": (jnp.bfloat16, torch.bfloat16, 0.05)}
 
@@ -53,3 +59,30 @@ def test_cpu_dispatch_is_plain_and_launches_nothing():
     with pytest.raises(ValueError):
         layernorm_cuda(x, scale, bias)
 
+
+VIT_WIDTHS = sorted({c.embed_dim for c in VIT_CONFIGS.values()})
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("C", VIT_WIDTHS)
+def test_plain_matches_pallas_at_vit_widths(dtype, C):
+    """Every width of models/dinov2.py::VIT_CONFIGS, which the kernel keeps
+    in registers, against the Pallas kernel (interpret mode)."""
+    jdt, tdt, atol = DTYPES[dtype]
+    x, scale, bias = _inputs((2, 17, C), seed=C)
+    xj = jnp.asarray(x, jdt)
+    ref = np.asarray(layernorm_pallas(xj, jnp.asarray(scale), jnp.asarray(bias), interpret=True), np.float32)
+    xt = torch.from_numpy(np.array(xj.astype(jnp.float32))).to(tdt)
+    got = layernorm(xt, torch.from_numpy(scale), torch.from_numpy(bias))
+    assert got.dtype == tdt
+    np.testing.assert_allclose(got.float().numpy(), ref, atol=atol)
+
+
+def test_kernel_widths_fill_whole_vectors():
+    assert VIT_WIDTHS == [128, 384, 768, 1024, 1536]  # the widths layernorm.cu keeps in registers
+    for C in (*VIT_WIDTHS, 64, 8):
+        check_width(C, torch.bfloat16)
+    check_width(4, torch.float32)
+    for C, dtype in ((100, torch.bfloat16), (6, torch.float32), (0, torch.float32)):
+        with pytest.raises(ValueError, match="multiple of"):
+            check_width(C, dtype)
