@@ -13,21 +13,28 @@ Phases (any failure exits non-zero before the result line):
      host clock where the host can dominate (K1, K2), and its bound; K1 at
      the query batch's and a bank chunk's (rows, 257, 1024); K2 at
      contiguous (16, 16, 257, 64) and on views of a (B, 257, 3, 16, 64)
-     qkv projection for B = 16 and 32, with SDPA on the same tensors; the
-     corr-window kernel at all six (grid, pooled) level pairs of a batch
-     and the warp kernel at its three grids, 80 streams sharing 16 query
-     maps (group 5), windows pushed past the map edges;
+     qkv projection for B = 16 and 32, with SDPA on the same tensors; K3
+     beside a cuBLAS bf16 GEMM of the table alone and with the reductions;
+     the corr-window kernel once per decoder level (16^2 with one pyramid
+     level, 32^2 with two, 64^2 with three) on wild centres (windows
+     scattered and pushed past the map edges: mostly its per-pixel path,
+     with its tile counts) and the warp kernel at its three grids, 80
+     streams sharing 16 query maps (group 5);
   3. the main path at full ViT-L width (dinov2_vitl14, taps 5/11/17/23,
      bf16, seeded random weights): build_bank over 162 views (chunk 32),
      then run_batch for 16 queries x 5 hypotheses with 150 PnP
      iterations, with every kernel's launch counter set to 0 just before
-     and read just after (168 attention, 336 LN, 6 corr-window and 3 warp
-     launches; attention copies no q, k, v); outputs checked (shapes,
+     and read just after (168 attention, 336 LN, 3 corr-window and 3 warp
+     launches; attention copies no q, k, v), the flow decoder's lookup
+     inputs captured; outputs checked (shapes,
      finite, R^T R = I, ratios in [-1, 1] ranked best first; each query
      finds its own template view); then bank-build times and a profile of
      one bank build (K1/K2 device ms, copy kernels), the stages-1-2 batch
      time alone, the run_batch time and crops/s, and profiles (device time
      by kernel, the share of the stage-3 convs and of PnP, idle share);
+     then the corr-window kernel on the captured main-path inputs against
+     its plain version, timed with its tile counts: these times are the
+     JSON line's;
   4. the same path at a small size (vit_tiny_test, 6 views, 2 queries) on
      the card against the plain CPU path at the same weights, fp32 and
      bf16: stages 1-2, the stage-3 flows and certainties, and ransac_pnp
@@ -89,13 +96,16 @@ def device_ms(fn, inputs, iters: int = 20) -> float:
     for a in inputs:
         fn(*a)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(*inputs[i % len(inputs)])
-        torch.cuda.synchronize()
-    us = sum(dev_us(e) for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
-    check(us > 0, "the profiler saw device time")
-    return us / iters / 1e3
+    for _ in range(3):  # a trace now and then comes back without its device events
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(*inputs[i % len(inputs)])
+            torch.cuda.synchronize()
+        us = sum(dev_us(e) for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / iters / 1e3
+        print("[profile] a trace held no device time; profiling again")
+    check(False, "the profiler saw device time")
 
 
 def timed(fn, inputs, iters: int = 20) -> tuple[float, float]:
@@ -206,6 +216,11 @@ def kernel_checks(g: torch.Generator) -> dict:
         bound=bound(q.numel() * 2 + qm.numel() * 4 + t.numel() * 2 + B * Nv * 4,
                     2 * B * Nv * S * S * C, H100_BF16_FLOPS),
     )
+    gemm = device_ms(lambda q, qm, t: torch.matmul(q.reshape(B * S, C), t.reshape(Nv * S, C).T), margs, iters=5)
+    r = out["match_scores"]
+    print(f"[kernel] match_scores ({B}, {Nv}, {S}, {C}) bf16: device ms kernel {r['ms']!r}, cuBLAS bf16 GEMM "
+          f"of the table alone {gemm!r}, GEMM + reductions {r['library_ms']!r}; bound {r['bound'][0]!r} ms "
+          f"= {r['bound'][0] / r['ms']!r} of the bf16 peak")
     out.update(stage3_kernel_checks(g))
     for name, r in out.items():
         print(f"[kernel] {name}: max_abs_err {r['err']!r} ({r['tol']}), kernel {r['ms']!r} ms, "
@@ -217,12 +232,12 @@ def kernel_checks(g: torch.Generator) -> dict:
 def stage3_kernel_checks(g: torch.Generator) -> dict:
     """K4 and K5 at the flow decoder's shapes for 16 queries x 5 hypotheses
     (80 streams over 16 query maps, C = 256, bf16).  Times are summed over
-    the calls of one batch (K4: six (G, Hp) pairs, K5: three grids) and
-    reported per launch, so launches x ms is the batch's device time."""
+    the launches of one batch (K4: one per decoder level, on wild centres;
+    K5: three grids) and reported per launch, so launches x ms is the
+    batch's device time."""
     import torch.nn.functional as F
 
     from picopose_tpu_torch.geom.grids import pixel_coords_grid
-    from picopose_tpu_torch.ops import corr as CO
     from picopose_tpu_torch.ops import sample as SA
 
     dev = torch.device("cuda")
@@ -240,32 +255,11 @@ def stage3_kernel_checks(g: torch.Generator) -> dict:
 
     tol = dict(atol=1e-2, rtol=2**-7)  # one bf16 step where fp32 sums straddle a rounding boundary
     res = {}
-    corr = dict(ms=0.0, plain_ms=0.0, b=0.0, f=0.0, err=0.0, n=0)
-    for G, levels in ((16, 1), (32, 2), (64, 3)):
-        for level in range(levels):
-            Hp = G >> level
-            args = [(rows(B, G * G), rows(B2, Hp * Hp), centres(G, level), Hp, Hp, 2, group)
-                    for _ in range(sets[G])]
-            got, ref = CO.corr_window_cuda(*args[0]), CO.corr_window_plain(*args[0])
-            torch.cuda.synchronize()
-            torch.testing.assert_close(got.float(), ref.float(), **tol)
-            err = (got.float() - ref.float()).abs().max().item()
-            ms, plain = device_ms(CO.corr_window_cuda, args), device_ms(CO.corr_window_plain, args[:1], iters=3)
-            nbytes = (B * G * G * C + B2 * Hp * Hp * C) * 2 + B * G * G * (2 * 4 + 25 * 2)
-            flops = B * G * G * 36 * C * 2
-            bd = bound(nbytes, flops, H100_BF16_FLOPS)
-            print(f"[kernel] corr_window G={G} Hp={Hp}: max_abs_err {err!r}, kernel {ms!r} ms, "
-                  f"plain {plain!r} ms, bound {bd[0]!r} ms ({bd[1]})")
-            corr.update(ms=corr["ms"] + ms, plain_ms=corr["plain_ms"] + plain, err=max(corr["err"], err),
-                        n=corr["n"] + 1, b=corr["b"] + nbytes / H100_BYTES_PER_S * 1e3,
-                        f=corr["f"] + flops / H100_BF16_FLOPS * 1e3)
-            del args, got, ref
-    n = corr["n"]
-    print(f"[kernel] corr_window per batch ({n} calls): kernel {corr['ms']!r} ms, plain {corr['plain_ms']!r} ms")
-    res["corr_window"] = dict(
-        err=corr["err"], tol="atol 1e-2 + rtol 2^-7", ms=corr["ms"] / n, plain_ms=corr["plain_ms"] / n,
-        library_ms=None, bound=(max(corr["b"], corr["f"]) / n, "bytes" if corr["b"] >= corr["f"] else "operations"),
-    )
+    pyramid = lambda G, L: [(rows(B2, (G >> i) ** 2).view(B2, G >> i, G >> i, C), i) for i in range(L)]
+    args = [[(rows(B, G * G).view(B, G, G, C), pyramid(G, L), centres(G, 0).view(B, G, G, 2), 2, group)
+             for _ in range(sets[G])] for G, L in ((16, 1), (32, 2), (64, 3))]
+    res["corr_window"] = corr_timing("wild centres", args, tol)
+    del args
 
     warp = dict(ms=0.0, plain_ms=0.0, lib=0.0, b=0.0, err=0.0, n=0)
     for G in (16, 32, 64):
@@ -300,6 +294,69 @@ def stage3_kernel_checks(g: torch.Generator) -> dict:
         library_ms=warp["lib"] / n, bound=(warp["b"] / n, "bytes"),
     )
     return res
+
+
+def corr_timing(what: str, calls: list, tol: dict) -> dict:
+    """K4 per decoder level, each a list of (f1, maps, grid, radius, group)
+    argument sets rotated per call: the kernel against the plain version,
+    device ms, the tile counts of the first set, the bound.  Returns the
+    row for one batch, per launch (a launch is one decoder level)."""
+    from picopose_tpu_torch.ops import corr as CO
+
+    tot = dict(ms=0.0, plain_ms=0.0, b=0.0, f=0.0, err=0.0)
+    for sets in calls:
+        f1, maps, grid, radius, group = sets[0]
+        B, G, W, C = f1.shape
+        L = len(maps)
+        stats = torch.zeros(3, dtype=torch.int32, device=f1.device)
+        got = CO.corr_windows_cuda(*sets[0], stats=stats)
+        ref = CO.corr_windows_plain(*sets[0])
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), ref.float(), **tol)
+        diff = (got.float() - ref.float()).abs()
+        err = diff.max().item()
+        use = (diff / (tol["atol"] + tol["rtol"] * ref.float().abs())).max().item()
+        ms = device_ms(CO.corr_windows_cuda, sets)
+        plain = device_ms(CO.corr_windows_plain, sets[:1], iters=3)
+        nbytes = (f1.numel() + sum(m.numel() for m, _ in maps)) * f1.element_size() + grid.numel() * 4 \
+            + got.numel() * got.element_size()
+        flops = B * G * W * L * 36 * C * 2  # the 36 cells of each window
+        bd = bound(nbytes, flops, H100_BF16_FLOPS)
+        tiles, mixed, pixels = stats.tolist()
+        print(f"[kernel] corr_window {what} G={G} levels={L}: max_abs_err {err!r} (largest |plain| "
+              f"{ref.float().abs().max().item()!r}; at most {use!r} of the tolerance), kernel {ms!r} ms, "
+              f"plain {plain!r} ms, bound {bd[0]!r} ms ({bd[1]}); tile-levels {tiles}, with per-pixel "
+              f"pixels {mixed}, per-pixel pixel-levels {pixels} of {B * G * W * L}")
+        tot.update(ms=tot["ms"] + ms, plain_ms=tot["plain_ms"] + plain, err=max(tot["err"], err),
+                   b=tot["b"] + nbytes / H100_BYTES_PER_S * 1e3, f=tot["f"] + flops / H100_BF16_FLOPS * 1e3)
+    n = len(calls)
+    print(f"[kernel] corr_window {what} per batch ({n} launches): kernel {tot['ms']!r} ms, "
+          f"plain {tot['plain_ms']!r} ms, bound {max(tot['b'], tot['f'])!r} ms")
+    return dict(
+        err=tot["err"], tol="atol 1e-2 + rtol 2^-7", ms=tot["ms"] / n, plain_ms=tot["plain_ms"] / n,
+        library_ms=None, bound=(max(tot["b"], tot["f"]) / n, "bytes" if tot["b"] >= tot["f"] else "operations"),
+    )
+
+
+@torch.inference_mode()
+def corr_on_main_path(seen: list) -> dict:
+    """K4 on the flow decoder's inputs captured from one run_batch (its three
+    corr_lookup calls): the JSON line's K4 times."""
+    from picopose_tpu_torch.geom.grids import pixel_coords_grid
+    from picopose_tpu_torch.ops.resize import avg_pool2d
+
+    calls = []
+    for feat1, feat2, flow, radius, L, group in seen:
+        G, W = feat1.shape[1:3]
+        grid = pixel_coords_grid(G, W, device=flow.device) + flow.float()
+        maps, pooled = [], feat2
+        for i in range(L):
+            pooled = pooled if i == 0 else avg_pool2d(pooled, 2)
+            maps.append((pooled, i))
+        n = {16: 6, 32: 3}.get(G, 1)  # copies rotated per call: > 50 MB of L2
+        calls.append([(feat1, maps, grid, radius, group)] + [
+            (feat1.clone(), [(m.clone(), i) for m, i in maps], grid.clone(), radius, group) for _ in range(n - 1)])
+    return corr_timing("main-path centres", calls, dict(atol=1e-2, rtol=2**-7))
 
 
 def calm_stage3_heads_(model) -> None:
@@ -442,8 +499,9 @@ def check_eval_output(name: str, out, B: int, hyp: int) -> None:
           f"best inlier ratio per query {ratio[:, 0].tolist()!r}")
 
 
-def full_width(seed: int) -> dict:
-    """Phase 3: the main path at full ViT-L width; returns launch counts."""
+def full_width(seed: int) -> tuple[dict, list]:
+    """Phase 3: the main path at full ViT-L width; returns the launch counts
+    and the flow decoder's corr_lookup arguments."""
     from picopose_tpu_torch import kernels
     from picopose_tpu_torch.eval.pipeline import (
         build_bank, run_batch, select_templates, stage2_poses, stage3_correspondences,
@@ -463,16 +521,29 @@ def full_width(seed: int) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
+    import picopose_tpu_torch.models.flow as flow_module
+
+    seen, lookup = [], flow_module.corr_lookup
+
+    def recording_lookup(*a, **kw):  # the flow decoder's K4 inputs, for corr_on_main_path
+        seen.append((*a, kw.get("group", 1)))
+        return lookup(*a, **kw)
+
     kernels.reset_launches()
     INPUT_COPIES.clear()
     bank = build_bank(model, *bank_np, chunk=chunk)
-    out = run_batch(model, batch, bank, hyp=hyp, pnp_iters=iters, generator=g)
+    flow_module.corr_lookup = recording_lookup
+    try:
+        out = run_batch(model, batch, bank, hyp=hyp, pnp_iters=iters, generator=g)
+    finally:
+        flow_module.corr_lookup = lookup
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     print(f"[main] launches during the main-path run (build_bank + run_batch): {launches}")
     for name in kernels.KERNELS:
         check(launches.get(name, 0) > 0, f"kernel {name} launched on the main path")
-    check(launches["corr_window"] == 6 and launches["warp"] == 3, "6 corr-window and 3 warp launches per batch")
+    check(launches["corr_window"] == 3 and launches["warp"] == 3, "3 corr-window and 3 warp launches per batch")
+    check(len(seen) == 3 and [s[4] for s in seen] == [1, 2, 3], "the decoder's three lookups were captured")
     # 24 blocks x (6 bank chunks + 1 query batch): one attention and two LNs each
     check(launches["attention"] == 168 and launches["layernorm"] == 336, "168 attention and 336 LN launches")
     check(not INPUT_COPIES, f"attention read q, k, v in place on the main path: {dict(INPUT_COPIES)}")
@@ -535,7 +606,7 @@ def full_width(seed: int) -> dict:
     print(f"[profile] run_batch: device busy {busy!r} ms of the {per_batch!r} ms median; idle share "
           f"{1 - busy / per_batch!r}; stage-3 convolutions {conv3!r} ms = {conv3 / busy!r} of busy; "
           f"PnP device {busy_pnp!r} ms = {busy_pnp / busy!r} of busy")
-    return launches
+    return launches, seen
 
 
 def pnp_scene(rng, B: int, N: int):
@@ -650,8 +721,14 @@ def main() -> int:
     checks = kernel_checks(g)
     print(f"[phase] kernel checks {time.perf_counter() - t0!r} s")
     t0 = time.perf_counter()
-    launches = full_width(SEED)
+    launches, seen = full_width(SEED)
     print(f"[phase] full-width main path {time.perf_counter() - t0!r} s")
+    t0 = time.perf_counter()
+    wild = checks["corr_window"]
+    checks["corr_window"] = corr_on_main_path(seen)
+    checks["corr_window"]["err"] = max(wild["err"], checks["corr_window"]["err"])
+    del seen
+    print(f"[phase] K4 on main-path centres {time.perf_counter() - t0!r} s")
     t0 = time.perf_counter()
     small_reference(SEED)
     print(f"[phase] small reference {time.perf_counter() - t0!r} s")

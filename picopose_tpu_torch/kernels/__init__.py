@@ -38,7 +38,7 @@ KERNELS = {
     "layernorm": ("layernorm.cu", "pp_layernorm", [_P, _P, _P, _P, _L, _I, _F, _I, _P]),
     "attention": ("attention.cu", "pp_attention", [_P, _P, _P, _P, _I, _I, _I, _I, _S, _F, _I, _P]),
     "match_scores": ("matching.cu", "pp_match_scores", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    "corr_window": ("corr.cu", "pp_corr_window", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P]),
+    "corr_window": ("corr.cu", "pp_corr_window", [_P, _P, _P, _S, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P]),
     "warp": ("warp.cu", "pp_warp", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
 }
 

@@ -36,8 +36,8 @@ __device__ __forceinline__ void load16(const float* p, float* out) {
   const float4 v = __ldg(reinterpret_cast<const float4*>(p));
   out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
 }
-__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
-  const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
+// eight bf16 widened to fp32
+__device__ __forceinline__ void unpack8(const uint4& raw, float* out) {
   const auto* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -45,6 +45,9 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
     out[2 * i] = f.x;
     out[2 * i + 1] = f.y;
   }
+}
+__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
+  unpack8(__ldg(reinterpret_cast<const uint4*>(p)), out);
 }
 
 __device__ __forceinline__ void store16(float* p, const float* v) {

@@ -2,12 +2,15 @@
 PyTorch on the CPU.
 
 Counterpart of picopose_tpu/ops/corr.py (``_corr_lookup_pallas_impl``,
-:202-246) with each pyramid level done by ``kernels/csrc/corr.cu``, which
-replaces picopose_tpu/ops/pallas/corr.py::corr_window_pallas.  Avg
-pooling and bilinear sampling are both linear in feat2, so level i's
-correlation is <feat1[p], avgpool_i(feat2)[q]> / sqrt(C): feat2 is pooled
-between levels outside the kernel, and the kernel computes, per pixel,
-only the (2r+2)^2 cells its bilinear window touches.
+:202-246), which calls picopose_tpu/ops/pallas/corr.py::corr_window_pallas
+once per pyramid level; here all the levels of one lookup are one launch
+of ``kernels/csrc/corr.cu``, which reads feat1 once and writes the
+concatenated (B, H, W, L*(2r+1)^2) output.  Avg pooling and bilinear
+sampling are both linear in feat2, so level i's correlation is
+<feat1[p], avgpool_i(feat2)[q]> / sqrt(C): feat2 is pooled between levels
+outside the kernel, and only the (2r+2)^2 cells each bilinear window
+touches are computed (bf16: tiles of 8 x 8 pixels against a box of cells
+on the tensor cores, per pixel where a window leaves the box).
 
 Semantics (both versions): the dot products are summed in fp32 and scaled
 by C^-0.5, a cell outside the map is 0, the (2r+1)^2 taps are lerped in y
@@ -18,6 +21,8 @@ reference's: k = kx*(2r+1) + ky, the outer window index walks x.
 """
 
 from __future__ import annotations
+
+import struct
 
 import torch
 
@@ -55,47 +60,86 @@ def corr_window_plain(
     return torch.stack(taps, dim=-1).to(f1.dtype)
 
 
-def corr_window_cuda(
-    f1: torch.Tensor, f2: torch.Tensor, cen: torch.Tensor, Hp: int, Wp: int,
-    radius: int, group: int = 1,
+def _level_windows(f1, maps, grid, radius, group):
+    """Shapes of a multi-level lookup: f1 (B, H, W, C), maps [(f2 (B/group,
+    Hp, Wp, C), shift)], grid (B, H, W, 2) level-0 centres."""
+    B, H, W, C = f1.shape
+    if grid.shape != (B, H, W, 2):
+        raise ValueError(f"centres must be (B, H, W, 2) = {(B, H, W, 2)}, got {tuple(grid.shape)}")
+    for f2, _ in maps:
+        if f2.ndim != 4 or f2.shape[3] != C or f2.shape[0] * group != B:
+            raise ValueError(
+                f"each map must be (B/group, Hp, Wp, C) with B = {B}, group = {group}, C = {C}; "
+                f"got {tuple(f2.shape)}"
+            )
+    return B, H, W, C, (2 * radius + 1) ** 2
+
+
+def corr_windows_plain(
+    f1: torch.Tensor, maps, grid: torch.Tensor, radius: int, group: int = 1
 ) -> torch.Tensor:
-    """Launch the CUDA kernel: f1 and f2 both bf16 or both fp32 with C a
-    multiple of 16 bytes, radius 2 (the flow decoder's)."""
-    if not (f1.is_cuda and f2.is_cuda and cen.is_cuda):
-        raise ValueError("corr_window_cuda takes CUDA tensors")
-    if f1.dtype != f2.dtype or f1.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError("corr kernel takes f1 and f2 both bf16 or both fp32")
-    B, P, C = f1.shape
-    B2, Q = f2.shape[:2]
-    if f2.shape[2] != C or Q != Hp * Wp or cen.shape != (B, P, 2) or B != B2 * group:
-        raise ValueError(
-            f"shapes must be f1 (B, P, C), f2 (B/group, Hp*Wp, C), cen (B, P, 2); "
-            f"got {tuple(f1.shape)}, {tuple(f2.shape)}, {tuple(cen.shape)}"
-        )
-    if (C * f1.element_size()) % 16:
-        raise ValueError(f"corr kernel takes rows of whole 16-byte vectors, got C = {C}")
+    """The kernel's arithmetic in PyTorch ops, level by level: f1 (B, H, W,
+    C), maps [(f2 (B/group, Hp, Wp, C), shift)], grid (B, H, W, 2) level-0
+    centres -> (B, H, W, L*(2r+1)^2) in f1's dtype; level i samples its map
+    at grid / 2^shift_i into channels [i*(2r+1)^2, (i+1)*(2r+1)^2)."""
+    B, H, W, C, nn = _level_windows(f1, maps, grid, radius, group)
+    out = torch.empty((B, H, W, len(maps) * nn), dtype=f1.dtype, device=f1.device)
+    a, cen = f1.reshape(B, H * W, C), grid.float().reshape(B, H * W, 2)
+    for i, (f2, shift) in enumerate(maps):
+        Hp, Wp = f2.shape[1:3]
+        win = corr_window_plain(a, f2.reshape(-1, Hp * Wp, C), cen / 2.0**shift, Hp, Wp, radius, group)
+        out[..., i * nn : (i + 1) * nn] = win.reshape(B, H, W, nn)
+    return out
+
+
+def corr_windows_cuda(
+    f1: torch.Tensor, maps, grid: torch.Tensor, radius: int, group: int = 1,
+    stats: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Launch the CUDA kernel once for all levels: f1 and the maps both bf16
+    (C a multiple of 64 up to 256) or both fp32 (C a multiple of 4), at
+    most four levels, radius 2 (the flow decoder's).  ``stats``: None, or
+    an int32 CUDA tensor of 3 that the bf16 kernel adds its counts to
+    (tile-levels, tile-levels with pixels on the per-pixel path, such
+    pixel-levels)."""
+    if not (f1.is_cuda and grid.is_cuda and all(f2.is_cuda for f2, _ in maps)):
+        raise ValueError("corr_windows_cuda takes CUDA tensors")
+    if any(f2.dtype != f1.dtype for f2, _ in maps) or f1.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError("corr kernel takes f1 and the maps all bf16 or all fp32")
+    B, H, W, C, nn = _level_windows(f1, maps, grid, radius, group)
+    bf16 = f1.dtype == torch.bfloat16
+    if not 1 <= len(maps) <= 4:
+        raise ValueError(f"corr kernel takes 1 to 4 levels, got {len(maps)}")
+    if (bf16 and (C % 64 or C > 256)) or (not bf16 and C % 4):
+        raise ValueError(f"corr kernel takes C a multiple of 64 up to 256 (bf16) or of 4 (fp32), got {C}")
     if radius != 2:
         raise ValueError(f"corr kernel is built for radius 2, got {radius}")
-    f1, f2 = kernels.contiguous_aligned(f1, 16), kernels.contiguous_aligned(f2, 16)
-    cen = cen.to(torch.float32).contiguous()
-    out = torch.empty((B, P, (2 * radius + 1) ** 2), dtype=f1.dtype, device=f1.device)
+    if stats is not None and (stats.dtype != torch.int32 or stats.numel() != 3 or not stats.is_cuda):
+        raise ValueError("stats must be an int32 CUDA tensor of 3")
+    f1 = kernels.contiguous_aligned(f1, 16)
+    maps = [(kernels.contiguous_aligned(f2, 16), int(shift)) for f2, shift in maps]
+    cen = grid.to(torch.float32).contiguous()
+    out = torch.empty((B, H, W, len(maps) * nn), dtype=f1.dtype, device=f1.device)
     if out.numel() == 0:
         return out
+    levels = struct.pack(
+        f"{4 * len(maps)}q", *(v for f2, shift in maps for v in (f2.data_ptr(), *f2.shape[1:3], shift))
+    )
     with kernels.on_device_of(f1):
         kernels.launch(
-            "corr_window", f1.data_ptr(), f2.data_ptr(), cen.data_ptr(),
-            out.data_ptr(), B, P, Hp, Wp, C, radius, group, float(C) ** -0.5,
-            int(f1.dtype == torch.bfloat16), kernels.stream_of(f1),
+            "corr_window", f1.data_ptr(), cen.data_ptr(), out.data_ptr(), levels, len(maps),
+            B, H, W, C, radius, group, float(C) ** -0.5, int(bf16),
+            None if stats is None else stats.data_ptr(), kernels.stream_of(f1),
         )
     return out
 
 
-def corr_window(f1, f2, cen, Hp: int, Wp: int, radius: int, group: int = 1) -> torch.Tensor:
-    """One level's window: the kernel for CUDA tensors, the plain version
-    for CPU tensors."""
+def corr_windows(f1, maps, grid, radius: int, group: int = 1) -> torch.Tensor:
+    """All levels of one lookup: the kernel for CUDA tensors, the plain
+    version for CPU tensors."""
     if f1.device.type == "cpu":
-        return corr_window_plain(f1, f2, cen, Hp, Wp, radius, group)
-    return corr_window_cuda(f1, f2, cen, Hp, Wp, radius, group)
+        return corr_windows_plain(f1, maps, grid, radius, group)
+    return corr_windows_cuda(f1, maps, grid, radius, group)
 
 
 def corr_lookup(
@@ -107,26 +151,19 @@ def corr_lookup(
     feat1 (B, H, W, C) template side, feat2 (B/group, H, W, C) query side
     (each map shared by ``group`` consecutive streams, never repeated),
     flow (B, H, W, 2) in cells, channels (x, y).  Returns
-    (B, H, W, L*(2r+1)^2): one launch per level, at centres
-    (coords + flow) / 2^i in fp32 over feat2 avg-pooled i times.
+    (B, H, W, L*(2r+1)^2): level i at centres (coords + flow) / 2^i in fp32
+    over feat2 avg-pooled i times, all levels in one launch.
     """
     if feat1.shape[0] % feat2.shape[0] != 0:
         raise ValueError(
             f"template batch {feat1.shape[0]} is not a multiple of query batch "
             f"{feat2.shape[0]}; the shared query maps need an integer group"
         )
-    B, H, W, C = feat1.shape
-    B2 = feat2.shape[0]
-    n = 2 * radius + 1
+    H, W = feat1.shape[1:3]
     grid = pixel_coords_grid(H, W, device=flow.device) + flow.float()
-    f1 = feat1.reshape(B, H * W, C)
-    outs = []
-    pooled = feat2
+    maps, pooled = [], feat2
     for i in range(num_levels):
         if i > 0:
             pooled = avg_pool2d(pooled, 2)
-        Hp, Wp = pooled.shape[1], pooled.shape[2]
-        cen = (grid / (2.0**i)).reshape(B, H * W, 2)
-        win = corr_window(f1, pooled.reshape(B2, Hp * Wp, C), cen, Hp, Wp, radius, group)
-        outs.append(win.reshape(B, H, W, n * n))
-    return torch.cat(outs, dim=-1)
+        maps.append((pooled, i))
+    return corr_windows(feat1, maps, grid, radius, group)

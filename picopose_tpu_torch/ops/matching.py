@@ -7,10 +7,10 @@ picopose_tpu/ops/pallas/matching.py::match_scores_pallas) and by its plain
 version on the CPU.  The kernel is bound by operations: at B = 16 queries
 against N = 162 bf16 views (S = 256, C = 1024) it does 348 GFLOP of
 products over 93 MB of input.  The TPU kernel's whole (S, S) fp32 block
-(256 KB) does not fit a Hopper block's shared memory, so the kernel
-computes sim in 128 x 128 passes (bf16 on the tensor cores from
-shared-memory tiles, fp32 on the CUDA cores) and keeps only row/column
-maxima and sim[:,0], sim[0,:] per block.
+(256 KB) does not fit a Hopper block, so the kernel computes sim in blocks
+of 128 query rows x 256 view rows (bf16: wgmma from a TMA-fed ring, the
+block in registers; fp32: the CUDA cores) and keeps only row/column
+maxima and sim[:,0], sim[0,:] per (query, view).
 
 Two reference quirks are kept on purpose:
   * the similarity volume's query-spatial unflattening is TRANSPOSED: the

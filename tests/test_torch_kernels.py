@@ -56,31 +56,109 @@ def test_stage3_kernels_are_in_the_table():
     assert kernels.KERNELS["warp"][0] == "warp.cu"
 
 
-def _centres(g, B, G, level, device):
-    """(B, G*G, 2) window centres of a level-``level`` lookup: the pixel
-    grid plus a flow that pushes some windows past every edge and a few
-    far off the map."""
-    flow = torch.randn(B, G, G, 2, generator=g, device=device) * 3
-    flow[:, ::5] += torch.sign(torch.randn(B, 1, G, 2, generator=g, device=device)) * G * 0.9
+def _grid(g, B, G, device, W=None):
+    """(B, G, W, 2) level-0 window centres: the pixel grid plus a flow that
+    pushes some windows past every edge and a few far off the map."""
+    W = G if W is None else W
+    flow = torch.randn(B, G, W, 2, generator=g, device=device) * 3
+    flow[:, ::5] += torch.sign(torch.randn(B, 1, W, 2, generator=g, device=device)) * G * 0.9
     flow[:, 1, :3] = 1e4
-    return ((pixel_coords_grid(G, G, device=device) + flow) / 2.0**level).reshape(B, G * G, 2)
+    return pixel_coords_grid(G, W, device=device) + flow
+
+
+def _centres(g, B, G, level, device):
+    """(B, G*G, 2) window centres of a level-``level`` lookup."""
+    return (_grid(g, B, G, device) / 2.0**level).reshape(B, G * G, 2)
+
+
+def _smooth_grid(g, B, G, device, scale=1.1, angle=0.3, shift=(2.0, -3.0)):
+    """(B, G, G, 2) centres as the flow decoder sees them on an object: a
+    similarity about the map centre (per stream a little different) plus a
+    smooth sub-cell flow."""
+    p = pixel_coords_grid(G, G, device=device) - (G - 1) / 2
+    ang = angle + 0.1 * torch.randn(B, 1, 1, generator=g, device=device)
+    s = scale * (1 + 0.05 * torch.randn(B, 1, 1, generator=g, device=device))
+    x = s * (torch.cos(ang) * p[..., 0] - torch.sin(ang) * p[..., 1]) + (G - 1) / 2 + shift[0]
+    y = s * (torch.sin(ang) * p[..., 0] + torch.cos(ang) * p[..., 1]) + (G - 1) / 2 + shift[1]
+    noise = torch.randn(B, G // 4, G // 4, 2, generator=g, device=device).permute(0, 3, 1, 2)
+    noise = torch.nn.functional.interpolate(noise, size=(G, G), mode="bilinear", align_corners=True)
+    return torch.stack([x, y], dim=-1) + 0.5 * noise.permute(0, 2, 3, 1)
+
+
+def _pyramid(g, B2, G, C, levels, dtype, device, W=None):
+    """[(f2 (B2, G >> i, W >> i, C), i)] for i < levels."""
+    W = G if W is None else W
+    return [(torch.randn(B2, G >> i, W >> i, C, generator=g, device=device).to(dtype), i)
+            for i in range(levels)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("G,level,group", [(16, 0, 1), (32, 1, 5), (64, 0, 5), (64, 2, 5), (32, 0, 3)])
 def test_corr_window_kernel_matches_plain(cuda_device, dtype, G, level, group):
+    """One pyramid level (a map at shift ``level``) per launch."""
     g = torch.Generator(device=cuda_device).manual_seed(G + level)
     B2, C, Hp = 2, 256, G >> level
-    f1 = torch.randn(B2 * group, G * G, C, generator=g, device=cuda_device).to(dtype)
-    f2 = torch.randn(B2, Hp * Hp, C, generator=g, device=cuda_device).to(dtype)
-    cen = _centres(g, B2 * group, G, level, cuda_device)
-    got = CO.corr_window_cuda(f1, f2, cen, Hp, Hp, 2, group)
+    f1 = torch.randn(B2 * group, G, G, C, generator=g, device=cuda_device).to(dtype)
+    f2 = torch.randn(B2, Hp, Hp, C, generator=g, device=cuda_device).to(dtype)
+    grid = _grid(g, B2 * group, G, cuda_device)
+    got = CO.corr_windows_cuda(f1, [(f2, level)], grid, 2, group)
     torch.cuda.synchronize()
-    ref = CO.corr_window_plain(f1, f2, cen, Hp, Hp, 2, group)
-    assert got.dtype == dtype and got.shape == (B2 * group, G * G, 25)
-    assert bool((got[:, G : G + 3] == 0).all())  # windows far off the map
+    ref = CO.corr_windows_plain(f1, [(f2, level)], grid, 2, group)
+    assert got.dtype == dtype and got.shape == (B2 * group, G, G, 25)
+    assert bool((got[:, 1, :3] == 0).all())  # windows far off the map
     torch.testing.assert_close(got.float(), ref.float(), **_bf16_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group", [1, 3, 5])
+@pytest.mark.parametrize("G", [16, 32, 64])
+@pytest.mark.parametrize("centres", ["smooth", "wild"])
+def test_corr_kernel_levels_match_plain(cuda_device, dtype, group, G, centres):
+    """Three pyramid levels in one launch against the plain version level by
+    level: centres from a similarity (the tile path, mostly) and wild ones
+    (the per-pixel path, mostly)."""
+    g = torch.Generator(device=cuda_device).manual_seed(G * group)
+    B2, C = 2, 256
+    f1 = torch.randn(B2 * group, G, G, C, generator=g, device=cuda_device).to(dtype)
+    maps = _pyramid(g, B2, G, C, 3, dtype, cuda_device)
+    make = _smooth_grid if centres == "smooth" else _grid
+    grid = make(g, B2 * group, G, cuda_device)
+    got = CO.corr_windows_cuda(f1, maps, grid, 2, group)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (B2 * group, G, G, 75)
+    ref = CO.corr_windows_plain(f1, maps, grid, 2, group)
+    for i in range(3):
+        torch.testing.assert_close(got[..., 25 * i : 25 * (i + 1)].float(),
+                                   ref[..., 25 * i : 25 * (i + 1)].float(), **_bf16_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [64, 128, 256])
+def test_corr_kernel_takes_both_paths_in_one_launch(cuda_device, C):
+    """Streams with a smooth similarity (tiles on the box path, some of them
+    straddling the map's edge) beside streams with wild centres (far-off and
+    scattered windows, the per-pixel path), on a 24 x 40 grid whose tiles
+    overhang nothing and a 20 x 12 one whose edge tiles are partial."""
+    g = torch.Generator(device=cuda_device).manual_seed(C)
+    for H, W in ((24, 40), (20, 12)):
+        B2, group = 2, 3
+        f1 = torch.randn(B2 * group, H, W, C, generator=g, device=cuda_device).bfloat16()
+        maps = _pyramid(g, B2, H, C, 2, torch.bfloat16, cuda_device, W=W)
+        grid = _grid(g, B2 * group, H, cuda_device, W=W)
+        smooth = torch.stack(torch.meshgrid(
+            torch.arange(W, device=cuda_device, dtype=torch.float32) * 1.05 + 3.0,
+            torch.arange(H, device=cuda_device, dtype=torch.float32) * 0.95 - 2.0, indexing="xy"), -1)
+        grid[::2] = smooth  # windows across the left, top and right edges
+        stats = torch.zeros(3, dtype=torch.int32, device=cuda_device)
+        got = CO.corr_windows_cuda(f1, maps, grid, 2, group, stats=stats)
+        torch.cuda.synchronize()
+        ref = CO.corr_windows_plain(f1, maps, grid, 2, group)
+        torch.testing.assert_close(got.float(), ref.float(), **_bf16_tol(torch.bfloat16))
+        tiles, mixed, pixels = stats.tolist()
+        assert tiles == B2 * group * -(-H // 8) * -(-W // 8) * 2
+        assert 0 < mixed < tiles and pixels > 0
 
 
 @pytest.mark.cuda
@@ -98,12 +176,17 @@ def test_warp_kernel_matches_plain(cuda_device, dtype, G, group):
 
 
 @pytest.mark.cuda
-def test_stage3_launch_counts(cuda_device):
-    f1 = torch.randn(6, 32, 32, 64, device=cuda_device)
-    f2 = torch.randn(2, 32, 32, 64, device=cuda_device)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stage3_launch_counts(cuda_device, dtype):
+    """The decoder's three lookups (1, 2 and 3 pyramid levels) are three
+    corr-window launches; CPU tensors launch nothing."""
+    f1 = torch.randn(6, 32, 32, 64, device=cuda_device).to(dtype)
+    f2 = torch.randn(2, 32, 32, 64, device=cuda_device).to(dtype)
     flow = torch.randn(6, 32, 32, 2, device=cuda_device)
     kernels.reset_launches()
-    CO.corr_lookup(f1, f2, flow, 2, 3, group=3)
+    for levels in (1, 2, 3):
+        CO.corr_lookup(f1, f2, flow, 2, levels, group=3)
+        CO.corr_lookup(f1.cpu(), f2.cpu(), flow.cpu(), 2, levels, group=3)
     S.warp_by_flow(f2, flow, group=3)
     assert kernels.LAUNCHES["corr_window"] == 3 and kernels.LAUNCHES["warp"] == 1
 
@@ -149,6 +232,52 @@ def test_match_kernel_matches_plain(cuda_device, dtype, S, C):
     ref = M.match_scores_plain(q, qm, t)
     torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
     np.testing.assert_array_equal(got.argmax(1).cpu().numpy(), np.arange(B))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [1024, 128, 32])
+@pytest.mark.parametrize("S", [256, 48, 80, 320])
+def test_match_kernel_masks_and_ties(cuda_device, dtype, S, C):
+    """Row blocks and column chunks past S (48, 80: zero-filled rows and
+    columns that must not win a maximum; 320: a second 256-column chunk and
+    a third row block), masked rows, a query with no unmasked row, and exact
+    ties: view column 5 equal to column 0 (the row argmax stays 0) and query
+    row 3 equal to row 0 (the column argmax stays 0)."""
+    g = torch.Generator(device=cuda_device).manual_seed(S + C)
+    B, N = 4, 9
+    t = M.l2_normalize(torch.randn(N, S, C, generator=g, device=cuda_device))
+    t[:, 5] = t[:, 0]
+    q = M.l2_normalize(t[:B] + torch.randn(B, S, C, generator=g, device=cuda_device) * (0.5 * C**-0.5))
+    q[:, 3] = q[:, 0]
+    qm = (torch.rand(B, S, generator=g, device=cuda_device) > 0.3).float()
+    qm[:, 0] = qm[:, 3] = 1.0
+    qm[2, 7] = 0.0
+    qm[1] = 0.0  # every row masked: no index passes, the score is 0
+    q, t = q.to(dtype), t.to(dtype)
+    got = M.match_scores_cuda(q, qm, t)
+    torch.cuda.synchronize()
+    ref = M.match_scores_plain(q, qm, t)
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+    assert bool((got[1] == 0).all())
+    np.testing.assert_array_equal(got[[0, 2, 3]].argmax(1).cpu().numpy(), [0, 2, 3])
+
+
+@pytest.mark.cuda
+def test_match_kernel_negative_sims_beat_padding(cuda_device):
+    """With every sim negative (views anti-aligned with the query), the
+    maxima are negative: a zero-filled pad row or column would win them."""
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    B, N, S, C = 2, 3, 48, 64
+    q = M.l2_normalize(torch.rand(B, S, C, generator=g, device=cuda_device) + 0.5)
+    t = -M.l2_normalize(torch.rand(N, S, C, generator=g, device=cuda_device) + 0.5)
+    qm = torch.ones(B, S, device=cuda_device)
+    q, t = q.bfloat16(), t.bfloat16()
+    got = M.match_scores_cuda(q, qm, t)
+    torch.cuda.synchronize()
+    ref = M.match_scores_plain(q, qm, t)
+    assert bool((ref < 0).all())
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
 
 
 @pytest.mark.cuda
