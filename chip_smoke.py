@@ -14,7 +14,10 @@ Phases (any failure exits non-zero before the result line):
      the query batch's and a bank chunk's (rows, 257, 1024); K2 at
      contiguous (16, 16, 257, 64) and on views of a (B, 257, 3, 16, 64)
      qkv projection for B = 16 and 32, with SDPA on the same tensors; K3
-     beside a cuBLAS bf16 GEMM of the table alone and with the reductions;
+     beside a cuBLAS bf16 GEMM of the table alone and with the reductions,
+     and its int8 branch on the same queries and views quantised as the
+     serving mode does, beside torch._int_mm of the table alone and with
+     the reductions;
      the corr-window kernel once per decoder level (16^2 with one pyramid
      level, 32^2 with two, 64^2 with three) on wild centres (windows
      scattered and pushed past the map edges: mostly its per-pixel path,
@@ -38,8 +41,26 @@ Phases (any failure exits non-zero before the result line):
   4. the same path at a small size (vit_tiny_test, 6 views, 2 queries) on
      the card against the plain CPU path at the same weights, fp32 and
      bf16: stages 1-2, the stage-3 flows and certainties, and ransac_pnp
-     on identical correspondences with identical draws.
-Then the kernels as one JSON line, the card line, and the result line.
+     on identical correspondences with identical draws;
+  5. the serving entry point at full ViT-L width: a seeded bf16
+     ``PoseEstimator`` (precast weights) with the 162-view bank registered,
+     one 960 x 1280 uint8 frame holding 16 template views on a 4 x 4 grid
+     of 224^2 squares, 16 full-square masks plus one RLE and one bbox-only
+     detection (18: two chunks of 16, the second padded).  Host and
+     on-device crops of both chunks agree within 1e-3; ``estimate`` with
+     each, with the launch counts of one call (set to 0 just before, read
+     just after), the ranked poses of every chunk checked and the top-1
+     view of each detection the pasted one; ms per frame (median of 10
+     after a warm-up), host decode ms and preprocess_frame device ms; the
+     serving modes, each with the launch counts of one ``estimate``:
+     PICOPOSE_MATCH_INT8=1 (K3's int8 branch, two launches, top-1 as bf16
+     on the 16 pasted crops), PICOPOSE_MATCH_FP32=1 (K3's fp32 path),
+     quantize_stage3 (flows against the float path as relative RMS, stage-3
+     device time of both); the bank build with and without precast (device
+     busy, copy kernels; banks bitwise equal); and a bank file round trip,
+     bitwise.
+Then the kernels as one JSON line (K3's int8 row with its launches from
+the int8-matching ``estimate``), the card line, and the result line.
 TF32 is off for matmuls and convolutions throughout.  Inputs and weights
 are drawn from SEED; the stage-3 heads' predict convs are scaled
 (``calm_stage3_heads_``) so stage 3 refines the stage-2 seed and PnP sees
@@ -57,9 +78,12 @@ import numpy as np
 import torch
 
 SEED = 0
+# the kernels of the default path; K3's int8 branch runs under PICOPOSE_MATCH_INT8=1
+DEFAULT_PATH_KERNELS = ("layernorm", "attention", "match_scores", "corr_window", "warp")
 H100_BYTES_PER_S = 3.35e12
 H100_BF16_FLOPS = 989e12
 H100_FP32_FLOPS = 67e12
+H100_INT8_OPS = 1979e12
 
 
 def check(cond: bool, msg: str) -> None:
@@ -194,6 +218,7 @@ def kernel_checks(g: torch.Generator) -> dict:
     t = M.l2_normalize(rn(Nv, S, C))
     q = M.l2_normalize(t[torch.arange(B, device=dev) * 10] + 0.5 * C**-0.5 * rn(B, S, C))
     qm = (torch.rand(B, S, generator=g, device=dev) > 0.3).float()
+    q32, t32 = q, t
     q, t = q.bfloat16(), t.bfloat16()
     margs = [(q, qm, t)]
     got, ref = M.match_scores_cuda(*margs[0]), M.match_scores_plain(*margs[0])
@@ -221,12 +246,56 @@ def kernel_checks(g: torch.Generator) -> dict:
     print(f"[kernel] match_scores ({B}, {Nv}, {S}, {C}) bf16: device ms kernel {r['ms']!r}, cuBLAS bf16 GEMM "
           f"of the table alone {gemm!r}, GEMM + reductions {r['library_ms']!r}; bound {r['bound'][0]!r} ms "
           f"= {r['bound'][0] / r['ms']!r} of the bf16 peak")
+    out["match_scores_int8"] = match_int8_checks(q32, qm, t32)
     out.update(stage3_kernel_checks(g))
     for name, r in out.items():
         print(f"[kernel] {name}: max_abs_err {r['err']!r} ({r['tol']}), kernel {r['ms']!r} ms, "
               f"plain {r['plain_ms']!r} ms, library {r['library_ms']!r} ms, "
               f"bound {r['bound'][0]!r} ms ({r['bound'][1]})")
     return out
+
+
+def match_int8_checks(q32: torch.Tensor, qm: torch.Tensor, t32: torch.Tensor) -> dict:
+    """K3's int8 branch at the main path's shape: the serving mode's
+    quantisation of the same normalised q and t as the bf16 check, against
+    the plain version (exact sums; the scores sum the row maxima in
+    another order, atol 1e-5), beside torch._int_mm (cuBLASLt s8 x s8 ->
+    s32) of the whole table alone and with the same reductions."""
+    from picopose_tpu_torch.ops import matching as M
+
+    B, S, C = q32.shape
+    Nv = t32.shape[0]
+    q, t = M.quantize_int8(q32), M.quantize_int8(t32)
+    args = [(q, qm, t)]
+    got, ref = M.match_scores_cuda(*args[0]), M.match_scores_plain(*args[0])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+    ref32 = M.match_scores_plain(q32, qm, t32)
+    check(bool((got.argmax(1) == ref32.argmax(1)).all()), "int8 scores pick the fp32 scores' views")
+
+    def gemm(q, qm, t):  # (B S, C) x (C, N S) -> s32; the second operand column-major
+        return torch._int_mm(q.reshape(B * S, C), t.reshape(Nv * S, C).t())
+
+    def library(q, qm, t):
+        sim = (gemm(q, qm, t).float() * M.INT8_INV_SQ).view(B, S, Nv, S) * qm[:, :, None, None]
+        rowmax, colmax = sim.amax(3), sim.amax(1)
+        ok = (qm[:, :, None] > 0) & (sim[..., 0] < rowmax) & (sim[:, 0].transpose(1, 2) < colmax.transpose(1, 2))
+        return (rowmax * ok).sum(1) / S
+
+    torch.testing.assert_close(library(*args[0]), ref, atol=1e-5, rtol=0)
+    r = dict(
+        err=(got - ref).abs().max().item(), tol="atol 1e-5 (sims exact; the score sums in another order)",
+        ms=device_ms(M.match_scores_cuda, args, iters=10),
+        plain_ms=device_ms(M.match_scores_plain, args, iters=3),
+        library_ms=device_ms(library, args, iters=5),
+        bound=bound(q.numel() + qm.numel() * 4 + t.numel() + B * Nv * 4, 2 * B * Nv * S * S * C, H100_INT8_OPS),
+    )
+    g_ms = device_ms(gemm, args, iters=5)
+    print(f"[kernel] match_scores int8 ({B}, {Nv}, {S}, {C}): max_abs_err {r['err']!r} against the plain version "
+          f"({(got - ref32).abs().max().item()!r} against fp32 operands); device ms kernel {r['ms']!r}, "
+          f"torch._int_mm of the table alone {g_ms!r}, _int_mm + reductions {r['library_ms']!r}; bound "
+          f"{r['bound'][0]!r} ms = {r['bound'][0] / r['ms']!r} of the int8 peak")
+    return r
 
 
 def stage3_kernel_checks(g: torch.Generator) -> dict:
@@ -451,13 +520,9 @@ def profile_bank(build) -> None:
     copy kernel in it; fails if attention took another kernel than the
     Hopper one."""
     busy, _, events = profile_batch(build, top=12)
-
-    def part(match):
-        sel = [e for e in events if match(e.key)]
-        return sum(dev_us(e) for e in sel) / 1e3, sum(e.count for e in sel)
-
-    k1, k2 = part(lambda k: "layernorm" in k), part(lambda k: "attention_hopper" in k)
-    other = part(lambda k: "attention_" in k and "hopper" not in k)
+    k1 = count_kernels(events, lambda k: "layernorm" in k)
+    k2 = count_kernels(events, lambda k: "attention_hopper" in k)
+    other = count_kernels(events, lambda k: "attention_" in k and "hopper" not in k)
     copies = [e for e in events if "copy" in e.key.lower()]
     print(f"[bank] device busy {busy!r} ms; K1 layernorm {k1[0]!r} ms x{k1[1]}; K2 attention "
           f"{k2[0]!r} ms x{k2[1]}; copy kernels {sum(dev_us(e) for e in copies) / 1e3!r} ms")
@@ -540,8 +605,9 @@ def full_width(seed: int) -> tuple[dict, list]:
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     print(f"[main] launches during the main-path run (build_bank + run_batch): {launches}")
-    for name in kernels.KERNELS:
+    for name in DEFAULT_PATH_KERNELS:
         check(launches.get(name, 0) > 0, f"kernel {name} launched on the main path")
+    check("match_scores_int8" not in launches, "the default path scores bf16 operands")
     check(launches["corr_window"] == 3 and launches["warp"] == 3, "3 corr-window and 3 warp launches per batch")
     check(len(seen) == 3 and [s[4] for s in seen] == [1, 2, 3], "the decoder's three lookups were captured")
     # 24 blocks x (6 bank chunks + 1 query batch): one attention and two LNs each
@@ -607,6 +673,245 @@ def full_width(seed: int) -> tuple[dict, list]:
           f"{1 - busy / per_batch!r}; stage-3 convolutions {conv3!r} ms = {conv3 / busy!r} of busy; "
           f"PnP device {busy_pnp!r} ms = {busy_pnp / busy!r} of busy")
     return launches, seen
+
+
+FRAME_HW = (960, 1280)  # ITODD's frame size
+
+
+def rle_counts(mask: np.ndarray) -> dict:
+    """An uncompressed COCO RLE of a binary mask (column-major runs,
+    starting with a background run)."""
+    flat = mask.T.reshape(-1).astype(np.int8)
+    edges = np.flatnonzero(np.diff(np.r_[0, flat, 1 - flat[-1]]))
+    return {"size": list(mask.shape), "counts": np.diff(np.r_[0, edges]).tolist()}
+
+
+def serve_world(seed: int, queries: list[int]):
+    """The 162-view bank inputs of ``synthetic_world``, with views made of
+    uint8 RGB images (CLIP-normalised BGR, as the crops are), and one
+    960 x 1280 frame holding ``queries``' views on a 4 x 4 grid of 224^2
+    squares.  Detections: each square with its full mask, then one
+    RLE-encoded mask of the first square and one bbox-only detection of
+    the sixth.  Returns (bank inputs, frame, K, detections, expected
+    view per detection)."""
+    from picopose_tpu_torch.data.crops import CLIP_MEAN, CLIP_STD
+
+    bank_np, _ = synthetic_world(162, queries, seed)
+    rng = np.random.default_rng(seed + 7)
+    views = rng.integers(0, 256, size=(162, 224, 224, 3), dtype=np.uint8)
+    rgb = ((views[..., ::-1] / 255.0 - CLIP_MEAN) / CLIP_STD).astype(np.float32)
+    frame = rng.integers(0, 256, size=(*FRAME_HW, 3), dtype=np.uint8)
+    dets, expected = [], []
+    for i, v in enumerate(queries):
+        y0, x0 = 240 * (i // 4), 320 * (i % 4)
+        frame[y0 : y0 + 224, x0 : x0 + 224] = views[v]
+        mask = np.zeros(FRAME_HW, np.uint8)
+        mask[y0 : y0 + 224, x0 : x0 + 224] = 1
+        dets.append({"obj_id": 1, "mask": mask})
+        expected.append(v)
+    dets.append({"obj_id": 1, "segmentation": rle_counts(dets[0]["mask"])})
+    dets.append({"category_id": 1, "bbox": [320 * 1, 240 * 1, 224, 224]})  # xywh of the sixth square
+    expected += [queries[0], queries[5]]
+    K = np.array([[1000.0, 0, 640.0], [0, 1000.0, 480.0], [0, 0, 1]], np.float32)
+    return (rgb, *bank_np[1:]), frame, K, dets, expected
+
+
+class Recorder:
+    """Within ``with``, wrap ``module.name`` to append what ``keep(result,
+    args)`` returns to ``self.seen``."""
+
+    def __init__(self, module, name: str, keep):
+        self.module, self.name, self.keep, self.seen = module, name, keep, []
+
+    def __enter__(self):
+        fn = self.orig = getattr(self.module, self.name)
+
+        def wrapped(*a, **kw):
+            out = fn(*a, **kw)
+            self.seen.append(self.keep(out, a))
+            return out
+
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def count_kernels(events, match) -> tuple[float, int]:
+    sel = [e for e in events if match(e.key)]
+    return sum(dev_us(e) for e in sel) / 1e3, sum(e.count for e in sel)
+
+
+def serve_phase(seed: int) -> dict:
+    """Phase 5: ``PoseEstimator`` at full ViT-L width on one 960 x 1280
+    frame with 18 detections (two chunks of 16, the second padded): host
+    and on-device preprocessing, the serving modes with their launch
+    counts, precast, the bank file round trip.  Returns the launch counts
+    of the int8-matching ``estimate``."""
+    import os
+    import tempfile
+    import warnings
+
+    from picopose_tpu_torch import kernels
+    from picopose_tpu_torch import serve as SV
+    from picopose_tpu_torch.eval import pipeline as P
+    from picopose_tpu_torch.models import PicoPose
+    from picopose_tpu_torch.ops import matching as M
+    from picopose_tpu_torch.ops.preprocess import preprocess_frame
+    from picopose_tpu_torch.utils.precast import precast_inference_params
+    from picopose_tpu_torch.utils.weights import init_random_
+
+    queries = list(range(0, 162, 10))[:16]
+    bank_np, frame, K, dets, expected = serve_world(seed, queries)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # seeded weights, on purpose
+        est = SV.PoseEstimator(seed=seed)  # ViT-L, bf16 (precast), 5 hypotheses, 150 PnP iterations
+    calm_stage3_heads_(est.model)
+    bank = P.build_bank(est.model, *bank_np, chunk=32)
+    est.register_bank(1, bank)
+    check(est.objects == [1], "one object registered")
+    n = len(dets)
+
+    def run(tag: str) -> dict:
+        """One estimate with every kernel's count set to 0 just before and
+        read just after; the ranked poses and top-1 views recorded."""
+        with Recorder(SV, "run_batch", lambda out, a: out) as rb, \
+                Recorder(P, "match_templates", lambda out, a: out[1][:, 0]) as mt, \
+                Recorder(M, "match_scores_cuda", lambda out, a: a[0].dtype) as ms:
+            kernels.reset_launches()
+            res = est.estimate(frame, K, dets)
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+        check(len(res) == n and all(r.obj_id == 1 for r in res), f"{tag}: {n} results in order")
+        for i, out in enumerate(rb.seen):
+            check_eval_output(f"{tag} chunk {i}", out, est.max_batch, est.hyp)
+        top1 = torch.cat(mt.seen)[:n].tolist()
+        hits = sum(a == b for a, b in zip(top1, expected))
+        for r in res:
+            check(np.isfinite(r.R).all() and np.isfinite(r.t).all(), f"{tag}: finite poses")
+            check(np.abs(r.R.T @ r.R - np.eye(3)).max() < 1e-4, f"{tag}: orthonormal R")
+        print(f"[serve] {tag}: launches {launches}; K3 operands {sorted(set(map(str, ms.seen)))}; top-1 is the "
+              f"pasted view for {hits}/{n} detections; PnP success {sum(r.success for r in res)}/{n}")
+        return dict(launches=launches, top1=top1, hits=hits, operands=set(ms.seen))
+
+    # batch parity: host crops against on-device crops, both chunks
+    for s0 in range(0, n, est.max_batch):
+        chunk = dets[s0 : s0 + est.max_batch]
+        pad = est.max_batch - len(chunk)
+        host, dev = est._host_batch(frame, K, chunk, pad), est._device_batch(frame, K, chunk, pad)
+        err = {k: (host[k].float() - dev[k].float()).abs().max().item() for k in host}
+        print(f"[serve] chunk {s0 // est.max_batch} host vs device preprocessing max abs errors {err!r}")
+        check(err["real_rgb"] <= 1e-3 and err["real_pts2d"] <= 1e-3, "rgb and pts2d within 1e-3")
+        check(err["real_mask"] == 0 and err["real_K"] == 0, "masks and K equal")
+        torch.testing.assert_close(dev["real_M"], host["real_M"], rtol=1e-5, atol=0)
+
+    host_run = run("estimate, host preprocessing")
+    check(host_run["hits"] == n, "top-1 is the pasted view for every detection")
+    launches = host_run["launches"]
+    for name in DEFAULT_PATH_KERNELS:
+        check(launches.get(name, 0) > 0, f"kernel {name} launched by estimate")
+    check(launches.get("match_scores") == 2 and "match_scores_int8" not in launches, "two bf16 K3 launches")
+    est.device_preprocess = True
+    dev_run = run("estimate, on-device preprocessing")
+    check(dev_run["hits"] == n, "top-1 is the pasted view for every detection (on-device crops)")
+    est.device_preprocess = False
+
+    # times: ms per frame, host decode, on-device preprocessing
+    per_frame = {}
+    for flag in (False, True):
+        est.device_preprocess = flag
+        per_frame[flag] = host_ms(lambda: est.estimate(frame, K, dets), 11)[1:]
+    est.device_preprocess = False
+    decode = host_ms(lambda: [est._host_batch(frame, K, dets[s : s + 16], max(0, s + 16 - n)) for s in (0, 16)], 6)[1:]
+    ft = torch.as_tensor(frame, device=est.device)
+    mk = torch.as_tensor(np.stack([d["mask"] for d in dets[:16]]), device=est.device)
+    pre_ms = device_ms(lambda f, m: preprocess_frame(f, m), [(ft, mk)], iters=10)
+    print(f"[serve] estimate ms per frame (18 detections, 2 chunks; 10 runs after one warm-up): host "
+          f"preprocessing median {float(np.median(per_frame[False]))!r} (min {min(per_frame[False])!r}, max "
+          f"{max(per_frame[False])!r}); on-device preprocessing median {float(np.median(per_frame[True]))!r} "
+          f"(min {min(per_frame[True])!r}, max {max(per_frame[True])!r})")
+    print(f"[serve] host decode of the 18 crops (both chunks) ms, median of 5: {float(np.median(decode))!r}; "
+          f"preprocess_frame device ms (16 detections, 960 x 1280 frame): {pre_ms!r}")
+
+    # serving modes, each with its launch counts during one estimate
+    os.environ["PICOPOSE_MATCH_INT8"] = "1"
+    try:
+        int8_run = run("estimate, PICOPOSE_MATCH_INT8=1")
+    finally:
+        del os.environ["PICOPOSE_MATCH_INT8"]
+    check(int8_run["launches"].get("match_scores_int8", 0) == 2 and "match_scores" not in int8_run["launches"],
+          "int8 matching launches K3's int8 branch, once per chunk")
+    agree = sum(a == b for a, b in zip(int8_run["top1"][:16], host_run["top1"][:16]))
+    print(f"[serve] int8 matching: top-1 agrees with bf16 matching on {agree}/16 pasted crops")
+    check(agree == 16, "int8 top-1 agrees with bf16 on the pasted crops")
+    os.environ["PICOPOSE_MATCH_FP32"] = "1"
+    try:
+        fp32_run = run("estimate, PICOPOSE_MATCH_FP32=1")
+    finally:
+        del os.environ["PICOPOSE_MATCH_FP32"]
+    check(fp32_run["operands"] == {torch.float32} and fp32_run["launches"].get("match_scores", 0) == 2,
+          "fp32-operand matching launches K3's fp32 path")
+
+    # quantize_stage3: flows against the float path, stage-3 device time
+    batch = est._host_batch(frame, K, dets[:16], 0)
+    feats_real, _, ids = P.select_templates(est.model, batch, bank, hyp=est.hyp)
+    pred_Ms, _ = P.stage2_poses(est.model, batch, bank, feats_real, ids)
+    stage3 = lambda: P.stage3_correspondences(est.model, batch, bank, feats_real, ids, pred_Ms)
+    ref = stage3()
+    print("[profile] stage 3 with the float (cuDNN bf16) convs:")
+    busy_f, conv_f, _ = profile_batch(stage3, top=8)
+    est.model.flow_decoder.quantize = True
+    try:
+        q_run = run("estimate, quantize_stage3")
+        got = stage3()
+        print("[profile] stage 3 with the int8 convs (im2col + torch._int_mm):")
+        busy_q, _, ev_q = profile_batch(stage3, top=12)
+    finally:
+        est.model.flow_decoder.quantize = False
+    check(q_run["hits"] == n, "quantize_stage3 keeps stage 1's choices")
+    rel = lambda a, b: ((a.double() - b.double()).norm() / b.double().norm()).item()
+    errs = {f"flow{l}": rel(a, b) for l, (a, b) in enumerate(zip(got.flows, ref.flows))}
+    errs.update({f"cert{l}": rel(a, b) for l, (a, b) in enumerate(zip(got.certs, ref.certs))})
+    int_mm = count_kernels(ev_q, lambda k: any(w in k.lower() for w in ("s8", "i8", "imma", "int8")))
+    print(f"[serve] quantize_stage3 flows against the float path, relative RMS {errs!r}; stage-3 device busy "
+          f"int8 {busy_q!r} ms (int8 GEMM kernels {int_mm[0]!r} ms x{int_mm[1]}) vs float {busy_f!r} ms "
+          f"(cuDNN convs {conv_f!r} ms)")
+    check(all(np.isfinite(v) for v in errs.values()) and errs["flow2"] < 0.1, "int8 stage-3 flows near the float ones")
+
+    # precast: the bank build without and with bf16 weight storage
+    plain = PicoPose("dinov2_vitl14", (5, 11, 17, 23), torch.bfloat16, device=est.device)
+    init_random_(plain, seed)
+    with torch.inference_mode():
+        dev_bank = [torch.as_tensor(a, device=est.device) for a in bank_np]
+        build = lambda m: P.build_bank(m, *dev_bank, chunk=32)
+        b_plain = build(plain)
+        for a, b in zip(b_plain.feats + b_plain.dpt, bank.feats + bank.dpt):
+            check(torch.equal(a, b), "precast bank build is bitwise equal to the fp32-weight one")
+        stats = {}
+        for tag, m in (("fp32 weights", plain), ("precast", est.model)):
+            build(m)
+            print(f"[profile] bank build, {tag}:")
+            busy, _, ev = profile_batch(lambda: build(m), top=6)
+            stats[tag] = (busy, *count_kernels(ev, lambda k: "copy" in k.lower()))
+        precast_inference_params(plain)
+        for a, b in zip(build(plain).feats, b_plain.feats):
+            check(torch.equal(a, b), "precast in place keeps the bank bitwise")
+    print(f"[serve] precast: bank build device busy / copy-kernel ms / copy launches: {stats!r}")
+    del plain, b_plain, dev_bank
+
+    # bank files: save and load on the card, bitwise
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as d:
+        est.save_banks(d)
+        other = SV.PoseEstimator.__new__(SV.PoseEstimator)
+        other.device, other._banks = est.device, {}
+        check(other.load_banks(d) == [1], "bank file found")
+        a, b = est._banks[1], other._banks[1]
+        for x, y in zip(a.feats + a.dpt + a[1:6], b.feats + b.dpt + b[1:6]):
+            check(x.dtype == y.dtype and x.device == y.device and torch.equal(x, y), "bank round trip bitwise")
+        print(f"[serve] bank file {sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))} bytes, "
+              "loads back bitwise equal")
+    return int8_run["launches"]
 
 
 def pnp_scene(rng, B: int, N: int):
@@ -732,12 +1037,16 @@ def main() -> int:
     t0 = time.perf_counter()
     small_reference(SEED)
     print(f"[phase] small reference {time.perf_counter() - t0!r} s")
+    t0 = time.perf_counter()
+    launches["match_scores_int8"] = serve_phase(SEED)["match_scores_int8"]
+    print(f"[phase] serve {time.perf_counter() - t0!r} s")
 
     src = "picopose_tpu_torch/kernels/csrc/"
     replaces = {
         "layernorm": "picopose_tpu/ops/pallas/layernorm.py:51",
         "attention": "picopose_tpu/ops/pallas/flash_attention.py:69",
         "match_scores": "picopose_tpu/ops/pallas/matching.py:81",
+        "match_scores_int8": "picopose_tpu/ops/pallas/matching.py:37",
         "corr_window": "picopose_tpu/ops/pallas/corr.py:327",
         "warp": "picopose_tpu/ops/pallas/warp.py:102",
     }

@@ -9,7 +9,9 @@ flags, so a changed source is rebuilt).  Nothing is built at import time.
 
 ``LAUNCHES`` counts, per kernel, the launches made through ``launch``: a
 caller sets it to zero before a run and reads it after, to show that the
-run went through the kernels.
+run went through the kernels.  A kernel may have several names that share
+one source and entry point (K3's int8 branch, ``match_scores_int8``), so
+that each branch is counted on its own; the source is built once.
 """
 
 from __future__ import annotations
@@ -33,11 +35,14 @@ NVCC_FLAGS = (
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _S = ctypes.c_char_p  # int64 values packed with struct.pack
 
+_MATCH = ("matching.cu", "pp_match_scores", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
+
 # kernel name -> (source file, C entry point, argument types)
 KERNELS = {
     "layernorm": ("layernorm.cu", "pp_layernorm", [_P, _P, _P, _P, _L, _I, _F, _I, _P]),
     "attention": ("attention.cu", "pp_attention", [_P, _P, _P, _P, _I, _I, _I, _I, _S, _F, _I, _P]),
-    "match_scores": ("matching.cu", "pp_match_scores", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "match_scores": _MATCH,  # bf16 and fp32 operands
+    "match_scores_int8": _MATCH,  # the int8 operands of the serving mode
     "corr_window": ("corr.cu", "pp_corr_window", [_P, _P, _P, _S, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P]),
     "warp": ("warp.cu", "pp_warp", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
 }
@@ -84,8 +89,8 @@ def _load(name: str, path: str) -> None:
 def build(names=None, verbose: bool = False) -> dict[str, str]:
     """Compile and load the named kernels (all by default) that are not yet
     loaded; one nvcc process per source, run in parallel.  Returns the
-    compiler's output per kernel (with ``verbose``, ptxas's register and
-    shared-memory report)."""
+    compiler's output per source file (with ``verbose``, ptxas's register
+    and shared-memory report)."""
     names = list(KERNELS) if names is None else list(names)
     logs: dict[str, str] = {}
     with _lock:
@@ -93,28 +98,30 @@ def build(names=None, verbose: bool = False) -> dict[str, str]:
         if not todo:
             return logs
         os.makedirs(BUILD_DIR, exist_ok=True)
-        procs = {}
-        for n in todo:
-            src = KERNELS[n][0]
+        procs = {}  # source -> (nvcc process or None, temporary path, library path)
+        for src in dict.fromkeys(KERNELS[n][0] for n in todo):
             out = _library_path(src)
             if os.path.exists(out) and not verbose:
-                procs[n] = (None, out, out)
+                procs[src] = (None, out, out)
                 continue
             tmp = f"{out}.{os.getpid()}.tmp"
             cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
                    "-o", tmp, os.path.join(CSRC_DIR, src)]
             p = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-            procs[n] = (p, tmp, out)
-        failed = []
-        for n, (p, tmp, out) in procs.items():
+            procs[src] = (p, tmp, out)
+        failed, built = [], set()
+        for src, (p, tmp, out) in procs.items():
             if p is not None:
                 text = p.communicate()[0].decode(errors="replace")
-                logs[n] = text
+                logs[src] = text
                 if p.returncode != 0:
-                    failed.append(f"{KERNELS[n][0]}:\n{text}")
+                    failed.append(f"{src}:\n{text}")
                     continue
                 os.replace(tmp, out)
-            _load(n, out)
+            built.add(src)
+        for n in todo:
+            if KERNELS[n][0] in built:
+                _load(n, procs[KERNELS[n][0]][2])
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return logs

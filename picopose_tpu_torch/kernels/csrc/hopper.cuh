@@ -1,7 +1,7 @@
 // Hopper building blocks shared by the port's sm_90a kernels: mbarriers,
 // TMA loads over tensor maps (the encoder looked up at run time, so no
-// library links libcuda), wgmma shared-memory descriptors and
-// SS products with fp32 accumulators.
+// library links libcuda), wgmma shared-memory descriptors, SS products
+// with fp32 accumulators (bf16) and s32 accumulators (s8).
 #pragma once
 
 #include "common.cuh"
@@ -113,6 +113,11 @@ __device__ __forceinline__ void pin(float (&r)[n]) {
   for (int i = 0; i < n; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 template <int n>
+__device__ __forceinline__ void pin(int32_t (&r)[n]) {
+#pragma unroll
+  for (int i = 0; i < n; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+template <int n>
 __device__ __forceinline__ void pin(uint32_t (&r)[n][4]) {
 #pragma unroll
   for (int i = 0; i < n; ++i)
@@ -122,6 +127,20 @@ __device__ __forceinline__ void pin(uint32_t (&r)[n][4]) {
 
 #define PP_F4(a, i) "+f"(a[i]), "+f"(a[i + 1]), "+f"(a[i + 2]), "+f"(a[i + 3])
 #define PP_F8(a, i) PP_F4(a, i), PP_F4(a, i + 4)
+#define PP_R4(a, i) "+r"(a[i]), "+r"(a[i + 1]), "+r"(a[i + 2]), "+r"(a[i + 3])
+#define PP_R8(a, i) PP_R4(a, i), PP_R4(a, i + 4)
+#define PP_ACC128(R) R(d, 0), R(d, 8), R(d, 16), R(d, 24), R(d, 32), R(d, 40), R(d, 48), R(d, 56), \
+    R(d, 64), R(d, 72), R(d, 80), R(d, 88), R(d, 96), R(d, 104), R(d, 112), R(d, 120)
+#define PP_REGS128                                                                           \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "        \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "        \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "        \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "        \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "        \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "  \
+  "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, "    \
+  "%125, %126, %127"
 
 // d (+)= A B with A, B from shared memory, both K-major, bf16 -> fp32.
 // Accumulator layout of m64nNk16 (per warp 16 rows): element i sits at row
@@ -129,19 +148,22 @@ __device__ __forceinline__ void pin(uint32_t (&r)[n][4]) {
 __device__ __forceinline__ void mma_ss_n256(float (&d)[128], uint64_t a, uint64_t b, int acc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {" PP_REGS128 "}, "
       "%128, %129, p, 1, 1, 0, 0;\n}\n"
-      : PP_F8(d, 0), PP_F8(d, 8), PP_F8(d, 16), PP_F8(d, 24), PP_F8(d, 32), PP_F8(d, 40),
-        PP_F8(d, 48), PP_F8(d, 56), PP_F8(d, 64), PP_F8(d, 72), PP_F8(d, 80), PP_F8(d, 88),
-        PP_F8(d, 96), PP_F8(d, 104), PP_F8(d, 112), PP_F8(d, 120)
+      : PP_ACC128(PP_F8)
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// d (+)= A B with A, B from shared memory, both K-major, s8 -> s32 (exact
+// sums; integer wgmma has no scale or transpose operands).  Each call
+// consumes 32 bytes of K, as a bf16 k16 step does, and the s32
+// accumulators sit where m64nNk16's fp32 ones do.
+__device__ __forceinline__ void mma_ss_n256(int32_t (&d)[128], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {" PP_REGS128 "}, "
+      "%128, %129, p;\n}\n"
+      : PP_ACC128(PP_R8)
       : "l"(a), "l"(b), "r"(acc));
 }
 
@@ -192,6 +214,10 @@ __device__ __forceinline__ void mma_rs(float (&d)[16], const uint32_t (&a)[4], u
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
 }
 
+#undef PP_REGS128
+#undef PP_ACC128
+#undef PP_R8
+#undef PP_R4
 #undef PP_F8
 #undef PP_F4
 
@@ -218,14 +244,15 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` dims (dims[0] contiguous; strides[k] in bytes
-// of dim k + 1) whose box rows are 64 elements under the 128-byte swizzle.
-// Returns false where the encoder refuses it.
+// A tensor map of `rank` dims (dims[0] contiguous; strides[k] in bytes of
+// dim k + 1) whose box rows are 128 bytes (64 bf16, 128 int8 as uint8)
+// under the 128-byte swizzle.  Returns false where the encoder refuses it.
 inline bool encode_sw128(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
-                         const cuuint64_t* strides, const cuuint32_t* box) {
+                         const cuuint64_t* strides, const cuuint32_t* box,
+                         CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
   if (encode_tiled() == nullptr) return false;
-  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims,
+  return encode_tiled()(map, dtype, rank, const_cast<void*>(ptr), dims,
                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

@@ -1,8 +1,10 @@
 // Template-matching scores: (B, S, C) queries x (N, S, C) bank -> (B, N).
 //
 // Replaces picopose_tpu/ops/pallas/matching.py::match_scores_pallas
-// (_score_kernel).  Per (query b, view n): sim = q_b t_n^T (S x S, fp32
-// sums of storage-dtype products), rows scaled by the query mask (masked
+// (_score_kernel), all three operand types.  Per (query b, view n): sim =
+// q_b t_n^T (S x S, fp32 sums of storage-dtype products; for int8, exact
+// s32 sums converted to fp32 and scaled by fp32(1 / 127^2), the TPU
+// kernel's int8 branch :37-42), rows scaled by the query mask (masked
 // rows are zeros, not -inf, and still take part in the column maxima);
 // rowmax, colmax; t_valid[i] = sim[i,0] < rowmax[i], s_valid[i] =
 // sim[0,i] < colmax[i] (argmax != 0 with first-index ties); score =
@@ -11,7 +13,8 @@
 //
 // Bound: operations.  At B = 16, N = 162, S = 256, C = 1024 in bf16 the
 // products are 348 GFLOP (~0.35 ms on the bf16 tensor cores) over 93 MB
-// of input (~28 us).  The TPU kernel holds the whole 256 x 256 fp32 sim
+// of input (~28 us); in int8 348 G operations (~0.18 ms at the int8 rate)
+// over 47 MB.  The TPU kernel holds the whole 256 x 256 fp32 sim
 // block in VMEM; that is 256 KB, more than a Hopper block's 227 KB of
 // shared memory or its 256 KB of registers, so sim is computed in blocks
 // of 128 query rows x 256 view rows and only per-(b, n) vectors are kept:
@@ -31,10 +34,19 @@
 // on the way; columns past S are -inf in the row maxima and rows past S
 // -inf in the column maxima, so a zero-filled pad never beats a negative
 // sim.  S > 256 walks 256-column chunks with the row maxima kept in
-// registers.  fp32: plain FMAs from device memory on the CUDA cores, with
-// 16 x 16 tiles folded through a per-warp scratch tile.
+// registers.  int8 is the same kernel: a 128-byte swizzled row holds 128
+// int8 channels instead of 64 bf16 ones, so a stage is the same 48 KB,
+// each wgmma m64n256k32 (s8 x s8 -> s32) consumes the same 32 bytes of K
+// as an m64n256k16 bf16 step, and its s32 accumulators sit where the fp32
+// ones do; they are converted and scaled in their own registers (fp32 bits
+// in the s32 array: a second array spilled) before the same epilogue
+// (zero-filled pads still give 0 products).  fp32: plain FMAs from device memory
+// on the CUDA cores, with 16 x 16 tiles folded through a per-warp scratch
+// tile.
 
 #include "hopper.cuh"
+
+#include <type_traits>
 
 namespace {
 
@@ -105,11 +117,11 @@ namespace tc {
 
 constexpr int kRows = 128;  // query rows per block (two consumers x 64)
 constexpr int kCols = 256;  // view rows per chunk (wgmma N)
-constexpr int kK = 64;      // channels per stage: one 128-byte swizzled row
+constexpr int kRowBytes = 128;  // channels per stage: one 128-byte swizzled row
 constexpr int kStages = 4;
 constexpr int kThreads = 384;  // producer warpgroup + two consumers
-constexpr int kABytes = kRows * kK * 2;  // 16 KB
-constexpr int kBBytes = kCols * kK * 2;  // 32 KB
+constexpr int kABytes = kRows * kRowBytes;  // 16 KB
+constexpr int kBBytes = kCols * kRowBytes;  // 32 KB
 constexpr int kStageBytes = kABytes + kBBytes;
 constexpr int kRing = kStages * kStageBytes;
 constexpr int kBars = 2 * kStages;
@@ -123,6 +135,14 @@ struct Args {
   float* out;
   int B, N, S, C;
 };
+
+// the TPU kernel's rescale of the int8 products: 1 / 127^2 rounded once to fp32
+constexpr float kInt8Scale = static_cast<float>(1.0 / (127.0 * 127.0));
+
+template <typename In>
+constexpr bool kInt8 = std::is_same_v<In, int8_t>;
+template <typename In>
+constexpr int kK = kRowBytes / static_cast<int>(sizeof(In));  // channels per stage
 
 // One step of the reduce-scatter: the lane whose `bit` is set keeps
 // x[HALF..2 HALF), its partner x[0..HALF); each takes the maximum with the
@@ -138,9 +158,17 @@ __device__ __forceinline__ void exchange(float (&x)[64], int lane) {
   }
 }
 
+// The block's sims as fp32: an fp32 accumulator, or the fp32 bits that the
+// int8 branch stores in its s32 accumulator registers (no second array)
+__device__ __forceinline__ float as_f(float x) { return x; }
+__device__ __forceinline__ float as_f(int32_t x) { return __int_as_float(x); }
+__device__ __forceinline__ void set_f(float& x, float f) { x = f; }
+__device__ __forceinline__ void set_f(int32_t& x, float f) { x = __float_as_int(f); }
+
 // Fold one consumer's 64 x 256 block (rows row0.., columns col0..) into the
 // vectors.  rm: this thread's running row maxima (rows r and r + 8).
-__device__ __forceinline__ void fold(float (&acc)[128], const Vectors& v, int S, int row0,
+template <typename Acc>
+__device__ __forceinline__ void fold(Acc (&acc)[128], const Vectors& v, int S, int row0,
                                      int col0, int part, float (&rm)[2]) {
   const int lane = threadIdx.x % 32, r = lane / 4, qd = lane % 4;
   const int rows[2] = {row0 + r, row0 + r + 8};
@@ -149,18 +177,19 @@ __device__ __forceinline__ void fold(float (&acc)[128], const Vectors& v, int S,
 #pragma unroll
   for (int i = 0; i < 128; ++i) {
     const int h = (i >> 1) & 1, col = col0 + 8 * (i >> 2) + 2 * qd + (i & 1);
-    acc[i] *= m[h];
-    rm[h] = fmaxf(rm[h], col < S ? acc[i] : -CUDART_INF_F);
+    const float a = as_f(acc[i]) * m[h];
+    set_f(acc[i], a);
+    rm[h] = fmaxf(rm[h], col < S ? a : -CUDART_INF_F);
   }
   if (col0 == 0 && qd == 0) {  // sim[:, 0]
-    if (ok[0]) v.col0[rows[0]] = acc[0];
-    if (ok[1]) v.col0[rows[1]] = acc[2];
+    if (ok[0]) v.col0[rows[0]] = as_f(acc[0]);
+    if (ok[1]) v.col0[rows[1]] = as_f(acc[2]);
   }
   if (row0 + r == 0) {  // sim[0, :]: lanes 0-3 of the first warp
 #pragma unroll
     for (int i = 0; i < 128; ++i) {
       const int col = col0 + 8 * (i >> 2) + 2 * qd + (i & 1);
-      if (!((i >> 1) & 1) && col < S) v.row0[col] = acc[i];
+      if (!((i >> 1) & 1) && col < S) v.row0[col] = as_f(acc[i]);
     }
   }
   // column maxima over the warp's 16 rows: both rows of this thread, then a
@@ -170,7 +199,7 @@ __device__ __forceinline__ void fold(float (&acc)[128], const Vectors& v, int S,
 #pragma unroll
   for (int k = 0; k < 64; ++k) {
     const int i = 4 * (k >> 1) + (k & 1);
-    x[k] = fmaxf(ok[0] ? acc[i] : -CUDART_INF_F, ok[1] ? acc[i + 2] : -CUDART_INF_F);
+    x[k] = fmaxf(ok[0] ? as_f(acc[i]) : -CUDART_INF_F, ok[1] ? as_f(acc[i + 2]) : -CUDART_INF_F);
   }
   exchange<32, 16>(x, lane);
   exchange<16, 8>(x, lane);
@@ -183,6 +212,7 @@ __device__ __forceinline__ void fold(float (&acc)[128], const Vectors& v, int S,
   }
 }
 
+template <typename In>
 __global__ void __launch_bounds__(kThreads, 1)
 match_scores_hopper_kernel(const __grid_constant__ CUtensorMap qmap,
                            const __grid_constant__ CUtensorMap tmap, const Args args) {
@@ -203,7 +233,7 @@ match_scores_hopper_kernel(const __grid_constant__ CUtensorMap qmap,
 
   const int S = args.S, units = args.B * args.N;
   const int row_blocks = (S + kRows - 1) / kRows, chunks = (S + kCols - 1) / kCols;
-  const int ksteps = (args.C + kK - 1) / kK;
+  const int ksteps = (args.C + kK<In> - 1) / kK<In>;
   const int wg = threadIdx.x / 128;
   if (wg == 0) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
@@ -218,8 +248,8 @@ match_scores_hopper_kernel(const __grid_constant__ CUtensorMap qmap,
             hop::mbar_wait(empty + s, ((g / kStages) & 1) ^ 1);
             hop::mbar_expect_tx(full + s, kStageBytes);
             unsigned char* st = smem + s * kStageBytes;
-            hop::tma_load_3d(st, &qmap, full + s, k * kK, rb * kRows, b);
-            hop::tma_load_3d(st + kABytes, &tmap, full + s, k * kK, cb * kCols, n);
+            hop::tma_load_3d(st, &qmap, full + s, k * kK<In>, rb * kRows, b);
+            hop::tma_load_3d(st + kABytes, &tmap, full + s, k * kK<In>, cb * kCols, n);
           }
     }
     return;
@@ -238,7 +268,7 @@ match_scores_hopper_kernel(const __grid_constant__ CUtensorMap qmap,
       const int row0 = rb * kRows + c * 64 + (warp % 4) * 16;
       float rm[2] = {-CUDART_INF_F, -CUDART_INF_F};
       for (int cb = 0; cb < chunks; ++cb) {
-        float acc[128];
+        std::conditional_t<kInt8<In>, int32_t, float> acc[128];
         for (int k = 0; k < ksteps; ++k, ++g) {
           const int s = g % kStages;
           hop::mbar_wait(full + s, (g / kStages) & 1);
@@ -247,7 +277,7 @@ match_scores_hopper_kernel(const __grid_constant__ CUtensorMap qmap,
           hop::pin(acc);
           hop::wg_fence();
 #pragma unroll
-          for (int kk = 0; kk < kK / 16; ++kk)
+          for (int kk = 0; kk < kRowBytes / 32; ++kk)  // 32 bytes of K per product
             hop::mma_ss_n256(acc, hop::desc_sw128(a + kk * 32), hop::desc_sw128(bt + kk * 32),
                              k > 0 || kk > 0);
           hop::wg_commit();
@@ -262,6 +292,10 @@ match_scores_hopper_kernel(const __grid_constant__ CUtensorMap qmap,
         hop::pin(acc);
         __syncwarp();
         if (lane == 0) hop::mbar_arrive(empty + (g - 1) % kStages);
+        if constexpr (kInt8<In>) {  // exact s32 sums -> fp32, rescaled once
+#pragma unroll
+          for (int i = 0; i < 128; ++i) set_f(acc[i], __int2float_rn(acc[i]) * kInt8Scale);
+        }
         fold(acc, v, S, row0, cb * kCols, warp, rm);
       }
       // row maxima: the quad holds the row's columns
@@ -278,22 +312,26 @@ match_scores_hopper_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
+template <typename In>
 int launch(const void* q, const void* qm, const void* t, void* out, int B, int N, int S, int C,
            cudaStream_t stream) {
   const size_t smem = smem_bytes(S);
-  if (smem > kMaxSmem || (C * 2) % 16 != 0) return cudaErrorInvalidValue;
+  if (smem > kMaxSmem || (C * sizeof(In)) % 16 != 0) return cudaErrorInvalidValue;
   CUtensorMap qmap, tmap;
-  const cuuint64_t row = static_cast<cuuint64_t>(C) * 2;
+  const cuuint64_t row = static_cast<cuuint64_t>(C) * sizeof(In);
   const cuuint64_t qdims[3] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(S),
                                static_cast<cuuint64_t>(B)};
   const cuuint64_t tdims[3] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(S),
                                static_cast<cuuint64_t>(N)};
   const cuuint64_t strides[2] = {row, row * S};
-  const cuuint32_t qbox[3] = {kK, kRows, 1}, tbox[3] = {kK, kCols, 1};
-  if (!hop::encode_sw128(&qmap, q, 3, qdims, strides, qbox) ||
-      !hop::encode_sw128(&tmap, t, 3, tdims, strides, tbox))
+  const cuuint32_t qbox[3] = {kK<In>, kRows, 1}, tbox[3] = {kK<In>, kCols, 1};
+  // int8 travels as uint8: the same bits, and TMA only copies them
+  const CUtensorMapDataType dt =
+      kInt8<In> ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  if (!hop::encode_sw128(&qmap, q, 3, qdims, strides, qbox, dt) ||
+      !hop::encode_sw128(&tmap, t, 3, tdims, strides, tbox, dt))
     return cudaErrorInvalidPitchValue;
-  cudaError_t e = cudaFuncSetAttribute(match_scores_hopper_kernel,
+  cudaError_t e = cudaFuncSetAttribute(match_scores_hopper_kernel<In>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return e;
@@ -302,7 +340,7 @@ int launch(const void* q, const void* qm, const void* t, void* out, int B, int N
   const long long units = static_cast<long long>(B) * N;
   const int grid = units < sms ? static_cast<int>(units) : sms;
   const Args a{static_cast<const float*>(qm), static_cast<float*>(out), B, N, S, C};
-  match_scores_hopper_kernel<<<grid, kThreads, smem, stream>>>(qmap, tmap, a);
+  match_scores_hopper_kernel<In><<<grid, kThreads, smem, stream>>>(qmap, tmap, a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -399,14 +437,16 @@ match_scores_f32_kernel(const float* __restrict__ q, const float* __restrict__ q
 
 }  // namespace
 
+// dtype: 0 fp32, 1 bf16, 2 int8 (q and t alike)
 extern "C" int pp_match_scores(const void* q, const void* qm, const void* t,
-                               void* out, int B, int N, int S, int C, int is_bf16,
+                               void* out, int B, int N, int S, int C, int dtype,
                                void* stream) {
   if (B <= 0 || N <= 0 || S <= 0 || C <= 0 || S % 16 != 0 || C % 16 != 0 ||
-      static_cast<long long>(B) * N > 0x7fffffffLL)
+      dtype < 0 || dtype > 2 || static_cast<long long>(B) * N > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return tc::launch(q, qm, t, out, B, N, S, C, s);
+  if (dtype == 1) return tc::launch<bf16>(q, qm, t, out, B, N, S, C, s);
+  if (dtype == 2) return tc::launch<int8_t>(q, qm, t, out, B, N, S, C, s);
   const size_t smem = f32_smem_bytes(S);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   const cudaError_t e = cudaFuncSetAttribute(match_scores_f32_kernel,

@@ -1,8 +1,8 @@
 """Stage-3 flow decoder: coarse-to-fine RAFT-style refinement.
 
 Counterpart of picopose_tpu/models/flow.py (``MotionEncoder``, ``XHead``,
-``_fused_xheads`` :139, ``FlowDecoder`` :175) in its default form (fused
-XHeads, float convs).  Per level l in {0, 1, 2} at 16*2^l cells:
+``_fused_xheads`` :139, ``FlowDecoder`` :175).  Per level l in {0, 1, 2}
+at 16*2^l cells:
 
   proj: one 1x1 conv + BN applied to both feature maps (the query side at
         its own batch, B / group);
@@ -10,10 +10,17 @@ XHeads, float convs).  Per level l in {0, 1, 2} at 16*2^l cells:
         (ops/corr.py, kernel K4);
   motion = MotionEncoder(corr, flow) -> 126 ch + flow = 128;
   x = [tem_feat, warp(real_feat, flow) (ops/sample.py, kernel K5), motion];
-  flow += flow head(x); certainty += mask head(x) (the two XHeads as one
-  640 -> 1024 conv and two grouped convs);
+  flow += flow head(x); certainty += mask head(x) (by default the two
+  XHeads as one 640 -> 1024 conv and two grouped convs; ``fuse_xheads=False``
+  runs them one after the other);
   between levels: flow -> 2 * bilinear x2, certainty -> bilinear x2
   (align_corners=True).
+
+``quantize=True`` (the int8 serving mode, ops/qconv.py) runs the motion
+encoder's five convs and each XHead's layers_0 / layers_1 as int8
+convolutions with the same parameters; the proj convs (they feed
+BatchNorm) and the small predict convs stay float, and the heads run
+unfused (each conv has its own activation scale).
 
 Feature maps are NHWC at the public surface and stay NHWC-contiguous in
 memory: the convs run on NCHW views of that memory (channels_last), so the
@@ -30,6 +37,7 @@ from torch import nn
 
 from picopose_tpu_torch.models.layers import BatchNorm2d, Conv2d
 from picopose_tpu_torch.ops.corr import corr_lookup
+from picopose_tpu_torch.ops.qconv import quantized_conv
 from picopose_tpu_torch.ops.resize import resize_bilinear
 from picopose_tpu_torch.ops.sample import warp_by_flow
 
@@ -40,6 +48,13 @@ def _nchw(x: torch.Tensor) -> torch.Tensor:
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
+
+
+def _conv_relu(conv: Conv2d, x: torch.Tensor, quantize: bool) -> torch.Tensor:
+    """relu(conv(x)), the conv in int8 (ops/qconv.py) when ``quantize``."""
+    if quantize:
+        return F.relu(quantized_conv(x, conv.weight, conv.bias, conv.padding[0]))
+    return F.relu(conv(x))
 
 
 class MotionEncoder(nn.Module):
@@ -54,24 +69,32 @@ class MotionEncoder(nn.Module):
         self.flow_net_1 = Conv2d(128, 64, 3, padding=1)
         self.out_net_0 = Conv2d(256, 126, 3, padding=1)
 
-    def forward(self, corr: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    def forward(self, corr: torch.Tensor, flow: torch.Tensor, quantize: bool = False) -> torch.Tensor:
         """corr (B, H, W, L*25), flow (B, H, W, 2) -> (B, H, W, 128)."""
-        c = F.relu(self.corr_net_1(F.relu(self.corr_net_0(_nchw(corr)))))
-        f = F.relu(self.flow_net_1(F.relu(self.flow_net_0(_nchw(flow)))))
-        out = F.relu(self.out_net_0(torch.cat([_nhwc(c), _nhwc(f)], dim=-1).permute(0, 3, 1, 2)))
+        q = quantize
+        c = _conv_relu(self.corr_net_1, _conv_relu(self.corr_net_0, _nchw(corr), q), q)
+        f = _conv_relu(self.flow_net_1, _conv_relu(self.flow_net_0, _nchw(flow), q), q)
+        out = _conv_relu(self.out_net_0, torch.cat([_nhwc(c), _nhwc(f)], dim=-1).permute(0, 3, 1, 2), q)
         return torch.cat([_nhwc(out), flow], dim=-1)
 
 
 class XHead(nn.Module):
-    """Parameters of one XHead: 3x3 640 -> 512, 3x3 512 -> 256, then a
-    predict conv (3x3 for the flow head, 1x1 for the mask head).  Run only
-    fused with its twin (``fused_xheads``)."""
+    """One XHead: 3x3 640 -> 512 and 3x3 512 -> 256, each with ReLU, then a
+    predict conv (3x3 for the flow head, 1x1 for the mask head).  The
+    decoder runs it fused with its twin (``fused_xheads``) unless asked
+    for the unfused or the int8 path."""
 
     def __init__(self, out_ch: int, predict_k: int):
         super().__init__()
         self.layers_0 = Conv2d(640, 512, 3, padding=1)
         self.layers_1 = Conv2d(512, 256, 3, padding=1)
         self.predict = Conv2d(256, out_ch, predict_k, padding=predict_k // 2)
+
+    def forward(self, x: torch.Tensor, quantize: bool = False) -> torch.Tensor:
+        """x (B, 640, H, W) -> (B, H, W, out_ch) in x's dtype; the predict
+        conv stays float."""
+        h = _conv_relu(self.layers_1, _conv_relu(self.layers_0, x, quantize), quantize)
+        return _nhwc(self.predict(h))
 
 
 def _conv_same(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, groups: int = 1) -> torch.Tensor:
@@ -103,11 +126,17 @@ def fused_xheads(x: torch.Tensor, flow_head: XHead, mask_head: XHead):
 
 
 class FlowDecoder(nn.Module):
+    """``quantize``: int8 motion-encoder and XHead convs (implies the
+    unfused heads); ``fuse_xheads``: the flow and mask heads as one conv
+    stack.  Both are plain attributes over one parameter set, so a model
+    switches path without new weights."""
+
     num_levels = 3
     radius = 4  # the reference's config radius; each lookup uses radius // 2
 
-    def __init__(self):
+    def __init__(self, quantize: bool = False, fuse_xheads: bool = True):
         super().__init__()
+        self.quantize, self.fuse_xheads = quantize, fuse_xheads
         n = 2 * (self.radius // 2) + 1
         L = range(self.num_levels)
         self.proj_conv = nn.ModuleList(Conv2d(256, 256, 1) for _ in L)
@@ -134,10 +163,14 @@ class FlowDecoder(nn.Module):
             proj = lambda x: _nhwc(self.proj_bn[level](self.proj_conv[level](_nchw(x))))
             ft, fr = proj(tem_feats[level]), proj(real_feats[level])
             corr = corr_lookup(ft, fr, flow, self.radius // 2, level + 1, group=group)
-            motion = self.encoder[level](corr.to(ft.dtype), flow.to(ft.dtype))
+            motion = self.encoder[level](corr.to(ft.dtype), flow.to(ft.dtype), self.quantize)
             fr_hat = warp_by_flow(fr, flow, group=group)
-            x = torch.cat([ft, fr_hat, motion], dim=-1)
-            dflow, dcert = fused_xheads(_nchw(x), self.flow_pred[level], self.mask_pred[level])
+            x = _nchw(torch.cat([ft, fr_hat, motion], dim=-1))
+            if self.fuse_xheads and not self.quantize:
+                dflow, dcert = fused_xheads(x, self.flow_pred[level], self.mask_pred[level])
+            else:
+                dflow = self.flow_pred[level](x, self.quantize)
+                dcert = self.mask_pred[level](x, self.quantize)
             flow = flow + dflow
             certainty = certainty + dcert
             pred_flow.append(flow)

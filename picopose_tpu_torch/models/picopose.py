@@ -25,8 +25,12 @@ from picopose_tpu_torch.ops.matching import feature_similarity_volume
 
 class PicoPose(nn.Module):
     """Parameters are allocated on ``device`` (CUDA unless "cpu" is passed;
-    raises if no card is present) and kept in fp32; activations run in
-    ``compute_dtype`` except stage 2, which is fp32."""
+    raises if no card is present) and kept in fp32 (``utils/precast.py``
+    stores the bf16-consumed ones in bf16 for serving); activations run in
+    ``compute_dtype`` except stage 2, which is fp32.  ``quantize_stage3``
+    (int8 stage-3 convs, ops/qconv.py) and ``fuse_xheads`` select the flow
+    decoder's path over the same parameters (picopose_tpu/models/
+    picopose.py:42-57)."""
 
     def __init__(
         self,
@@ -34,6 +38,8 @@ class PicoPose(nn.Module):
         blocks_to_take: Sequence[int] = (5, 11, 17, 23),
         compute_dtype: torch.dtype = torch.bfloat16,
         device: str | torch.device | None = None,
+        quantize_stage3: bool = False,
+        fuse_xheads: bool = True,
     ):
         super().__init__()
         self.device = resolve_device(device)
@@ -43,7 +49,7 @@ class PicoPose(nn.Module):
             self.feature_extractor = FeatureExtractor(vit_type, blocks_to_take, compute_dtype)
             self.affine_regressor = AffineRegressor()
             self.dpt_head = DPTHead(in_channels=cfg.embed_dim)
-            self.flow_decoder = FlowDecoder()
+            self.flow_decoder = FlowDecoder(quantize_stage3, fuse_xheads)
         self.eval()
 
     def features(self, images: torch.Tensor) -> list[torch.Tensor]:

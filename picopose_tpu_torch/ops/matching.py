@@ -12,6 +12,11 @@ of 128 query rows x 256 view rows (bf16: wgmma from a TMA-fed ring, the
 block in registers; fp32: the CUDA cores) and keeps only row/column
 maxima and sim[:,0], sim[0,:] per (query, view).
 
+The serving modes of picopose_tpu/ops/matching.py:116-143 carry over:
+PICOPOSE_MATCH_INT8=1 scores int8 operands (the kernel's s8 wgmma branch,
+counted as ``match_scores_int8``), PICOPOSE_MATCH_FP32=1 keeps fp32
+operands on a bf16 bank.
+
 Two reference quirks are kept on purpose:
   * the similarity volume's query-spatial unflattening is TRANSPOSED: the
     volume at spatial (h, w) holds query patch (row=w, col=h);
@@ -21,6 +26,8 @@ Two reference quirks are kept on purpose:
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -59,6 +66,41 @@ def feature_similarity_volume(
     return sim.reshape(B, w, h, h * w).transpose(1, 2)
 
 
+INT8_SCALE = 127.0
+# the rescale of the int8 products, 1 / 127^2 rounded once to fp32 (as a
+# Python float it holds that fp32 value exactly, so x * INT8_INV_SQ on an
+# fp32 tensor is the fp32 product)
+INT8_INV_SQ = torch.tensor(1.0 / (INT8_SCALE * INT8_SCALE), dtype=torch.float32).item()
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}  # the C entry's dtype code
+
+
+def quantize_int8(x: torch.Tensor) -> torch.Tensor:
+    """Normalised fp32 features -> int8 at the symmetric scale 127."""
+    return torch.clamp(torch.round(x * INT8_SCALE), -127, 127).to(torch.int8)
+
+
+def match_mode_from_env() -> str | None:
+    """The serving mode the environment asks for, as the JAX package reads
+    it (picopose_tpu/ops/matching.py:116-143): "int8" for
+    PICOPOSE_MATCH_INT8=1, else "fp32" for PICOPOSE_MATCH_FP32=1, else None
+    (operands in the bank's dtype)."""
+    if os.environ.get("PICOPOSE_MATCH_INT8", "0") == "1":
+        return "int8"
+    if os.environ.get("PICOPOSE_MATCH_FP32", "0") == "1":
+        return "fp32"
+    return None
+
+
+def _sim(q: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """(B, S, C) x (n, S, C) -> (B, n, S, S) fp32 sims; int8 operands as
+    exact integer sums (fp64 products of the int8 values), converted to
+    fp32 and rescaled by fp32(1 / 127^2), as the TPU kernel does."""
+    if q.dtype == torch.int8:
+        exact = torch.einsum("bsc,ntc->bnst", q.double(), t.double())
+        return exact.float() * INT8_INV_SQ
+    return torch.einsum("bsc,ntc->bnst", q.float(), t.float())
+
+
 def match_scores_plain(
     q_norm: torch.Tensor, q_mask: torch.Tensor, t_norm: torch.Tensor
 ) -> torch.Tensor:
@@ -66,13 +108,11 @@ def match_scores_plain(
     -> (B, N) scores, 8 views at a time (the (B, 8, S, S) fp32 block is
     34 MB at B = 16, S = 256)."""
     B, S, _ = q_norm.shape
-    qf = q_norm.float()
     qm = q_mask.float()[:, None, :, None]  # rows of sim are query patches
     qv = (q_mask > 0)[:, None, :]
     out = []
     for s0 in range(0, t_norm.shape[0], 8):
-        tc = t_norm[s0 : s0 + 8].float()
-        sim = torch.einsum("bsc,ntc->bnst", qf, tc) * qm
+        sim = _sim(q_norm, t_norm[s0 : s0 + 8]) * qm
         rowmax = sim.amax(dim=3)
         t_valid = sim[..., 0] < rowmax
         colmax = sim.amax(dim=2)
@@ -87,16 +127,17 @@ def match_scores_plain(
 def match_scores_cuda(
     q_norm: torch.Tensor, q_mask: torch.Tensor, t_norm: torch.Tensor
 ) -> torch.Tensor:
-    """Launch the CUDA kernel: q (B, S, C) and t (N, S, C) both bf16 or both
-    fp32, q_mask (B, S); S and C multiples of 16."""
+    """Launch the CUDA kernel: q (B, S, C) and t (N, S, C) both bf16, both
+    fp32 or both int8 (counted as ``match_scores_int8``), q_mask (B, S); S
+    and C multiples of 16."""
     if not (q_norm.is_cuda and q_mask.is_cuda and t_norm.is_cuda):
         raise ValueError("match_scores_cuda takes CUDA tensors")
     B, S, C = q_norm.shape
     N = t_norm.shape[0]
     if t_norm.shape[1:] != (S, C) or q_mask.shape != (B, S):
         raise ValueError("shapes must be q (B, S, C), q_mask (B, S), t (N, S, C)")
-    if q_norm.dtype != t_norm.dtype or q_norm.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError("match kernel takes q and t both bf16 or both fp32")
+    if q_norm.dtype != t_norm.dtype or q_norm.dtype not in DTYPE_CODES:
+        raise TypeError("match kernel takes q and t both bf16, both fp32 or both int8")
     if S % 16 or C % 16:
         raise ValueError(f"match kernel takes S and C multiples of 16, got {S}, {C}")
     q_norm, t_norm = kernels.contiguous_aligned(q_norm), kernels.contiguous_aligned(t_norm)
@@ -104,10 +145,11 @@ def match_scores_cuda(
     out = torch.empty((B, N), dtype=torch.float32, device=q_norm.device)
     if out.numel() == 0:
         return out
+    name = "match_scores_int8" if q_norm.dtype == torch.int8 else "match_scores"
     with kernels.on_device_of(q_norm):
         kernels.launch(
-            "match_scores", q_norm.data_ptr(), q_mask.data_ptr(), t_norm.data_ptr(),
-            out.data_ptr(), B, N, S, C, int(q_norm.dtype == torch.bfloat16),
+            name, q_norm.data_ptr(), q_mask.data_ptr(), t_norm.data_ptr(),
+            out.data_ptr(), B, N, S, C, DTYPE_CODES[q_norm.dtype],
             kernels.stream_of(q_norm),
         )
     return out
@@ -134,6 +176,7 @@ def match_templates(
     query_feat: torch.Tensor,
     query_mask: torch.Tensor,
     topk: int = 5,
+    mode: str | None = "env",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Score every view of a shared (N, h, w, C) bank against each query;
     return top-k (scores, ids), both (B, topk).
@@ -141,16 +184,27 @@ def match_templates(
     Per view: sim[t, s] = cos(query[t], tem[s]) * query_mask[t]; the score
     is sum_t max_s sim[t, s] * valid[t] / (h*w), valid combining the query
     mask with the argmax-nonzero consistency terms.  Features are
-    normalised in fp32; on a bf16 bank the normalised operands are rounded
-    to bf16 before scoring, as the JAX package's kernel path does.
+    normalised in fp32.  The operands, as the JAX package's kernel path
+    picks them: by default those of the bank's dtype (a bf16 bank rounds
+    the normalised operands to bf16); ``mode="fp32"`` keeps fp32 operands
+    on a bf16 bank; ``mode="int8"`` quantises the fp32 normalised q and t
+    to int8 at scale 127, whatever the bank's dtype.  ``mode="env"`` (the
+    default) reads the serving mode from PICOPOSE_MATCH_INT8 /
+    PICOPOSE_MATCH_FP32 (``match_mode_from_env``).
     """
     if tem_feats.ndim != 4:
         raise ValueError("match_templates takes a shared (N, h, w, C) bank")
+    if mode == "env":
+        mode = match_mode_from_env()
+    if mode not in (None, "int8", "fp32"):
+        raise ValueError(f"unknown matching mode {mode!r}")
     N, h, w, C = tem_feats.shape
     B, S = query_feat.shape[0], h * w
     q = l2_normalize(query_feat.float()).reshape(B, S, C)
     qm = _mask_to_grid(query_mask, (h, w)).reshape(B, S).float()
     t = l2_normalize(tem_feats.float()).reshape(N, S, C)
-    if tem_feats.dtype == torch.bfloat16:
+    if mode == "int8":
+        q, t = quantize_int8(q), quantize_int8(t)
+    elif mode is None and tem_feats.dtype == torch.bfloat16:
         q, t = q.to(torch.bfloat16), t.to(torch.bfloat16)
     return top_k(match_scores(q, qm, t), topk)

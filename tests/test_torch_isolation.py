@@ -43,7 +43,9 @@ def test_port_files_import_nothing_of_jax():
 def test_import_leaves_jax_out_of_sys_modules():
     code = (
         "import sys, picopose_tpu_torch, picopose_tpu_torch.eval.pipeline, "
-        "picopose_tpu_torch.utils.weights; "
+        "picopose_tpu_torch.utils.weights, picopose_tpu_torch.serve, "
+        "picopose_tpu_torch.ops.preprocess, picopose_tpu_torch.ops.qconv, "
+        "picopose_tpu_torch.utils.precast; "
         "print(sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}))"
     )
@@ -69,3 +71,17 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
     model = PicoPose("vit_tiny_test", (0, 1, 2, 3), torch.float32, device="cpu")
     assert model.device.type == "cpu"
     assert next(model.parameters()).device.type == "cpu"
+
+
+def test_pose_estimator_needs_a_card_unless_cpu_is_asked(monkeypatch):
+    from picopose_tpu_torch.serve import PoseEstimator
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    small = dict(vit_type="vit_tiny_test", blocks_to_take=(0, 1, 2, 3), compute_dtype="float32")
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            PoseEstimator(**small, device=device)
+    with pytest.warns(UserWarning, match="RANDOM weights"):
+        est = PoseEstimator(**small, device="cpu")
+    assert est.device.type == "cpu" and est.generator.device.type == "cpu"
+    assert next(est.model.parameters()).device.type == "cpu"

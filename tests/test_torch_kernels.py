@@ -10,7 +10,10 @@ card the ``cuda`` tests skip; the source checks run everywhere.
 
 Tolerances: fp32 differs in summation order only (1e-5); bf16 outputs may
 differ by one bf16 rounding step (rtol 2^-7) where the fp32 value before
-rounding differs in its last bits.
+rounding differs in its last bits.  K3's int8 branch computes every sim
+bitwise as its plain version does (exact s32 sums, one fp32 rescale); its
+scores, like the other branches', sum the row maxima in another order
+(1e-5).
 """
 
 import os
@@ -35,6 +38,14 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+def _operands(q, t, dtype):
+    """Normalised fp32 q and t as the match kernel's operands: int8 as the
+    serving mode quantises them, else rounded to ``dtype``."""
+    if dtype == torch.int8:
+        return M.quantize_int8(q), M.quantize_int8(t)
+    return q.to(dtype), t.to(dtype)
 
 
 def _bf16_tol(dtype):
@@ -235,7 +246,7 @@ def test_match_kernel_matches_plain(cuda_device, dtype, S, C):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
 @pytest.mark.parametrize("C", [1024, 128, 32])
 @pytest.mark.parametrize("S", [256, 48, 80, 320])
 def test_match_kernel_masks_and_ties(cuda_device, dtype, S, C):
@@ -254,7 +265,7 @@ def test_match_kernel_masks_and_ties(cuda_device, dtype, S, C):
     qm[:, 0] = qm[:, 3] = 1.0
     qm[2, 7] = 0.0
     qm[1] = 0.0  # every row masked: no index passes, the score is 0
-    q, t = q.to(dtype), t.to(dtype)
+    q, t = _operands(q, t, dtype)
     got = M.match_scores_cuda(q, qm, t)
     torch.cuda.synchronize()
     ref = M.match_scores_plain(q, qm, t)
@@ -264,7 +275,8 @@ def test_match_kernel_masks_and_ties(cuda_device, dtype, S, C):
 
 
 @pytest.mark.cuda
-def test_match_kernel_negative_sims_beat_padding(cuda_device):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+def test_match_kernel_negative_sims_beat_padding(cuda_device, dtype):
     """With every sim negative (views anti-aligned with the query), the
     maxima are negative: a zero-filled pad row or column would win them."""
     g = torch.Generator(device=cuda_device).manual_seed(7)
@@ -272,12 +284,50 @@ def test_match_kernel_negative_sims_beat_padding(cuda_device):
     q = M.l2_normalize(torch.rand(B, S, C, generator=g, device=cuda_device) + 0.5)
     t = -M.l2_normalize(torch.rand(N, S, C, generator=g, device=cuda_device) + 0.5)
     qm = torch.ones(B, S, device=cuda_device)
-    q, t = q.bfloat16(), t.bfloat16()
+    q, t = _operands(q, t, dtype)
     got = M.match_scores_cuda(q, qm, t)
     torch.cuda.synchronize()
     ref = M.match_scores_plain(q, qm, t)
     assert bool((ref < 0).all())
     torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_match_kernel_int8_sims_are_exact(cuda_device):
+    """One (query, view) pair whose score is a single row maximum: with one
+    unmasked row whose argmaxes are not 0, the score is that row's maximum
+    / S (S a power of two), so the kernel's sim there is compared bitwise
+    with the plain one."""
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    S, C = 64, 1024
+    q = M.quantize_int8(M.l2_normalize(torch.randn(1, S, C, generator=g, device=cuda_device)))
+    t = M.quantize_int8(M.l2_normalize(torch.randn(1, S, C, generator=g, device=cuda_device)))
+    t[0, 5] = q[0, 5]  # row 5's maximum is its copy at column 5, the largest in column 5
+    qm = torch.zeros(1, S, device=cuda_device)
+    qm[0, 5] = 1.0
+    got = M.match_scores_cuda(q, qm, t)
+    torch.cuda.synchronize()
+    ref = M.match_scores_plain(q, qm, t)
+    assert ref.item() > 0
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_match_kernel_dtype_codes(cuda_device):
+    """bf16, fp32 and int8 operands launch; int8 counts as its own kernel;
+    other or mixed types raise before any launch."""
+    q = M.l2_normalize(torch.randn(2, 16, 32, device=cuda_device))
+    qm = torch.ones(2, 16, device=cuda_device)
+    kernels.reset_launches()
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+        a, b = _operands(q, q, dtype)
+        torch.testing.assert_close(M.match_scores_cuda(a, qm, b), M.match_scores_plain(a, qm, b),
+                                   atol=1e-5, rtol=0)
+    assert kernels.LAUNCHES["match_scores"] == 2 and kernels.LAUNCHES["match_scores_int8"] == 1
+    for a, b in ((q.half(), q.half()), (M.quantize_int8(q), q.bfloat16()), (q.to(torch.int16), q.to(torch.int16))):
+        with pytest.raises(TypeError):
+            M.match_scores_cuda(a, qm, b)
+    assert sum(kernels.LAUNCHES.values()) == 3
 
 
 @pytest.mark.cuda
