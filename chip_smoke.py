@@ -22,7 +22,9 @@ Phases (any failure exits non-zero before the result line):
      level, 32^2 with two, 64^2 with three) on wild centres (windows
      scattered and pushed past the map edges: mostly its per-pixel path,
      with its tile counts) and the warp kernel at its three grids, 80
-     streams sharing 16 query maps (group 5);
+     streams sharing 16 query maps (group 5), on wild centres (few taps
+     shared between neighbouring pixels), per grid beside grid_sample and
+     its bound;
   3. the main path at full ViT-L width (dinov2_vitl14, taps 5/11/17/23,
      bf16, seeded random weights): build_bank over 162 views (chunk 32),
      then run_batch for 16 queries x 5 hypotheses with 150 PnP
@@ -35,9 +37,10 @@ Phases (any failure exits non-zero before the result line):
      one bank build (K1/K2 device ms, copy kernels), the stages-1-2 batch
      time alone, the run_batch time and crops/s, and profiles (device time
      by kernel, the share of the stage-3 convs and of PnP, idle share);
-     then the corr-window kernel on the captured main-path inputs against
-     its plain version, timed with its tile counts: these times are the
-     JSON line's;
+     then the corr-window and warp kernels on the captured main-path
+     inputs (the flow decoder's lookups and warps) against their plain
+     versions, timed per level and grid (K4 with its tile counts, K5
+     beside grid_sample and its bound): these times are the JSON line's;
   4. the same path at a small size (vit_tiny_test, 6 views, 2 queries) on
      the card against the plain CPU path at the same weights, fp32 and
      bf16: stages 1-2, the stage-3 flows and certainties, and ransac_pnp
@@ -56,12 +59,23 @@ Phases (any failure exits non-zero before the result line):
      PICOPOSE_MATCH_INT8=1 (K3's int8 branch, two launches, top-1 as bf16
      on the 16 pasted crops), PICOPOSE_MATCH_FP32=1 (K3's fp32 path),
      quantize_stage3 (flows against the float path as relative RMS, stage-3
-     device time of both); the bank build with and without precast (device
-     busy, copy kernels; banks bitwise equal); and a bank file round trip,
-     bitwise.
+     device time of both); TF32: with the caller's matmul and cuDNN TF32
+     flags on, one ``estimate`` and ``stage2_poses`` bitwise equal to the
+     calls with both off, the flags as the caller set them afterwards; the
+     bank build with and without precast (device busy, copy kernels; banks
+     bitwise equal); and a bank file round trip, bitwise;
+  6. gradients at full width (``gradient_phase``): ViT-L features of 2
+     crops and one flow-decoder pass at 16^2 / 32^2 / 64^2 for 1 query x 5
+     hypotheses, a seeded random projection as the loss, gradients to the
+     images, both pyramids, the initial flow, every LN scale and every qkv
+     weight: finite and non-zero, within a relative RMS of the same
+     computation through the plain versions, and the forward's launches
+     (48 LN, 24 attention, 3 corr-window, 3 warp; none in the backward).
 Then the kernels as one JSON line (K3's int8 row with its launches from
 the int8-matching ``estimate``), the card line, and the result line.
-TF32 is off for matmuls and convolutions throughout.  Inputs and weights
+The script leaves PyTorch's TF32 flags at their defaults (cuDNN may take
+TF32 for fp32 convolutions): the package pins its fp32 work itself
+(``device.full_fp32``), and phase 5 checks that.  Inputs and weights
 are drawn from SEED; the stage-3 heads' predict convs are scaled
 (``calm_stage3_heads_``) so stage 3 refines the stage-2 seed and PnP sees
 thousands of correspondences per hypothesis, as a trained model gives it.
@@ -110,10 +124,13 @@ def dev_us(e) -> float:
     return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
 
 
-def device_ms(fn, inputs, iters: int = 20) -> float:
+def device_ms(fn, inputs, iters: int = 20, floor_ms: float = 0.0, or_events: bool = False) -> float:
     """Device ms per call: the kernel time of ``iters`` calls, summed over a
     torch.profiler trace (so host overhead between launches is left out),
-    inputs cycled as in ``cuda_ms``."""
+    inputs cycled as in ``cuda_ms``.  A trace whose time per call is below
+    ``floor_ms`` (the work's bound: no call can be faster) lost device
+    events and is taken again; after three such traces ``or_events`` times
+    the calls with CUDA events instead (``cuda_ms``), else the run fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -126,10 +143,15 @@ def device_ms(fn, inputs, iters: int = 20) -> float:
                 fn(*inputs[i % len(inputs)])
             torch.cuda.synchronize()
         us = sum(dev_us(e) for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
-        if us > 0:
+        if us > 0 and us / iters / 1e3 >= floor_ms:
             return us / iters / 1e3
-        print("[profile] a trace held no device time; profiling again")
-    check(False, "the profiler saw device time")
+        print(f"[profile] a trace held {us!r} us of device time for {iters} calls, below the bound "
+              f"{floor_ms!r} ms per call; profiling again")
+    if or_events:
+        ms = cuda_ms(fn, inputs, iters)
+        print(f"[profile] timed with CUDA events instead: {ms!r} ms per call")
+        return ms
+    check(False, "the profiler saw the device time of every call")
 
 
 def timed(fn, inputs, iters: int = 20) -> tuple[float, float]:
@@ -304,10 +326,7 @@ def stage3_kernel_checks(g: torch.Generator) -> dict:
     the launches of one batch (K4: one per decoder level, on wild centres;
     K5: three grids) and reported per launch, so launches x ms is the
     batch's device time."""
-    import torch.nn.functional as F
-
     from picopose_tpu_torch.geom.grids import pixel_coords_grid
-    from picopose_tpu_torch.ops import sample as SA
 
     dev = torch.device("cuda")
     B2, group, C = 16, 5, 256
@@ -330,39 +349,57 @@ def stage3_kernel_checks(g: torch.Generator) -> dict:
     res["corr_window"] = corr_timing("wild centres", args, tol)
     del args
 
-    warp = dict(ms=0.0, plain_ms=0.0, lib=0.0, b=0.0, err=0.0, n=0)
-    for G in (16, 32, 64):
-        args = [(rows(B2, G * G), centres(G, 0), G, G, group) for _ in range(sets[G])]
-        got, ref = SA.warp_cuda(*args[0]), SA.warp_plain(*args[0])
+    res["warp"] = warp_timing("wild centres", [
+        [(rows(B2, G * G), centres(G, 0), G, G, group) for _ in range(sets[G])] for G in (16, 32, 64)])
+    return res
+
+
+def warp_timing(what: str, calls: list) -> dict:
+    """K5 per grid, each a list of (feat, cen, H, W, group) argument sets
+    rotated per call: the kernel against the plain version (one bf16 step
+    at most), device ms of the kernel, the plain version and F.grid_sample
+    (one call on the expanded NCHW maps and a normalised grid), the bound.
+    Returns the row for one batch, per launch (a launch is one grid)."""
+    import torch.nn.functional as F
+
+    from picopose_tpu_torch.ops import sample as SA
+
+    tot = dict(ms=0.0, plain_ms=0.0, lib=0.0, b=0.0, err=0.0)
+    for sets in calls:
+        feat, cen, H, W, group = sets[0]
+        B2, P, C = feat.shape
+        B = cen.shape[0]
+        got, ref = SA.warp_cuda(*sets[0]), SA.warp_plain(*sets[0])
         torch.cuda.synchronize()
-        torch.testing.assert_close(got.float(), ref.float(), **tol)
+        torch.testing.assert_close(got.float(), ref.float(), atol=1e-2, rtol=2**-7)
         err = (got.float() - ref.float()).abs().max().item()
 
         def library_args(feat, cen, H, W, group):
             # expanded NCHW input and normalised grid; grid_sample takes one
-            # dtype, so the grid is bf16 too
+            # dtype, so the grid is in the features' dtype too
             x = feat.reshape(B2, H, W, C).permute(0, 3, 1, 2).repeat_interleave(group, 0).contiguous()
-            return x, (cen * (2.0 / (G - 1)) - 1.0).reshape(B, G, G, 2).to(x.dtype)
+            norm = torch.tensor([2.0 / (W - 1), 2.0 / (H - 1)], device=cen.device)
+            return x, (cen * norm - 1.0).reshape(B, H, W, 2).to(x.dtype)
 
-        lib_args = [library_args(*a) for a in args]
+        nbytes = (feat.numel() + got.numel()) * feat.element_size() + cen.numel() * 4
+        bd = bound(nbytes, B * P * 4 * C * 2, H100_BF16_FLOPS)
+        lib_args = [library_args(*a) for a in sets]
         lib = device_ms(lambda x, grid: F.grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
-                                                      align_corners=True), lib_args)
-        ms, plain = device_ms(SA.warp_cuda, args), device_ms(SA.warp_plain, args[:1], iters=3)
-        nbytes = (B2 * G * G * C + B * G * G * C) * 2 + B * G * G * 2 * 4
-        bd = bound(nbytes, B * G * G * 4 * C * 2, H100_BF16_FLOPS)
-        print(f"[kernel] warp G={G}: max_abs_err {err!r}, kernel {ms!r} ms, plain {plain!r} ms, "
-              f"grid_sample {lib!r} ms, bound {bd[0]!r} ms ({bd[1]})")
-        warp.update(ms=warp["ms"] + ms, plain_ms=warp["plain_ms"] + plain, lib=warp["lib"] + lib,
-                    err=max(warp["err"], err), n=warp["n"] + 1, b=warp["b"] + bd[0])
-        del args, lib_args, got, ref
-    n = warp["n"]
-    print(f"[kernel] warp per batch ({n} calls): kernel {warp['ms']!r} ms, plain {warp['plain_ms']!r} ms, "
-          f"grid_sample {warp['lib']!r} ms")
-    res["warp"] = dict(
-        err=warp["err"], tol="atol 1e-2 + rtol 2^-7", ms=warp["ms"] / n, plain_ms=warp["plain_ms"] / n,
-        library_ms=warp["lib"] / n, bound=(warp["b"] / n, "bytes"),
+                                                      align_corners=True), lib_args, floor_ms=bd[0], or_events=True)
+        ms = device_ms(SA.warp_cuda, sets, floor_ms=bd[0])
+        plain = device_ms(SA.warp_plain, sets[:1], iters=3, floor_ms=bd[0])
+        print(f"[kernel] warp {what} G={H}: max_abs_err {err!r}, kernel {ms!r} ms, plain {plain!r} ms, "
+              f"grid_sample {lib!r} ms, bound {bd[0]!r} ms ({bd[1]}) = {bd[0] / ms!r} of the kernel's time")
+        tot.update(ms=tot["ms"] + ms, plain_ms=tot["plain_ms"] + plain, lib=tot["lib"] + lib,
+                   err=max(tot["err"], err), b=tot["b"] + bd[0])
+        del lib_args, got, ref
+    n = len(calls)
+    print(f"[kernel] warp {what} per batch ({n} launches): kernel {tot['ms']!r} ms, plain {tot['plain_ms']!r} ms, "
+          f"grid_sample {tot['lib']!r} ms, bound {tot['b']!r} ms = {tot['b'] / tot['ms']!r} of the kernel's time")
+    return dict(
+        err=tot["err"], tol="atol 1e-2 + rtol 2^-7", ms=tot["ms"] / n, plain_ms=tot["plain_ms"] / n,
+        library_ms=tot["lib"] / n, bound=(tot["b"] / n, "bytes"),
     )
-    return res
 
 
 def corr_timing(what: str, calls: list, tol: dict) -> dict:
@@ -426,6 +463,22 @@ def corr_on_main_path(seen: list) -> dict:
         calls.append([(feat1, maps, grid, radius, group)] + [
             (feat1.clone(), [(m.clone(), i) for m, i in maps], grid.clone(), radius, group) for _ in range(n - 1)])
     return corr_timing("main-path centres", calls, dict(atol=1e-2, rtol=2**-7))
+
+
+@torch.inference_mode()
+def warp_on_main_path(seen: list) -> dict:
+    """K5 on the flow decoder's inputs captured from one run_batch (its three
+    warp_by_flow calls): the JSON line's K5 times."""
+    from picopose_tpu_torch.geom.grids import pixel_coords_grid
+
+    calls = []
+    for feat, flow, group in seen:
+        B2, G, W, C = feat.shape
+        cen = (pixel_coords_grid(G, W, device=flow.device) + flow.float()).reshape(flow.shape[0], G * W, 2)
+        f = feat.reshape(B2, G * W, C)
+        n = {16: 6, 32: 3}.get(G, 1)  # copies rotated per call: > 50 MB of L2
+        calls.append([(f, cen, G, W, group)] + [(f.clone(), cen.clone(), G, W, group) for _ in range(n - 1)])
+    return warp_timing("main-path centres", calls)
 
 
 def calm_stage3_heads_(model) -> None:
@@ -564,9 +617,9 @@ def check_eval_output(name: str, out, B: int, hyp: int) -> None:
           f"best inlier ratio per query {ratio[:, 0].tolist()!r}")
 
 
-def full_width(seed: int) -> tuple[dict, list]:
+def full_width(seed: int) -> tuple[dict, list, list]:
     """Phase 3: the main path at full ViT-L width; returns the launch counts
-    and the flow decoder's corr_lookup arguments."""
+    and the flow decoder's corr_lookup and warp_by_flow arguments."""
     from picopose_tpu_torch import kernels
     from picopose_tpu_torch.eval.pipeline import (
         build_bank, run_batch, select_templates, stage2_poses, stage3_correspondences,
@@ -588,20 +641,25 @@ def full_width(seed: int) -> tuple[dict, list]:
 
     import picopose_tpu_torch.models.flow as flow_module
 
-    seen, lookup = [], flow_module.corr_lookup
+    seen, warps = [], []
+    lookup, warp = flow_module.corr_lookup, flow_module.warp_by_flow
 
     def recording_lookup(*a, **kw):  # the flow decoder's K4 inputs, for corr_on_main_path
         seen.append((*a, kw.get("group", 1)))
         return lookup(*a, **kw)
 
+    def recording_warp(feat, flow, group=1):  # its K5 inputs, for warp_on_main_path
+        warps.append((feat, flow, group))
+        return warp(feat, flow, group=group)
+
     kernels.reset_launches()
     INPUT_COPIES.clear()
     bank = build_bank(model, *bank_np, chunk=chunk)
-    flow_module.corr_lookup = recording_lookup
+    flow_module.corr_lookup, flow_module.warp_by_flow = recording_lookup, recording_warp
     try:
         out = run_batch(model, batch, bank, hyp=hyp, pnp_iters=iters, generator=g)
     finally:
-        flow_module.corr_lookup = lookup
+        flow_module.corr_lookup, flow_module.warp_by_flow = lookup, warp
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     print(f"[main] launches during the main-path run (build_bank + run_batch): {launches}")
@@ -610,6 +668,7 @@ def full_width(seed: int) -> tuple[dict, list]:
     check("match_scores_int8" not in launches, "the default path scores bf16 operands")
     check(launches["corr_window"] == 3 and launches["warp"] == 3, "3 corr-window and 3 warp launches per batch")
     check(len(seen) == 3 and [s[4] for s in seen] == [1, 2, 3], "the decoder's three lookups were captured")
+    check([w[0].shape[1] for w in warps] == [16, 32, 64], "the decoder's three warps were captured")
     # 24 blocks x (6 bank chunks + 1 query batch): one attention and two LNs each
     check(launches["attention"] == 168 and launches["layernorm"] == 336, "168 attention and 336 LN launches")
     check(not INPUT_COPIES, f"attention read q, k, v in place on the main path: {dict(INPUT_COPIES)}")
@@ -672,7 +731,7 @@ def full_width(seed: int) -> tuple[dict, list]:
     print(f"[profile] run_batch: device busy {busy!r} ms of the {per_batch!r} ms median; idle share "
           f"{1 - busy / per_batch!r}; stage-3 convolutions {conv3!r} ms = {conv3 / busy!r} of busy; "
           f"PnP device {busy_pnp!r} ms = {busy_pnp / busy!r} of busy")
-    return launches, seen
+    return launches, seen, warps
 
 
 FRAME_HW = (960, 1280)  # ITODD's frame size
@@ -879,6 +938,8 @@ def serve_phase(seed: int) -> dict:
           f"(cuDNN convs {conv_f!r} ms)")
     check(all(np.isfinite(v) for v in errs.values()) and errs["flow2"] < 0.1, "int8 stage-3 flows near the float ones")
 
+    tf32_check(est, bank, frame, K, dets, batch, seed)
+
     # precast: the bank build without and with bf16 weight storage
     plain = PicoPose("dinov2_vitl14", (5, 11, 17, 23), torch.bfloat16, device=est.device)
     init_random_(plain, seed)
@@ -912,6 +973,163 @@ def serve_phase(seed: int) -> dict:
         print(f"[serve] bank file {sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))} bytes, "
               "loads back bitwise equal")
     return int8_run["launches"]
+
+
+class patched:
+    """Within ``with``, set each (module, name) to its value; restore after."""
+
+    def __init__(self, *triples):
+        self.triples, self.saved = triples, []
+
+    def __enter__(self):
+        for module, name, value in self.triples:
+            self.saved.append((module, name, getattr(module, name)))
+            setattr(module, name, value)
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, value in reversed(self.saved):
+            setattr(module, name, value)
+
+
+GRAD_REL_RMS = 0.1
+
+
+def gradient_phase(seed: int) -> None:
+    """Phase 6: gradients at full width through the kernels' autograd
+    Functions.  The ViT-L features of 2 crops (bf16, images requiring
+    grad) and one flow-decoder pass over 16^2 / 32^2 / 64^2 pyramids for
+    1 query x 5 hypotheses (group 5; both pyramids and the initial flow
+    requiring grad); the loss is a seeded random projection of the taps,
+    flows and certainties.  Against the same computation with the four
+    dispatchers patched to the plain versions (differentiated natively):
+    every LN scale, qkv weight and input gradient finite and non-zero, the
+    two within GRAD_REL_RMS relative RMS (bf16: the forward rounds the
+    same values at other points, and the backward recomputes the JAX
+    package's forms, which round elsewhere than the plain versions), and
+    the launch counts of the kernel run: the forward went through K1, K2,
+    K4 and K5, the backward launched no kernel."""
+    import picopose_tpu_torch.models.dinov2 as vit_module
+    import picopose_tpu_torch.models.flow as flow_module
+    from picopose_tpu_torch import kernels
+    from picopose_tpu_torch.geom.grids import pixel_coords_grid
+    from picopose_tpu_torch.models import PicoPose
+    from picopose_tpu_torch.ops import attention as A
+    from picopose_tpu_torch.ops import corr as CO
+    from picopose_tpu_torch.ops import layernorm as L
+    from picopose_tpu_torch.ops import sample as SA
+    from picopose_tpu_torch.utils.weights import init_random_
+
+    dev = torch.device("cuda")
+    model = PicoPose("dinov2_vitl14", (5, 11, 17, 23), torch.bfloat16, device=dev)
+    init_random_(model, seed)
+    calm_stage3_heads_(model)
+    g = torch.Generator(device=dev).manual_seed(seed + 3)
+    rn = lambda *shape: torch.randn(*shape, generator=g, device=dev)
+    B, hyp, C = 1, 5, 256
+    images = rn(2, 224, 224, 3).requires_grad_()
+    tem = [rn(B * hyp, s, s, C).bfloat16().requires_grad_() for s in (16, 32, 64)]
+    real = [rn(B, s, s, C).bfloat16().requires_grad_() for s in (16, 32, 64)]
+    # a similarity per hypothesis, as stage 2 seeds the decoder
+    p = pixel_coords_grid(16, 16, device=dev) - 7.5
+    ang = 0.4 * rn(hyp, 1, 1)
+    sc = 1 + 0.1 * rn(hyp, 1, 1)
+    target = torch.stack([sc * (torch.cos(ang) * p[..., 0] - torch.sin(ang) * p[..., 1]),
+                          sc * (torch.sin(ang) * p[..., 0] + torch.cos(ang) * p[..., 1])], -1) + 7.5
+    init_flow = (target - pixel_coords_grid(16, 16, device=dev) + 0.3 * rn(hyp, 16, 16, 2)).requires_grad_()
+    cert = torch.ones(hyp, 16, 16, 1, device=dev)
+    proj_taps = [rn(2, 16, 16, 1024) for _ in range(4)]
+    proj_out = [(rn(hyp, s, s, 2), rn(hyp, s, s, 1)) for s in (16, 32, 64)]
+    blocks = model.feature_extractor.dinov2.blocks
+    ln = [m.weight for b in blocks for m in (b.norm1, b.norm2)]
+    qkv = [b.attn.qkv.weight for b in blocks]
+    inputs = [images, *tem, *real, init_flow]
+
+    def run():
+        taps = model.features(images)
+        flows, certs = model.flow(tem, real, init_flow, cert)
+        loss = sum((t.float() * r).sum() for t, r in zip(taps, proj_taps))
+        loss = loss + sum((f * pf).sum() + (c * pc).sum() for f, c, (pf, pc) in zip(flows, certs, proj_out))
+        grads = torch.autograd.grad(loss, inputs + ln + qkv)
+        torch.cuda.synchronize()
+        return grads
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    got = run()
+    k_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    print(f"[grad] launches during the forward and backward: {launches}")
+    check(launches == {"layernorm": 48, "attention": 24, "corr_window": 3, "warp": 3},
+          "the forward went through K1 (48), K2 (24), K4 (3) and K5 (3); the backward launched no kernel")
+
+    plain_lookup = lambda f1, f2, fl, r, levels, group=1: CO._corr_lookup(f1, f2, fl, r, levels, group)
+    plain_warp = lambda feat, fl, group=1: SA._warp_by_flow(feat, fl, group)
+    with patched((vit_module, "layernorm", L.layernorm_plain), (vit_module, "attention", A.attention_plain),
+                 (CO, "corr_windows", CO.corr_windows_plain), (flow_module, "corr_lookup", plain_lookup),
+                 (SA, "warp", SA.warp_plain), (flow_module, "warp_by_flow", plain_warp)):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        ref = run()
+        p_s = time.perf_counter() - t0
+    check(not kernels.LAUNCHES, "the plain run launched no kernel")
+
+    names = ["images"] + [f"template pyramid {s}^2" for s in (16, 32, 64)] \
+        + [f"query pyramid {s}^2" for s in (16, 32, 64)] + ["initial flow"] \
+        + [f"block {i // 2} norm{i % 2 + 1} scale" for i in range(len(ln))] + [f"block {i} qkv weight" for i in range(len(qkv))]
+    errs = {}
+    for name, a, b in zip(names, got, ref):
+        a, b = a.double(), b.double()
+        check(bool(torch.isfinite(a).all()) and a.abs().max().item() > 0, f"{name}: gradient finite and non-zero")
+        errs[name] = ((a - b).norm() / b.norm()).item()
+    worst = max(errs, key=errs.get)
+    print(f"[grad] kernel path vs plain path relative RMS: inputs "
+          f"{ {k: v for k, v in errs.items() if 'block' not in k}!r}; LN scales max "
+          f"{max(v for k, v in errs.items() if 'norm' in k)!r}, qkv weights max "
+          f"{max(v for k, v in errs.items() if 'qkv' in k)!r}; worst {worst} {errs[worst]!r}, bound {GRAD_REL_RMS!r}")
+    print(f"[grad] forward + backward host s (first call, includes warm-up): kernel path {k_s!r}, plain path {p_s!r}")
+    check(errs[worst] <= GRAD_REL_RMS, "kernel-path gradients agree with the plain path")
+
+
+def tf32_check(est, bank, frame, K, dets, batch, seed: int) -> None:
+    """The caller's TF32 flags reach no fp32 work of the package: one
+    ``estimate`` and stage 2 of one run_batch (``stage2_poses``) with both
+    flags on are bitwise the calls with both off (the same PnP draws), and
+    the flags are as the caller set them after each call.  The affine
+    head's convs called directly, outside the package's entry points, show
+    what the flags would move."""
+    from picopose_tpu_torch.eval import pipeline as P
+    from picopose_tpu_torch.ops.matching import feature_similarity_volume
+
+    flags = lambda: (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    default = flags()
+    print(f"[tf32] PyTorch's flags in this process (matmul, cudnn): {default}")
+    feats_real, _, ids = P.select_templates(est.model, batch, bank, hyp=est.hyp)
+    with torch.inference_mode():
+        sim = feature_similarity_volume(bank.feats[-1][ids[:, 0]].float(), feats_real[-1].float(),
+                                        bank.mask[ids[:, 0]])
+    outs = {}
+    try:
+        for f in ((False, False), (True, True)):
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = f
+            est.generator.manual_seed(seed)
+            res = est.estimate(frame, K, dets)
+            check(flags() == f, "estimate leaves the caller's flags as they were")
+            s2 = P.stage2_poses(est.model, batch, bank, feats_real, ids)
+            check(flags() == f, "stage2_poses leaves the caller's flags as they were")
+            with torch.inference_mode():
+                head = est.model.affine_regressor(sim)
+            rows = np.stack([np.r_[r.R.ravel(), r.t, r.score, r.success, r.template_score] for r in res])
+            outs[f] = (rows, s2, head)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = default
+    on, off = outs[True, True], outs[False, False]
+    moved = max((a.double() - b.double()).abs().max().item() for a, b in zip(on[2], off[2]))
+    print(f"[tf32] estimate with the caller's flags on vs off bitwise equal: {np.array_equal(on[0], off[0])}; "
+          f"stage2_poses: {all(torch.equal(a, b) for a, b in zip(on[1], off[1]))}; the affine head called "
+          f"outside the entry points moves by up to {moved!r} with the flags on")
+    check(np.array_equal(on[0], off[0]), "estimate bitwise equal with the caller's TF32 flags on and off")
+    check(all(torch.equal(a, b) for a, b in zip(on[1], off[1])), "stage 2 bitwise equal with the flags on and off")
 
 
 def pnp_scene(rng, B: int, N: int):
@@ -1005,8 +1223,6 @@ def main() -> int:
         return 2
     from picopose_tpu_torch import kernels
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -1026,20 +1242,24 @@ def main() -> int:
     checks = kernel_checks(g)
     print(f"[phase] kernel checks {time.perf_counter() - t0!r} s")
     t0 = time.perf_counter()
-    launches, seen = full_width(SEED)
+    launches, seen, warps = full_width(SEED)
     print(f"[phase] full-width main path {time.perf_counter() - t0!r} s")
     t0 = time.perf_counter()
-    wild = checks["corr_window"]
-    checks["corr_window"] = corr_on_main_path(seen)
-    checks["corr_window"]["err"] = max(wild["err"], checks["corr_window"]["err"])
-    del seen
-    print(f"[phase] K4 on main-path centres {time.perf_counter() - t0!r} s")
+    for name, on_main_path, captured in (("corr_window", corr_on_main_path, seen), ("warp", warp_on_main_path, warps)):
+        wild = checks[name]
+        checks[name] = on_main_path(captured)
+        checks[name]["err"] = max(wild["err"], checks[name]["err"])
+    del seen, warps
+    print(f"[phase] K4 and K5 on main-path centres {time.perf_counter() - t0!r} s")
     t0 = time.perf_counter()
     small_reference(SEED)
     print(f"[phase] small reference {time.perf_counter() - t0!r} s")
     t0 = time.perf_counter()
     launches["match_scores_int8"] = serve_phase(SEED)["match_scores_int8"]
     print(f"[phase] serve {time.perf_counter() - t0!r} s")
+    t0 = time.perf_counter()
+    gradient_phase(SEED)
+    print(f"[phase] gradients {time.perf_counter() - t0!r} s")
 
     src = "picopose_tpu_torch/kernels/csrc/"
     replaces = {

@@ -1,6 +1,9 @@
-"""Device selection: CUDA unless the caller names the CPU, never a silent fallback."""
+"""Device selection: CUDA unless the caller names the CPU, never a silent
+fallback; and the fp32 precision the port's fp32 stages need."""
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -19,3 +22,28 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             "no CUDA device is present; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+@contextlib.contextmanager
+def full_fp32():
+    """Run fp32 matmuls and convolutions in full fp32 on the card.
+
+    Sets ``torch.backends.cuda.matmul.allow_tf32`` and
+    ``torch.backends.cudnn.allow_tf32`` to False and restores the caller's
+    values on every exit, a raise included.  PyTorch's default lets cuDNN
+    take TF32 (a 10-bit mantissa) for fp32 convolutions; the JAX package
+    computes these stages in fp32 (stage 2, the geometry, the crops, PnP).
+    bf16 work is untouched: the flags apply to fp32 operands only.
+
+    The flags are process-global: another thread that runs fp32 work on
+    the card while this context is open runs it without TF32 too.  Usable
+    as a decorator (each call enters its own context).
+    """
+    matmul, cudnn = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul
+        torch.backends.cudnn.allow_tf32 = cudnn

@@ -8,7 +8,9 @@ fallback where PnP fails and the ranking by inlier ratio.
 
 Shapes: B = instance batch, N = template views, HYP = hypotheses; the
 hypothesis axis is folded into the batch axis for stage 2.  Inputs may be
-numpy arrays or tensors; they are moved to the model's device.
+numpy arrays or tensors; they are moved to the model's device.  Every
+entry point runs under ``device.full_fp32``: its fp32 products (stage 2,
+the geometry, PnP) take no TF32, whatever the process flags.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import NamedTuple
 
 import torch
 
+from picopose_tpu_torch.device import full_fp32
 from picopose_tpu_torch.geom.affine import affine_from_prediction
 from picopose_tpu_torch.geom.pose2d import pose_from_affine_2d
 from picopose_tpu_torch.models.correspondence import final_correspondences, init_correspondences
@@ -61,6 +64,7 @@ def _tile(x: torch.Tensor, hyp: int) -> torch.Tensor:
 
 
 @torch.inference_mode()
+@full_fp32()
 def build_bank(
     model, tem_rgb, tem_mask, tem_pts3d, tem_pose, tem_K, tem_M,
     chunk: int = 32, cache_dpt: bool = True,
@@ -87,6 +91,7 @@ def build_bank(
 
 
 @torch.inference_mode()
+@full_fp32()
 def select_templates(model, batch: dict, bank: TemplateBank, hyp: int = 5):
     """Stage 1: query features once, matched against the bank.
 
@@ -103,6 +108,7 @@ def select_templates(model, batch: dict, bank: TemplateBank, hyp: int = 5):
 
 
 @torch.inference_mode()
+@full_fp32()
 def stage2_poses(model, batch: dict, bank: TemplateBank, feats_real, ids: torch.Tensor):
     """Stage 2 for every (query, hypothesis): the affine head on the
     selected templates, the template->query affine and the recovered pose.
@@ -140,6 +146,7 @@ class Correspondences(NamedTuple):
 
 
 @torch.inference_mode()
+@full_fp32()
 def stage3_correspondences(
     model, batch: dict, bank: TemplateBank, feats_real, ids: torch.Tensor, pred_Ms: torch.Tensor,
 ) -> Correspondences:
@@ -183,6 +190,7 @@ def stage3_correspondences(
 
 
 @torch.inference_mode()
+@full_fp32()
 def run_batch(
     model, batch: dict, bank: TemplateBank, hyp: int = 5, pnp_iters: int = 150,
     stage3_topk: int | None = None, generator: torch.Generator | None = None,

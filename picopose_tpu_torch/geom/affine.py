@@ -4,9 +4,10 @@ Counterpart of picopose_tpu/geom/affine.py:18-151.  Matrices are
 (..., 3, 3) acting on homogeneous column vectors (x, y, 1).
 
 Everything here is fp32 geometry.  ``torch.matmul`` on fp32 CUDA tensors
-runs in full fp32 as long as ``torch.backends.cuda.matmul.allow_tf32``
-stays False (PyTorch's default); the port never enables it, because pose
-accuracy does not survive TF32's 10-bit mantissa.
+runs in full fp32 only while ``torch.backends.cuda.matmul.allow_tf32`` is
+False; the pipeline's entry points (eval/pipeline.py) call these under
+``device.full_fp32``, which pins it, because pose accuracy does not
+survive TF32's 10-bit mantissa.
 """
 
 from __future__ import annotations

@@ -28,6 +28,13 @@ power of two, so this equals scaling Q first; for D = 32 it is not.  The
 Hopper kernel takes exp2 with D^-0.5 * log2(e) folded into one FMA and
 multiplies by the reciprocal of the row sum; either may move a P element
 by one bf16 step against the plain version.
+
+Gradients (ops/vjp.py): ``attention`` is differentiable through an
+autograd Function whose backward recomputes ``attention_reference``, the
+port's copy of picopose_tpu/ops/attention.py::attention_xla (the JAX
+custom_vjp's backward form).  It scales q in q's dtype and rounds the
+scores to it before the softmax, where the kernel scales fp32 scores, so
+the plain version cannot serve in bf16.
 """
 
 from __future__ import annotations
@@ -36,8 +43,10 @@ import collections
 import struct
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from picopose_tpu_torch import kernels
+from picopose_tpu_torch.ops.vjp import needs_grad, recompute_grads
 
 # the longest key row the Hopper kernel holds in registers (hop::kMaxKeys)
 HOPPER_MAX_KEYS = 272
@@ -52,6 +61,14 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     p = torch.softmax(s, dim=-1).to(v.dtype)
     return torch.matmul(p.float(), v.float()).to(q.dtype)
+
+
+def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``attention_xla``: (q * D^-0.5) K^T in q's dtype, fp32 softmax, P
+    rounded to v's dtype, P V in v's dtype; the backward's form."""
+    s = torch.matmul(q * q.shape[-1] ** -0.5, k.transpose(-1, -2))
+    p = torch.softmax(s.float(), dim=-1).to(v.dtype)
+    return torch.matmul(p, v)
 
 
 def copy_reason(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str | None:
@@ -103,9 +120,29 @@ def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.T
     return o
 
 
-def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """(B, H, N, D) attention: the kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+def _attention(q, k, v):
     if q.device.type == "cpu":
         return attention_plain(q, k, v)
     return attention_cuda(q, k, v)
+
+
+class _Attention(torch.autograd.Function):
+    """The kernel forward; the backward through ``attention_reference``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return _attention(q, k, v)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        return recompute_grads(ctx, attention_reference, g)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(B, H, N, D) attention: the kernel for CUDA tensors, the plain
+    version for CPU tensors; differentiable in q, k and v."""
+    if needs_grad(q, k, v):
+        return _Attention.apply(q, k, v)
+    return _attention(q, k, v)

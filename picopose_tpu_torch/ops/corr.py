@@ -18,18 +18,28 @@ then in x in fp32 and rounded once to feat1's dtype (the TPU kernel's
 rounding; the JAX package's XLA path rounds the correlation to the feature
 dtype first, so in bf16 the two differ).  Channel order is the
 reference's: k = kx*(2r+1) + ky, the outer window index walks x.
+
+Gradients (ops/vjp.py): ``corr_lookup`` is differentiable in both feature
+maps and the flow through an autograd Function whose backward recomputes
+``corr_lookup_reference``, the port's copy of
+picopose_tpu/ops/corr.py::_corr_lookup_xla (the JAX custom_vjp's backward
+form, every level with its pooling).  That form rounds the correlation and
+each lerp to the feature dtype, so in bf16 the plain version cannot serve.
 """
 
 from __future__ import annotations
 
+import math
 import struct
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from picopose_tpu_torch import kernels
 from picopose_tpu_torch.geom.grids import pixel_coords_grid
 from picopose_tpu_torch.ops.resize import avg_pool2d
 from picopose_tpu_torch.ops.sample import _gather_rows, _taps
+from picopose_tpu_torch.ops.vjp import needs_grad, recompute_grads
 
 
 def corr_window_plain(
@@ -142,6 +152,66 @@ def corr_windows(f1, maps, grid, radius: int, group: int = 1) -> torch.Tensor:
     return corr_windows_cuda(f1, maps, grid, radius, group)
 
 
+def corr_lookup_reference(
+    feat1: torch.Tensor, feat2: torch.Tensor, flow: torch.Tensor, radius: int,
+    num_levels: int, group: int = 1,
+) -> torch.Tensor:
+    """``_corr_lookup_xla``, the backward's form: per level, the whole
+    correlation f1 . pool(f2)^T in the feature dtype times C^-0.5 (rounded
+    to that dtype), then the window's bilinear taps: rows lerped in y and
+    rounded to the feature dtype, then in x and rounded again (the XLA
+    path's two one-hot contractions, fp32 sums of exact products)."""
+    B, H, W, C = feat1.shape
+    B2, dt, n = feat2.shape[0], feat1.dtype, 2 * radius + 1
+    grid = (pixel_coords_grid(H, W, device=flow.device) + flow.float()).reshape(B, H * W, 2)
+    f1 = feat1.reshape(B2, group * H * W, C)
+    scale = torch.tensor(1.0 / math.sqrt(C), dtype=dt, device=feat1.device)
+    d = torch.arange(n + 1, device=feat1.device)
+    outs, pooled = [], feat2
+    for i in range(num_levels):
+        if i > 0:
+            pooled = avg_pool2d(pooled, 2)
+        Hp, Wp = pooled.shape[1:3]
+        corr = (torch.matmul(f1, pooled.reshape(B2, Hp * Wp, C).transpose(1, 2)) * scale).reshape(B, H * W, -1)
+        x0, y0, fx, fy = _taps(grid / 2.0**i, Hp, Wp, radius + 2)
+        yy = (y0 - radius)[..., None, None] + d[:, None]  # (B, P, n+1, 1) cell rows
+        xx = (x0 - radius)[..., None, None] + d           # (B, P, 1, n+1) cell columns
+        ok = (yy >= 0) & (yy < Hp) & (xx >= 0) & (xx < Wp)
+        cell = torch.gather(corr, 2, torch.where(ok, yy * Wp + xx, 0).reshape(B, H * W, -1))
+        cell = torch.where(ok, cell.reshape(ok.shape), 0.0).float()
+        w = lambda f: f.to(dt).float()[..., None, None]  # a lerp weight rounded to the feature dtype
+        rows = (w(1.0 - fy) * cell[:, :, :-1] + w(fy) * cell[:, :, 1:]).to(dt).float()  # (B, P, ky, n+1)
+        win = (w(1.0 - fx) * rows[..., :-1] + w(fx) * rows[..., 1:]).to(dt)              # (B, P, ky, kx)
+        outs.append(win.transpose(-1, -2).reshape(B, H, W, n * n))
+    return torch.cat(outs, dim=-1)
+
+
+def _corr_lookup(feat1, feat2, flow, radius, num_levels, group):
+    H, W = feat1.shape[1:3]
+    grid = pixel_coords_grid(H, W, device=flow.device) + flow.float()
+    maps, pooled = [], feat2
+    for i in range(num_levels):
+        if i > 0:
+            pooled = avg_pool2d(pooled, 2)
+        maps.append((pooled, i))
+    return corr_windows(feat1, maps, grid, radius, group)
+
+
+class _CorrLookup(torch.autograd.Function):
+    """The kernel forward; the backward through ``corr_lookup_reference``."""
+
+    @staticmethod
+    def forward(ctx, feat1, feat2, flow, radius, num_levels, group):
+        ctx.save_for_backward(feat1, feat2, flow)
+        ctx.static = (radius, num_levels, group)
+        return _corr_lookup(feat1, feat2, flow, radius, num_levels, group)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        return (*recompute_grads(ctx, corr_lookup_reference, g, *ctx.static), None, None, None)
+
+
 def corr_lookup(
     feat1: torch.Tensor, feat2: torch.Tensor, flow: torch.Tensor, radius: int,
     num_levels: int, group: int = 1,
@@ -152,18 +222,14 @@ def corr_lookup(
     (each map shared by ``group`` consecutive streams, never repeated),
     flow (B, H, W, 2) in cells, channels (x, y).  Returns
     (B, H, W, L*(2r+1)^2): level i at centres (coords + flow) / 2^i in fp32
-    over feat2 avg-pooled i times, all levels in one launch.
+    over feat2 avg-pooled i times, all levels in one launch.  Differentiable
+    in feat1, feat2 and flow.
     """
     if feat1.shape[0] % feat2.shape[0] != 0:
         raise ValueError(
             f"template batch {feat1.shape[0]} is not a multiple of query batch "
             f"{feat2.shape[0]}; the shared query maps need an integer group"
         )
-    H, W = feat1.shape[1:3]
-    grid = pixel_coords_grid(H, W, device=flow.device) + flow.float()
-    maps, pooled = [], feat2
-    for i in range(num_levels):
-        if i > 0:
-            pooled = avg_pool2d(pooled, 2)
-        maps.append((pooled, i))
-    return corr_windows(feat1, maps, grid, radius, group)
+    if needs_grad(feat1, feat2, flow):
+        return _CorrLookup.apply(feat1, feat2, flow, radius, num_levels, group)
+    return _corr_lookup(feat1, feat2, flow, radius, num_levels, group)

@@ -12,13 +12,22 @@ is a multiple of 16 bytes takes a loop that reads the row twice.
 Semantics (both versions): fp32 sums of x and of x*x with the square taken
 in x's dtype, var = max(E[x^2] - E[x]^2, 0), fp32 affine with fp32
 scale/bias, output in x's dtype.
+
+Gradients (ops/vjp.py): ``layernorm`` is differentiable through an
+autograd Function whose backward recomputes ``layernorm_reference``, the
+port's copy of picopose_tpu/ops/layernorm.py::layernorm_xla (the JAX
+custom_vjp's backward form).  It squares in fp32, where the kernel and its
+plain version square in x's dtype, so in bf16 the plain version cannot
+serve; in fp32 the two agree up to summation order.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from picopose_tpu_torch import kernels
+from picopose_tpu_torch.ops.vjp import needs_grad, recompute_grads
 
 def layernorm_plain(
     x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-6
@@ -31,6 +40,18 @@ def layernorm_plain(
     var = torch.clamp(mean_sq - mean * mean, min=0.0)
     inv = torch.rsqrt(var + eps)
     y = (xf - mean) * (inv * scale.float()) + bias.float()
+    return y.to(x.dtype)
+
+
+def layernorm_reference(
+    x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-6
+) -> torch.Tensor:
+    """``layernorm_xla``: fp32 statistics of the fp32 row (its square in
+    fp32), the backward's form."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mean * mean, min=0.0)
+    y = (xf - mean) * (torch.rsqrt(var + eps) * scale.float()) + bias.float()
     return y.to(x.dtype)
 
 
@@ -78,11 +99,32 @@ def layernorm_cuda(
     return y
 
 
+def _layernorm(x, scale, bias, eps):
+    if x.device.type == "cpu":
+        return layernorm_plain(x, scale, bias, eps)
+    return layernorm_cuda(x, scale, bias, eps)
+
+
+class _LayerNorm(torch.autograd.Function):
+    """The kernel forward; the backward through ``layernorm_reference``."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps):
+        ctx.save_for_backward(x, scale, bias)
+        ctx.eps = eps
+        return _layernorm(x, scale, bias, eps)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        return (*recompute_grads(ctx, layernorm_reference, g, ctx.eps), None)
+
+
 def layernorm(
     x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-6
 ) -> torch.Tensor:
     """(..., C) LayerNorm: the kernel for CUDA tensors, the plain version
-    for CPU tensors."""
-    if x.device.type == "cpu":
-        return layernorm_plain(x, scale, bias, eps)
-    return layernorm_cuda(x, scale, bias, eps)
+    for CPU tensors; differentiable in x, scale and bias."""
+    if needs_grad(x, scale, bias):
+        return _LayerNorm.apply(x, scale, bias, eps)
+    return _layernorm(x, scale, bias, eps)

@@ -22,7 +22,8 @@ data-dependent shapes):
 Random draws cannot be the JAX package's (its PRNG is not torch's), so
 ``ransac_pnp`` takes a ``torch.Generator`` or the draws themselves.
 Everything is fp32.  Contractions are written as products and sums
-rather than matmuls, so TF32 cannot reach them.  Ties in the rankings
+rather than matmuls, and ``ransac_pnp`` runs under ``device.full_fp32``,
+so TF32 cannot reach them.  Ties in the rankings
 go to the lower index (stable sorts), as ``lax.top_k`` breaks them; a
 non-positive-definite system gives NaN through the unrolled Cholesky,
 which the degenerate-sample checks rely on.
@@ -34,6 +35,8 @@ import math
 from typing import NamedTuple
 
 import torch
+
+from picopose_tpu_torch.device import full_fp32
 
 
 # the reference's OpenCV settings (2 px, 150 iterations) and the JAX
@@ -286,6 +289,7 @@ def draw_samples(valid: torch.Tensor, iters: int, sample: int, subset: int,
 
 
 @torch.inference_mode()
+@full_fp32()
 def ransac_pnp(
     pts3d: torch.Tensor,
     pts2d: torch.Tensor,

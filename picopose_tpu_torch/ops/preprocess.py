@@ -11,10 +11,9 @@ with Ry (out x H) and Rx (out x W) carrying each output row's and
 column's two bilinear taps, cv2.INTER_LINEAR semantics (centre-aligned
 taps, border replicate inside the crop); the mask the same way with
 one-hot cv2.INTER_NEAREST rows (src = floor(dst * scale) in fp32, as the
-JAX package computes it).  The products run in fp32; on the card they
-need TF32 off for matmuls (PyTorch's default,
-``torch.backends.cuda.matmul.allow_tf32 = False``), the counterpart of the
-JAX code's ``Precision.HIGHEST``.  The bbox follows the host's integer
+JAX package computes it).  The products run in fp32 under
+``device.full_fp32`` (no TF32 whatever the process flags), the
+counterpart of the JAX code's ``Precision.HIGHEST``.  The bbox follows the host's integer
 flow exactly (``_bbox_from_mask`` :43 with exclusive y2/x2, ``_squareize``
 :58); M and pts2d are closed forms of data/crops.py's.
 """
@@ -22,6 +21,8 @@ flow exactly (``_bbox_from_mask`` :43 with exclusive y2/x2, ``_squareize``
 from __future__ import annotations
 
 import torch
+
+from picopose_tpu_torch.device import full_fp32
 
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
@@ -83,6 +84,7 @@ def _nearest_rows(lo: torch.Tensor, size: torch.Tensor, n_src: int, out: int) ->
     return (torch.arange(n_src, device=lo.device) == src[..., None]).float()
 
 
+@full_fp32()
 def preprocess_frame(
     frame: torch.Tensor,
     masks: torch.Tensor,

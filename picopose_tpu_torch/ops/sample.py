@@ -12,14 +12,23 @@ padding.  Each of the four weights wy*wx is formed in fp32 and rounded to
 the feature dtype, the products are summed in fp32 and the output is
 rounded once, as the TPU kernel does; in fp32 this is the JAX package's
 gather path (``_warp_by_flow_xla``) up to summation order.
+
+Gradients (ops/vjp.py): ``warp_by_flow`` is differentiable in the features
+and the flow through an autograd Function whose backward recomputes
+``warp_by_flow_reference``, the port's copy of
+picopose_tpu/ops/sample.py::_warp_by_flow_xla (the JAX custom_vjp's
+backward form).  That form lerps in x then in y in the feature dtype, so in
+bf16 the plain version cannot serve.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from picopose_tpu_torch import kernels
 from picopose_tpu_torch.geom.grids import pixel_coords_grid
+from picopose_tpu_torch.ops.vjp import needs_grad, recompute_grads
 
 
 def _taps(cen: torch.Tensor, H: int, W: int, pad: int):
@@ -91,13 +100,56 @@ def warp(feat: torch.Tensor, cen: torch.Tensor, H: int, W: int, group: int = 1) 
     return warp_cuda(feat, cen, H, W, group)
 
 
-def warp_by_flow(feat: torch.Tensor, flow: torch.Tensor, group: int = 1) -> torch.Tensor:
-    """Warp (B/group, H, W, C) ``feat`` by (B, H, W, 2) ``flow``:
-    out[b, p] = feat[b // group] sampled at p + flow[b, p]; one launch."""
+def warp_by_flow_reference(feat: torch.Tensor, flow: torch.Tensor, group: int = 1) -> torch.Tensor:
+    """``_warp_by_flow_xla`` (``bilinear_sample`` at the pixel grid plus
+    flow): weights rounded to the feature dtype, the four taps lerped in x,
+    then in y, in that dtype; the backward's form."""
+    B2, H, W, C = feat.shape
+    grid = pixel_coords_grid(H, W, device=flow.device) + flow.float()
+    x, y = grid[..., 0], grid[..., 1]
+    x0, y0 = torch.floor(x), torch.floor(y)
+    wx, wy = (x - x0).to(feat.dtype)[..., None], (y - y0).to(feat.dtype)[..., None]
+    b2 = (torch.arange(flow.shape[0], device=feat.device) // group)[:, None, None]
+
+    def tap(yi, xi):
+        ok = (xi >= 0) & (xi <= W - 1) & (yi >= 0) & (yi <= H - 1)
+        v = feat[b2, yi.clamp(0, H - 1).long(), xi.clamp(0, W - 1).long()]
+        return v * ok[..., None].to(feat.dtype)
+
+    top = tap(y0, x0) * (1 - wx) + tap(y0, x0 + 1) * wx
+    bot = tap(y0 + 1, x0) * (1 - wx) + tap(y0 + 1, x0 + 1) * wx
+    return top * (1 - wy) + bot * wy
+
+
+def _warp_by_flow(feat, flow, group):
     B2, H, W, C = feat.shape
     B = flow.shape[0]
-    if B != B2 * group:
-        raise ValueError(f"flow batch {B} is not {group} x the feature batch {B2}")
     grid = pixel_coords_grid(H, W, device=flow.device) + flow.float()
     out = warp(feat.reshape(B2, H * W, C), grid.reshape(B, H * W, 2), H, W, group)
     return out.reshape(B, H, W, C)
+
+
+class _WarpByFlow(torch.autograd.Function):
+    """The kernel forward; the backward through ``warp_by_flow_reference``."""
+
+    @staticmethod
+    def forward(ctx, feat, flow, group):
+        ctx.save_for_backward(feat, flow)
+        ctx.group = group
+        return _warp_by_flow(feat, flow, group)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        return (*recompute_grads(ctx, warp_by_flow_reference, g, ctx.group), None)
+
+
+def warp_by_flow(feat: torch.Tensor, flow: torch.Tensor, group: int = 1) -> torch.Tensor:
+    """Warp (B/group, H, W, C) ``feat`` by (B, H, W, 2) ``flow``:
+    out[b, p] = feat[b // group] sampled at p + flow[b, p]; one launch.
+    Differentiable in ``feat`` and ``flow``."""
+    if flow.shape[0] != feat.shape[0] * group:
+        raise ValueError(f"flow batch {flow.shape[0]} is not {group} x the feature batch {feat.shape[0]}")
+    if needs_grad(feat, flow):
+        return _WarpByFlow.apply(feat, flow, group)
+    return _warp_by_flow(feat, flow, group)

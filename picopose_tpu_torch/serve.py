@@ -50,7 +50,7 @@ from picopose_tpu_torch.data.crops import (
     square_bbox,
 )
 from picopose_tpu_torch.data.rle import rle_to_mask
-from picopose_tpu_torch.device import resolve_device
+from picopose_tpu_torch.device import full_fp32, resolve_device
 from picopose_tpu_torch.eval.pipeline import TemplateBank, run_batch
 from picopose_tpu_torch.models import PicoPose
 from picopose_tpu_torch.ops.preprocess import preprocess_frame
@@ -269,6 +269,7 @@ class PoseEstimator:
         return batch
 
     @torch.inference_mode()
+    @full_fp32()
     def estimate(
         self, rgb: np.ndarray, K: np.ndarray, detections: Sequence[Mapping[str, Any]]
     ) -> list[PoseResult]:

@@ -14,6 +14,13 @@ rounding differs in its last bits.  K3's int8 branch computes every sim
 bitwise as its plain version does (exact s32 sums, one fp32 rescale); its
 scores, like the other branches', sum the row maxima in another order
 (1e-5).
+
+Gradients: the kernel wrappers are autograd Functions whose backward
+recomputes the JAX package's XLA form (ops/vjp.py); on the card they are
+held against the same function through the plain versions, differentiated
+natively: fp32 within 1e-4 relative (summation order), bf16 within 2^-5 of
+the largest gradient (the backward's form rounds at other points than the
+plain version).
 """
 
 import os
@@ -25,11 +32,13 @@ import torch
 
 from picopose_tpu_torch import kernels
 from picopose_tpu_torch.geom.grids import pixel_coords_grid
+from picopose_tpu_torch.models import PicoPose
 from picopose_tpu_torch.ops import attention as A
 from picopose_tpu_torch.ops import corr as CO
 from picopose_tpu_torch.ops import layernorm as L
 from picopose_tpu_torch.ops import matching as M
 from picopose_tpu_torch.ops import sample as S
+from picopose_tpu_torch.utils.weights import init_random_
 
 
 @pytest.fixture
@@ -174,16 +183,161 @@ def test_corr_kernel_takes_both_paths_in_one_launch(cuda_device, C):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("G,group", [(16, 1), (32, 5), (64, 5)])
-def test_warp_kernel_matches_plain(cuda_device, dtype, G, group):
+@pytest.mark.parametrize("group", [1, 5])
+@pytest.mark.parametrize("G", [16, 32, 64])
+@pytest.mark.parametrize("centres", ["wild", "smooth"])
+def test_warp_kernel_matches_plain(cuda_device, dtype, G, group, centres):
+    """The warp kernel at the decoder's three grids: wild centres (taps
+    scattered, past every edge and far off the map) and smooth ones (a
+    similarity: neighbouring pixels share most of their taps).
+    16 query maps x 5 as on the main path for G = 64 and group 5."""
     g = torch.Generator(device=cuda_device).manual_seed(G + group)
-    B2, C = 2, 256
+    B2, C = (16 if (G, group) == (64, 5) else 2), 256
     feat = torch.randn(B2, G * G, C, generator=g, device=cuda_device).to(dtype)
-    cen = _centres(g, B2 * group, G, 0, cuda_device)
+    if centres == "wild":
+        cen = _centres(g, B2 * group, G, 0, cuda_device)
+    else:
+        cen = _smooth_grid(g, B2 * group, G, cuda_device).reshape(B2 * group, G * G, 2)
     got = S.warp_cuda(feat, cen, G, G, group)
     torch.cuda.synchronize()
-    assert got.dtype == dtype and bool((got[:, G : G + 3] == 0).all())
+    assert got.dtype == dtype
+    if centres == "wild":
+        assert bool((got[:, G : G + 3] == 0).all())
     torch.testing.assert_close(got.float(), S.warp_plain(feat, cen, G, G, group).float(), **_bf16_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,C", [(torch.bfloat16, 8), (torch.bfloat16, 72), (torch.bfloat16, 264),
+                                     (torch.float32, 4), (torch.float32, 132)])
+def test_warp_kernel_partial_channel_passes(cuda_device, dtype, C):
+    """Channel counts that leave lanes idle in the last pass over C, on a
+    13 x 19 map (a warp's pixels cross row and stream ends; the pixel
+    count is no multiple of a block's)."""
+    g = torch.Generator(device=cuda_device).manual_seed(C)
+    H, W, group = 13, 19, 3
+    feat = torch.randn(2, H, W, C, generator=g, device=cuda_device).to(dtype)
+    flow = torch.randn(6, H, W, 2, generator=g, device=cuda_device) * 2
+    got = S.warp_by_flow(feat, flow, group)
+    torch.cuda.synchronize()
+    grid = (pixel_coords_grid(H, W, device=cuda_device) + flow).reshape(6, H * W, 2)
+    ref = S.warp_plain(feat.reshape(2, H * W, C), grid, H, W, group).reshape(6, H, W, C)
+    torch.testing.assert_close(got.float(), ref.float(), **_bf16_tol(dtype))
+
+
+def _grad_close(got, ref, dtype, what):
+    got, ref = got.float(), ref.float()
+    top = ref.abs().max().item()
+    assert top > 0 and bool(torch.isfinite(got).all()), what
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref, atol=1e-4 * top, rtol=1e-4, msg=what)
+    else:
+        assert (got - ref).abs().max().item() <= 2**-5 * top, what
+
+
+def _check_grads(out, inputs, plain_out, dtype, name, launches):
+    """``out``: the wrapper's output on CUDA inputs that require grad (its
+    forward launched ``name`` ``launches`` times); ``plain_out``: the same
+    function through the plain versions.  Without the autograd Function the
+    kernel's output had no grad_fn and the gradients stopped there."""
+    assert out.grad_fn is not None and kernels.LAUNCHES[name] == launches
+    g = torch.randn_like(out.float()).to(out.dtype)
+    got = torch.autograd.grad(out, inputs, g)
+    ref = torch.autograd.grad(plain_out, inputs, g)
+    assert kernels.LAUNCHES[name] == launches  # the backward launches no kernel
+    for i, (a, b) in enumerate(zip(got, ref)):
+        _grad_close(a, b, dtype, f"{name} input {i}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layernorm_kernel_is_differentiable(cuda_device, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    x = (torch.randn(4, 257, 1024, generator=g, device=cuda_device) * 3 + 1.5).to(dtype).requires_grad_()
+    scale = (torch.randn(1024, generator=g, device=cuda_device) * 0.2 + 1).requires_grad_()
+    bias = (torch.randn(1024, generator=g, device=cuda_device) * 0.5).requires_grad_()
+    kernels.reset_launches()
+    out = L.layernorm(x, scale, bias)
+    _check_grads(out, (x, scale, bias), L.layernorm_plain(x, scale, bias), dtype, "layernorm", 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["contiguous", "qkv views"])
+def test_attention_kernel_is_differentiable(cuda_device, dtype, layout):
+    """On the ViT's qkv views the gradient lands on the projection."""
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    B, H, N, D = 2, 16, 257, 64
+    if layout == "contiguous":
+        leaves = [torch.randn(B, H, N, D, generator=g, device=cuda_device).to(dtype).requires_grad_()
+                  for _ in range(3)]
+        q, k, v = leaves
+    else:
+        qkv = torch.randn(B, N, 3, H, D, generator=g, device=cuda_device).to(dtype).requires_grad_()
+        leaves = [qkv]
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    kernels.reset_launches()
+    A.INPUT_COPIES.clear()
+    out = A.attention(q, k, v)
+    assert dtype == torch.float32 or not A.INPUT_COPIES
+    _check_grads(out, leaves, A.attention_plain(q, k, v), dtype, "attention", 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_corr_lookup_kernel_is_differentiable(cuda_device, dtype, monkeypatch):
+    """Three pyramid levels in one launch, group 3, windows past the edges;
+    the plain path is the same lookup with the plain version."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    B2, group, G, C = 2, 3, 32, 64
+    f1 = torch.randn(B2 * group, G, G, C, generator=g, device=cuda_device).to(dtype).requires_grad_()
+    f2 = torch.randn(B2, G, G, C, generator=g, device=cuda_device).to(dtype).requires_grad_()
+    flow = (_grid(g, B2 * group, G, cuda_device) - pixel_coords_grid(G, G, device=cuda_device)).requires_grad_()
+    kernels.reset_launches()
+    out = CO.corr_lookup(f1, f2, flow, 2, 3, group)
+    monkeypatch.setattr(CO, "corr_windows", CO.corr_windows_plain)
+    plain = CO._corr_lookup(f1, f2, flow, 2, 3, group)
+    _check_grads(out, (f1, f2, flow), plain, dtype, "corr_window", 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group", [1, 5])
+def test_warp_by_flow_kernel_is_differentiable(cuda_device, dtype, group, monkeypatch):
+    g = torch.Generator(device=cuda_device).manual_seed(6 + group)
+    G, C = 32, 256
+    feat = torch.randn(2, G, G, C, generator=g, device=cuda_device).to(dtype).requires_grad_()
+    flow = (_grid(g, 2 * group, G, cuda_device) - pixel_coords_grid(G, G, device=cuda_device)).requires_grad_()
+    kernels.reset_launches()
+    out = S.warp_by_flow(feat, flow, group)
+    monkeypatch.setattr(S, "warp", S.warp_plain)
+    plain = S._warp_by_flow(feat, flow, group)
+    _check_grads(out, (feat, flow), plain, dtype, "warp", 1)
+
+
+@pytest.mark.cuda
+def test_stage2_ignores_the_process_tf32_flags(cuda_device):
+    """Stage 2 (fp32 convs on cuDNN, fp32 geometry) under PyTorch's default
+    ``cudnn.allow_tf32 = True``, and with the matmul flag on too, is bitwise
+    the same call with both off; the caller's flags are as they were."""
+    model = PicoPose("vit_tiny_test", (0, 1, 2, 3), torch.float32, device=cuda_device)
+    init_random_(model, 0)
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    tem = torch.randn(8, 16, 16, 128, generator=g, device=cuda_device)
+    real = tem.flip(0) + 0.3 * torch.randn(8, 16, 16, 128, generator=g, device=cuda_device)
+    mask = (torch.rand(8, 224, 224, generator=g, device=cuda_device) > 0.3).float()
+    before = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    outs = {}
+    try:
+        for flags in ((False, False), (False, True), (True, True)):
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+            with torch.inference_mode():
+                outs[flags] = model.stage2(tem, real, mask)
+            assert (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == flags
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = before
+    for flags in ((False, True), (True, True)):
+        for a, b in zip(outs[flags], outs[False, False]):
+            assert torch.equal(a, b), flags
 
 
 @pytest.mark.cuda
