@@ -70,7 +70,13 @@ Phases (any failure exits non-zero before the result line):
      images, both pyramids, the initial flow, every LN scale and every qkv
      weight: finite and non-zero, within a relative RMS of the same
      computation through the plain versions, and the forward's launches
-     (48 LN, 24 attention, 3 corr-window, 3 warp; none in the backward).
+     (48 LN, 24 attention, 3 corr-window, 3 warp; none in the backward);
+  7. the BOP evaluation entry point at full width (``eval_cli_phase``): a
+     BOP tree written with the script's own PNG encoder (two objects x 162
+     RGBA views with 16-bit depth, two 960 x 1280 frames, 40 RLE
+     detections) and a seeded ViT-L exported as a Lightning ``.ckpt``;
+     ``picopose_tpu_torch.run_test.main`` runs twice in this process, with
+     the checks and times listed at ``eval_cli_phase``.
 Then the kernels as one JSON line (K3's int8 row with its launches from
 the int8-matching ``estimate``), the card line, and the result line.
 The script leaves PyTorch's TF32 flags at their defaults (cuDNN may take
@@ -1132,6 +1138,400 @@ def tf32_check(est, bank, frame, K, dets, batch, seed: int) -> None:
     check(all(torch.equal(a, b) for a, b in zip(on[1], off[1])), "stage 2 bitwise equal with the flags on and off")
 
 
+def png_bytes(arr: np.ndarray) -> bytes:
+    """PNG file bytes of an (H, W) uint8 or uint16 grey, (H, W, 3) RGB or
+    (H, W, 4) RGBA uint8 image.  Row y is filtered with type y % 5 (None,
+    Sub, Up, Average, Paeth), so a decoder of these files meets all five."""
+    import struct
+    import zlib
+
+    H, W = arr.shape[:2]
+    depth = 16 if arr.dtype == np.uint16 else 8
+    colour = 0 if arr.ndim == 2 else {3: 2, 4: 6}[arr.shape[2]]
+    x = (arr.astype(">u2").view(np.uint8) if depth == 16 else arr).reshape(H, W, -1).astype(np.int16)
+    a, b, c = np.zeros_like(x), np.zeros_like(x), np.zeros_like(x)  # left, above, above-left
+    a[:, 1:], b[1:], c[1:, 1:] = x[:, :-1], x[:-1], x[:-1, :-1]
+    ftype = np.arange(H) % 5
+    filt = np.empty_like(x)
+    for k in range(5):
+        r = ftype == k
+        ar, br, cr = a[r], b[r], c[r]
+        pa, pb, pc = np.abs(br - cr), np.abs(ar - cr), np.abs(ar + br - 2 * cr)
+        pred = [0, ar, br, (ar + br) >> 1, np.where((pa <= pb) & (pa <= pc), ar, np.where(pb <= pc, br, cr))][k]
+        filt[r] = (x[r] - pred) & 255
+    raw = np.concatenate([ftype[:, None], filt.reshape(H, -1)], axis=1).astype(np.uint8).tobytes()
+    chunk = lambda kind, data: struct.pack(">I", len(data)) + kind + data + struct.pack(">I", zlib.crc32(kind + data))
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, depth, colour, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
+
+
+def rle_string(mask: np.ndarray) -> dict:
+    """A COCO RLE with compressed counts (the CNOS detections' form)."""
+    counts, out = rle_counts(mask)["counts"], []
+    for i, x in enumerate(counts):
+        x -= counts[i - 2] if i > 2 else 0
+        more = True
+        while more:
+            c, x = x & 0x1F, x >> 5
+            more = x != -1 if c & 0x10 else x != 0
+            out.append(chr((c | 0x20 if more else c) + 48))
+    return {"size": list(mask.shape), "counts": "".join(out)}
+
+
+def image_digest(arr: np.ndarray) -> str:
+    import hashlib
+
+    return hashlib.sha1(arr.tobytes() + str((arr.dtype, arr.shape)).encode()).hexdigest()
+
+
+EVAL_OBJECTS, EVAL_VIEWS, EVAL_FRAME_HW = (1, 2), 162, (960, 1280)
+# (scene, image) of each test frame: 20 224^2 slots on a 4 x 5 grid, ten views of each object
+EVAL_FRAMES = ((1, 3), (2, 7))
+
+
+def bop_world(root: str, seed: int) -> dict:
+    """A BOP tree under ``root`` in the reference layout: per object 162
+    RGBA template views at 640 x 480 (a 224^2 square of random texture,
+    opaque, at a random place), 16-bit depth in mm and poses in mm; two
+    960 x 1280 test frames, each holding ten views of each object; CNOS
+    detections with RLE masks (one per slot, ten per object and frame,
+    one of them carrying only 6 mask pixels, so its box is used, plus a
+    low-scored one past ``inst_count``), scene cameras and the bop19
+    targets.  Returns the paths, a digest of every image written and the
+    view pasted under each detection's box."""
+    import concurrent.futures as cf
+    import json
+    import os
+
+    rng = np.random.default_rng(seed)
+    data_dir, tem_dir, det_dir = (os.path.join(root, d) for d in ("bop", "templates", "dets"))
+    digests, views, writes = {}, {}, []
+    pool = cf.ThreadPoolExecutor(8)  # zlib and numpy's whole-image operations release the GIL
+
+    def encode(path, arr):
+        with open(path, "wb") as f:
+            f.write(png_bytes(arr))
+
+    def write(path, arr):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        writes.append(pool.submit(encode, path, arr))
+        digests[path] = image_digest(arr)
+
+    for obj in EVAL_OBJECTS:
+        odir = os.path.join(tem_dir, "smoke", f"{obj:06d}")
+        views[obj] = rng.integers(0, 256, (EVAL_VIEWS, 224, 224, 3), dtype=np.uint8)
+        poses = np.tile(np.eye(4), (EVAL_VIEWS, 1, 1))
+        for v in range(EVAL_VIEWS):
+            y0, x0 = rng.integers(0, 480 - 224), rng.integers(0, 640 - 224)
+            rgba = np.zeros((480, 640, 4), np.uint8)
+            rgba[y0 : y0 + 224, x0 : x0 + 224, :3] = views[obj][v]
+            rgba[y0 : y0 + 224, x0 : x0 + 224, 3] = 255
+            depth = np.zeros((480, 640), np.uint16)
+            depth[y0 : y0 + 224, x0 : x0 + 224] = rng.integers(500, 800) + rng.integers(0, 30, (224, 224))
+            write(os.path.join(odir, f"{v:06d}.png"), rgba)
+            write(os.path.join(odir, f"{v:06d}_depth.png"), depth)
+            q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+            poses[v, :3, :3] = q * np.sign(np.linalg.det(q))
+            poses[v, :3, 3] = [rng.normal(0, 20), rng.normal(0, 20), rng.uniform(500, 800)]
+        os.makedirs(os.path.join(tem_dir, "smoke", "object_poses"), exist_ok=True)
+        np.save(os.path.join(tem_dir, "smoke", "object_poses", f"{obj:06d}.npy"), poses)
+
+    dets, targets, pasted, cams = [], [], {}, {}
+    K = [1000.0, 0.0, 640.0, 0.0, 1000.0, 480.0, 0.0, 0.0, 1.0]
+    for fi, (scene, im) in enumerate(EVAL_FRAMES):
+        frame = rng.integers(0, 256, (*EVAL_FRAME_HW, 3), dtype=np.uint8)
+        for slot in range(20):
+            obj, y0, x0 = EVAL_OBJECTS[slot % 2], 240 * (slot // 5) + 8, 256 * (slot % 5) + 16
+            v = int(rng.integers(EVAL_VIEWS))
+            frame[y0 : y0 + 224, x0 : x0 + 224] = views[obj][v]
+            mask = np.zeros(EVAL_FRAME_HW, np.uint8)
+            if fi == 1 and slot == 19:  # 6 pixels at the 16^2 grid's samples: the box is used
+                mask[y0 + 14 * np.array([4, 4, 8, 11, 11, 7]), x0 + 14 * np.array([4, 11, 8, 4, 11, 2])] = 1
+            else:
+                mask[y0 : y0 + 224, x0 : x0 + 224] = 1
+            bbox = [x0, y0, 224, 224]
+            dets.append({"scene_id": scene, "image_id": im, "category_id": obj, "bbox": bbox,
+                         "score": round(0.99 - 0.01 * slot, 2), "time": 0.05, "segmentation": rle_string(mask)})
+            pasted[scene, im, tuple(bbox)] = v
+        # a detection scored below the ten kept for object 1
+        dets.append(dict(dets[-20], score=0.01))
+        targets += [{"scene_id": scene, "im_id": im, "obj_id": obj, "inst_count": 10} for obj in EVAL_OBJECTS]
+        write(os.path.join(data_dir, "smoke", "test", f"{scene:06d}", "rgb", f"{im:06d}.png"), frame)
+        cams.setdefault(scene, {})[str(im)] = {"cam_K": K}
+    for scene, cam in cams.items():
+        with open(os.path.join(data_dir, "smoke", "test", f"{scene:06d}", "scene_camera.json"), "w") as f:
+            json.dump(cam, f)
+    with open(os.path.join(data_dir, "smoke", "test_targets_bop19.json"), "w") as f:
+        json.dump(targets, f)
+    os.makedirs(det_dir)
+    with open(os.path.join(det_dir, "smoke.json"), "w") as f:
+        json.dump(dets, f)
+    with pool:
+        for w in writes:
+            w.result()
+    return dict(data_dir=data_dir, template_root=tem_dir, det_dir=det_dir, digests=digests, pasted=pasted,
+                n_instances=20 * len(EVAL_FRAMES))
+
+
+# K1-K5 launches of one eval CLI run: two 162-view banks (6 chunks of 32 x
+# 24 blocks) and four batches (each object: 16 instances, then 4 padded to 16)
+EVAL_LAUNCHES = {"layernorm": 2 * 288 + 4 * 48, "attention": 2 * 144 + 4 * 24,
+                 "match_scores": 4, "corr_window": 4 * 3, "warp": 4 * 3}
+
+
+def expected_rows(world: dict) -> list[tuple[str, str, str, str]]:
+    """(scene, image, object, score) of each CSV row, from the written
+    targets and detections: the images in key order, each target's
+    inst_count best-scored detections of its object."""
+    import json
+    import os
+
+    with open(os.path.join(world["data_dir"], "smoke", "test_targets_bop19.json")) as f:
+        targets = json.load(f)
+    with open(os.path.join(world["det_dir"], "smoke.json")) as f:
+        dets = json.load(f)
+    rows = []
+    for tgt in sorted(targets, key=lambda t: (t["scene_id"], t["im_id"])):
+        cand = [d for d in dets if (d["scene_id"], d["image_id"], d["category_id"])
+                == (tgt["scene_id"], tgt["im_id"], tgt["obj_id"])]
+        cand.sort(key=lambda d: -d["score"])
+        rows += [(str(tgt["scene_id"]), str(tgt["im_id"]), str(tgt["obj_id"]), str(d["score"]), tuple(d["bbox"]))
+                 for d in cand[: tgt["inst_count"]]]
+    return rows
+
+
+def eval_cli_phase(seed: int) -> None:
+    """Phase 7: the BOP evaluation entry point at full width.  A BOP tree
+    (``bop_world``) and a seeded ViT-L checkpoint (random weights, calmed
+    stage-3 heads) exported as a Lightning ``.ckpt``; then
+    ``picopose_tpu_torch.run_test.main`` in this process (bf16, 162 views,
+    hyp 5, batch 16, 150 PnP iterations), twice.  Checks: the loaded
+    weights are bitwise the exported ones; every PNG the run decodes
+    (frames, template views and depth maps) is bitwise the image written; every detection's top template is the view pasted
+    under it; the CSV has one row per instance in the dataset's order with
+    the targets' scene, image, object and score, orthonormal R, finite t
+    and time > 0; the second run's first six columns equal the first's;
+    the launches of K1-K5 are those of two banks and four batches.
+    Prints PNG decode ms, template loading and bank ms per object, wall
+    time, instances/s, the eval loop's device idle share (device busy in a
+    profiled second run over the first run's wall) and run_batch's host
+    ms in the runner against the same call alone."""
+    import csv
+    import os
+    import tempfile
+    import warnings
+
+    import picopose_tpu_torch.data.bop as bop_module
+    from picopose_tpu_torch import kernels, run_test
+    from picopose_tpu_torch.data.png import read_png
+    from picopose_tpu_torch.eval import pipeline as P
+    from picopose_tpu_torch.eval import runner
+    from picopose_tpu_torch.models import PicoPose
+    from picopose_tpu_torch.utils.torch_export import save_torch_checkpoint
+    from picopose_tpu_torch.utils.weights import init_random_
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=here) as root:
+        t0 = time.perf_counter()
+        world = bop_world(root, seed)
+        print(f"[eval] BOP tree written: {len(world['digests'])} PNGs, {world['n_instances']} instances, "
+              f"{time.perf_counter() - t0!r} s")
+
+        # PNG decoding on the host, alone: each decoded array bitwise the written one
+        by_kind = {"RGBA view": [p for p in world["digests"] if "templates" in p and not p.endswith("_depth.png")],
+                   "depth map": [p for p in world["digests"] if p.endswith("_depth.png")],
+                   "frame": [p for p in world["digests"] if "/test/" in p]}
+        decode_ms = {}
+        for kind, paths in by_kind.items():
+            times = []
+            for path in sorted(paths)[:12]:
+                t = time.perf_counter()
+                arr = read_png(path)
+                times.append((time.perf_counter() - t) * 1e3)
+                check(image_digest(arr) == world["digests"][path], f"{path} decodes bitwise as written")
+            decode_ms[kind] = float(np.median(times))
+        print(f"[eval] PNG decode ms on the host, median of up to 12 files: {decode_ms!r} (RGBA 640 x 480, "
+              f"16-bit depth 640 x 480, RGB frame 960 x 1280; every row filter type in turn)")
+
+        model = PicoPose("dinov2_vitl14", (5, 11, 17, 23), torch.bfloat16, device="cuda")
+        init_random_(model, seed)
+        calm_stage3_heads_(model)
+        ckpt = os.path.join(root, "picopose.ckpt")
+        t0 = time.perf_counter()
+        save_torch_checkpoint(model, ckpt)
+        exported = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        del model
+        print(f"[eval] checkpoint {os.path.getsize(ckpt)} bytes written in {time.perf_counter() - t0!r} s")
+        argv = ["--dataset", "smoke", "--config", os.path.join(here, "configs", "base.yaml"),
+                "--checkpoint_path", ckpt, "--set", f"test_dataset.data_dir={world['data_dir']}",
+                f"test_dataset.template_dir={world['template_root']}",
+                f"test_dataset.detection_dir={world['det_dir']}"]
+
+        def run(profiled: bool) -> dict:
+            """One run_test.main with every count set to 0 just before and
+            read just after, its calls recorded."""
+            rec = {k: [] for k in ("loaded", "decoded", "ids", "rb_ms", "rb_args", "tem_ms", "bank_ev",
+                                   "bank_host_ms", "wait_ms", "eval_s", "busy_ms")}
+            fns = {name: getattr(mod, name) for mod, name in (
+                (run_test, "load_flax_variables"), (bop_module, "read_png"), (runner, "run_batch"),
+                (runner, "load_template_views"), (runner, "build_bank"), (run_test, "evaluate_dataset"),
+                (runner, "_stream_batches"))}
+
+            def load(model, variables):
+                fns["load_flax_variables"](model, variables)
+                rec["loaded"].append({k: v.detach().clone() for k, v in model.state_dict().items()})
+
+            def decode(path):
+                arr = fns["read_png"](path)
+                rec["decoded"].append((path, image_digest(arr)))
+                return arr
+
+            def one_batch(*a, **kw):
+                t = time.perf_counter()
+                out = fns["run_batch"](*a, **kw)
+                rec["rb_ms"].append((time.perf_counter() - t) * 1e3)
+                if not rec["rb_args"]:
+                    rec["rb_args"].append((a, kw))
+                return out
+
+            def templates(*a, **kw):
+                t = time.perf_counter()
+                out = fns["load_template_views"](*a, **kw)
+                rec["tem_ms"].append((time.perf_counter() - t) * 1e3)
+                return out
+
+            def bank(*a, **kw):
+                ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                t = time.perf_counter()
+                ev[0].record()
+                out = fns["build_bank"](*a, **kw)
+                ev[1].record()
+                rec["bank_host_ms"].append((time.perf_counter() - t) * 1e3)
+                rec["bank_ev"].append(ev)
+                return out
+
+            def stream(*a, **kw):  # the time the loop waits for each decoded batch
+                it = fns["_stream_batches"](*a, **kw)
+                while True:
+                    t = time.perf_counter()
+                    item = next(it, None)
+                    rec["wait_ms"].append((time.perf_counter() - t) * 1e3)
+                    if item is None:
+                        return
+                    yield item
+
+            def evaluate(*a, **kw):
+                from torch.autograd import DeviceType
+                from torch.profiler import ProfilerActivity, profile
+
+                t = time.perf_counter()
+                if not profiled:
+                    out = fns["evaluate_dataset"](*a, **kw)
+                else:
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        out = fns["evaluate_dataset"](*a, **kw)
+                        torch.cuda.synchronize()
+                    rec["busy_ms"].append(sum(dev_us(e) for e in prof.key_averages()
+                                              if e.device_type == DeviceType.CUDA) / 1e3)
+                rec["eval_s"].append(time.perf_counter() - t)
+                return out
+
+            cwd = os.getcwd()
+            os.chdir(root)  # the CSV goes under ./log
+            try:
+                with patched((run_test, "load_flax_variables", load), (bop_module, "read_png", decode),
+                             (runner, "run_batch", one_batch), (runner, "load_template_views", templates),
+                             (runner, "build_bank", bank), (run_test, "evaluate_dataset", evaluate),
+                             (runner, "_stream_batches", stream)), \
+                        Recorder(P, "match_templates", lambda out, a: out[1][:, 0]) as mt:
+                    kernels.reset_launches()
+                    t = time.perf_counter()
+                    (path,) = run_test.main(argv)
+                    torch.cuda.synchronize()
+                    rec["wall_s"] = time.perf_counter() - t
+                    rec["launches"] = dict(kernels.LAUNCHES)
+            finally:
+                os.chdir(cwd)
+            with open(os.path.join(root, path)) as f:
+                rec["rows"] = list(csv.reader(f))
+            rec["ids"] = mt.seen
+            rec["bank_ms"] = [a.elapsed_time(b) for a, b in rec["bank_ev"]]
+            return rec
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            first = run(profiled=False)
+            second = run(profiled=True)
+
+        # the weights, the images, the launches
+        (loaded,) = first["loaded"]
+        check(loaded.keys() == exported.keys() and all(
+            loaded[k].dtype == exported[k].dtype and torch.equal(loaded[k], exported[k]) for k in exported),
+            "the checkpoint loads bitwise as exported")
+        decoded = dict(first["decoded"])
+        check(decoded.keys() == world["digests"].keys(), "every PNG of the tree was decoded")
+        check(all(decoded[p] == world["digests"][p] for p in decoded), "every decoded PNG is bitwise as written")
+        print(f"[eval] launches during one run: {first['launches']}")
+        check(first["launches"] == EVAL_LAUNCHES and second["launches"] == EVAL_LAUNCHES,
+              f"K1-K5 launched as two banks and four batches imply: {EVAL_LAUNCHES}")
+
+        # the CSV: rows in the dataset's order, each detection's top view
+        want = expected_rows(world)
+        rows = first["rows"]
+        check(len(rows) == world["n_instances"] == len(want), "one CSV row per instance")
+        check([tuple(r[:4]) for r in rows] == [w[:4] for w in want], "rows in the dataset's order, as targeted")
+        for r in rows:
+            R, t = np.array(r[4].split(), float).reshape(3, 3), np.array(r[5].split(), float)
+            check(len(r) == 7 and np.isfinite(R).all() and np.isfinite(t).all(), "finite R and t")
+            check(np.abs(R.T @ R - np.eye(3)).max() < 1e-4, "orthonormal R")
+            check(float(r[6]) > 0, "time > 0")
+        # the runner's batches: each object's rows in CSV order, 16 then 4 (padded)
+        top1 = []
+        for ids, n in zip(first["ids"], (16, 4, 16, 4)):
+            top1 += ids[:n].tolist()
+        order = [w for obj in map(str, EVAL_OBJECTS) for w in want if w[2] == obj]
+        pasted = [world["pasted"][int(w[0]), int(w[1]), w[4]] for w in order]
+        hits = sum(a == b for a, b in zip(top1, pasted))
+        print(f"[eval] top-1 template is the pasted view for {hits}/{len(pasted)} detections")
+        check(len(top1) == len(pasted) and hits == len(pasted), "every detection selects its pasted view")
+        same = [r[:6] for r in first["rows"]] == [r[:6] for r in second["rows"]]
+        print(f"[eval] second run: first six columns equal {same}")
+        check(same, "a second run gives the same scene, image, object, score, R and t")
+
+        # times
+        n = world["n_instances"]
+        per_image = {}
+        for r in rows:
+            per_image[r[0], r[1]] = float(r[6])
+        eval_s = first["eval_s"][0]
+        print(f"[eval] load_template_views host ms per object {first['tem_ms']!r} (second run "
+              f"{second['tem_ms']!r}); build_bank device ms per object (CUDA events) {first['bank_ms']!r}")
+        print(f"[eval] run_test.main wall {first['wall_s']!r} s (checkpoint load included), evaluate_dataset "
+              f"{eval_s!r} s for {n} instances = {n / eval_s!r} instances/s; mean per-image time (CSV) "
+              f"{float(np.mean(list(per_image.values())))!r} s over {len(per_image)} images; second run "
+              f"(profiled) wall {second['wall_s']!r} s")
+        rest = eval_s * 1e3 - sum(first["tem_ms"]) - sum(first["bank_host_ms"]) - sum(first["wait_ms"]) \
+            - sum(first["rb_ms"])
+        print(f"[eval] evaluate_dataset host ms by part (first run): load_template_views {sum(first['tem_ms'])!r}, "
+              f"build_bank calls {sum(first['bank_host_ms'])!r}, waits for decoded batches {sum(first['wait_ms'])!r} "
+              f"({first['wait_ms']!r}), run_batch calls {sum(first['rb_ms'])!r}, the rest (uploads, reading "
+              f"results back, CSV) {rest!r}")
+        busy = second["busy_ms"][0]
+        print(f"[eval] eval loop device busy {busy!r} ms (profiled run) of {eval_s * 1e3!r} ms (first run): "
+              f"idle share {1 - busy / (eval_s * 1e3)!r}")
+        (a, kw), = first["rb_args"]
+        alone = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            runner.run_batch(*a, **kw)
+            alone.append((time.perf_counter() - t) * 1e3)
+        torch.cuda.synchronize()
+        print(f"[eval] run_batch host ms (the call's return, device work queued): in the runner "
+              f"{first['rb_ms']!r} (second run {second['rb_ms']!r}); alone, 5 calls after one warm-up "
+              f"median {float(np.median(alone[1:]))!r} ({alone[1:]!r})")
+
+
 def pnp_scene(rng, B: int, N: int):
     """(pts3d, pts2d, K, valid) CPU tensors: B poses, N model points each
     projected with 0.3 px noise, 30% of them moved anywhere in the image,
@@ -1260,6 +1660,9 @@ def main() -> int:
     t0 = time.perf_counter()
     gradient_phase(SEED)
     print(f"[phase] gradients {time.perf_counter() - t0!r} s")
+    t0 = time.perf_counter()
+    eval_cli_phase(SEED)
+    print(f"[phase] eval CLI {time.perf_counter() - t0!r} s")
 
     src = "picopose_tpu_torch/kernels/csrc/"
     replaces = {

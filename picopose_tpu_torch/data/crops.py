@@ -3,7 +3,8 @@
 The port's own copy of picopose_tpu/data/crops.py without cv2, which the
 GPU machine lacks: ``mask_square_bbox`` (:26), ``square_bbox`` /
 ``_squareize`` (:37-61), ``crop_matrix`` (:64), ``crop_and_normalize_rgb``
-(:76-107), ``crop_mask`` (:110) and ``grid_pts2d`` (:130).  The resizes are
+(:76-107), ``crop_mask`` (:110), ``depth_to_points`` (:116) and
+``grid_pts2d`` (:130).  The resizes are
 written out with cv2's semantics as separable row matrices:
 
   * rgb, cv2.INTER_LINEAR: centre-aligned taps src = (dst + 0.5) * scale
@@ -105,10 +106,25 @@ def crop_and_normalize_rgb(
 
 
 def crop_mask(mask: np.ndarray, bbox, out: int) -> np.ndarray:
-    """(H, W) mask -> (out, out) float32 crop, nearest samples."""
+    """(H, W) mask -> (out, out) float32 crop, nearest samples; values are
+    truncated to integers first (a template's alpha / 255 keeps only its
+    opaque pixels), as the JAX package's int32 resize does."""
     y1, y2, x1, x2 = bbox
-    m = mask[y1:y2, x1:x2].astype(np.float32)
+    m = mask[y1:y2, x1:x2].astype(np.int32).astype(np.float32)
     return m[nearest_index(y2 - y1, out)][:, nearest_index(x2 - x1, out)]
+
+
+def depth_to_points(depth: np.ndarray, K: np.ndarray, bbox=None) -> np.ndarray:
+    """(H, W) depth -> (H', W', 3) camera points, cut to ``bbox`` if given."""
+    H, W = depth.shape
+    xs, ys = np.meshgrid(np.arange(W, dtype=np.float32), np.arange(H, dtype=np.float32))
+    if bbox is not None:
+        y1, y2, x1, x2 = bbox
+        depth = depth[y1:y2, x1:x2]
+        xs, ys = xs[y1:y2, x1:x2], ys[y1:y2, x1:x2]
+    X = (xs - K[0, 2]) * depth / K[0, 0]
+    Y = (ys - K[1, 2]) * depth / K[1, 1]
+    return np.stack([X, Y, depth], axis=-1).astype(np.float32)
 
 
 def grid_pts2d(M: np.ndarray, crop: int = 224, grid: int = 64) -> np.ndarray:

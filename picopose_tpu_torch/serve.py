@@ -4,8 +4,8 @@ Counterpart of picopose_tpu/serve.py (``PoseResult`` :70, ``PoseEstimator``
 :81): load the model once, register object template banks, then call
 ``estimate(rgb, K, detections)`` per frame.
 
-    est = PoseEstimator(variables=flax_variables)      # or seeded weights
-    est.register_bank(1, bank)                         # eval/pipeline.build_bank
+    est = PoseEstimator("model.ckpt")   # or variables=flax_variables, or seeded weights
+    est.register_object(1, "templates/ycbv")           # or register_bank(1, bank)
     poses = est.estimate(rgb, K, [{"obj_id": 1, "mask": mask}])  # or RLE / bbox
     poses[0].R, poses[0].t, poses[0].score
 
@@ -24,9 +24,8 @@ either package loads in the other.
 Serving modes: bf16 weights are stored in bf16 (utils/precast.py) when
 the compute dtype is bf16; ``quantize_stage3`` runs the stage-3 convs in
 int8; PICOPOSE_MATCH_INT8=1 / PICOPOSE_MATCH_FP32=1 pick the matching
-operands (ops/matching.py).  Not ported here: ``register_object`` (it
-decodes template PNGs), checkpoint files (flax-layout ``variables`` are
-taken instead) and bank placement over several devices.
+operands (ops/matching.py).  Not ported here: bank placement over
+several devices.
 """
 
 from __future__ import annotations
@@ -41,6 +40,7 @@ from typing import Any, Mapping, Sequence
 import numpy as np
 import torch
 
+from picopose_tpu_torch.data.bop import load_template_views
 from picopose_tpu_torch.data.crops import (
     crop_and_normalize_rgb,
     crop_mask,
@@ -51,9 +51,11 @@ from picopose_tpu_torch.data.crops import (
 )
 from picopose_tpu_torch.data.rle import rle_to_mask
 from picopose_tpu_torch.device import full_fp32, resolve_device
-from picopose_tpu_torch.eval.pipeline import TemplateBank, run_batch
+from picopose_tpu_torch.eval.pipeline import TemplateBank, build_bank, run_batch
 from picopose_tpu_torch.models import PicoPose
+from picopose_tpu_torch.models.dinov2 import VIT_CONFIGS
 from picopose_tpu_torch.ops.preprocess import preprocess_frame
+from picopose_tpu_torch.utils.checkpoint import load_any
 from picopose_tpu_torch.utils.precast import precast_inference_params
 from picopose_tpu_torch.utils.weights import init_random_, load_flax_variables
 
@@ -94,11 +96,13 @@ class PoseEstimator:
 
     def __init__(
         self,
+        checkpoint: str | None = None,
         variables: Mapping[str, Any] | None = None,
         vit_type: str = "dinov2_vitl14",
         blocks_to_take: Sequence[int] = (5, 11, 17, 23),
         compute_dtype: str | torch.dtype = "bfloat16",
         hyp: int = 5,
+        n_template_view: int = 162,
         pnp_iters: int = 150,
         stage3_topk: int | None = None,
         quantize_stage3: bool = False,
@@ -112,8 +116,10 @@ class PoseEstimator:
         device_preprocess: bool = False,
         generator: torch.Generator | None = None,
     ):
-        """``variables``: the JAX package's flax variables (``params`` and
-        ``batch_stats`` as arrays); without them the weights are drawn from
+        """``checkpoint``: a reference PyTorch checkpoint (``.ckpt`` or
+        ``.pth``, utils/checkpoint.py); ``variables``, the JAX package's
+        flax variables (``params`` and ``batch_stats`` as arrays), take
+        precedence over it; with neither the weights are drawn from
         ``seed``, with a warning.  ``device``: the card unless "cpu" is
         passed (raises when no card is present).  ``generator``: the PnP
         draws' generator, on ``device`` (by default one seeded with
@@ -122,7 +128,7 @@ class PoseEstimator:
         dtype = _DTYPES[compute_dtype] if isinstance(compute_dtype, str) else compute_dtype
         self.model = PicoPose(vit_type, blocks_to_take, dtype, device=self.device,
                               quantize_stage3=quantize_stage3)
-        self.hyp, self.pnp_iters = hyp, pnp_iters
+        self.hyp, self.pnp_iters, self.n_template_view = hyp, pnp_iters, n_template_view
         self.stage3_topk, self.max_batch = stage3_topk, max_batch
         self.img_size, self.pts_size = img_size, pts_size
         self.min_mask_px, self.rgb_mask_flag = min_mask_px, rgb_mask_flag
@@ -131,6 +137,8 @@ class PoseEstimator:
             generator = torch.Generator(device=self.device).manual_seed(seed)
         self.generator = generator
         self._banks: dict[int, TemplateBank] = {}
+        if variables is None and checkpoint is not None:
+            variables = load_any(checkpoint, depth=VIT_CONFIGS[vit_type].depth)
         if variables is not None:
             load_flax_variables(self.model, variables)
         else:
@@ -140,6 +148,19 @@ class PoseEstimator:
             precast_inference_params(self.model)  # bitwise-identical bf16 weight storage
 
     # ---- object registration ---------------------------------------------
+
+    def register_object(self, obj_id: int, template_dir: str) -> None:
+        """Build and cache an object's bank from its rendered views
+        (<template_dir>/<obj:06d>/*.png and object_poses/<obj:06d>.npy,
+        data/bop.py::load_template_views)."""
+        tem = load_template_views(
+            template_dir, obj_id, self.n_template_view,
+            self.img_size, self.pts_size, self.rgb_mask_flag,
+        )
+        self._banks[obj_id] = build_bank(
+            self.model, tem["tem_rgb"], tem["tem_mask"], tem["tem_pts3d"],
+            tem["tem_pose"], tem["tem_K"], tem["tem_M"],
+        )
 
     def register_bank(self, obj_id: int, bank: TemplateBank) -> None:
         """Cache a prebuilt TemplateBank (eval/pipeline.py::build_bank) on

@@ -1,5 +1,7 @@
 """The PyTorch port stands alone: it imports neither JAX, flax nor the JAX
-package, and its entry points never fall back to the CPU on their own."""
+package, nor the host libraries the JAX package reads images, configs and
+checkpoints with (PIL, cv2, imageio, PyYAML, orbax), and its entry points
+never fall back to the CPU on their own."""
 
 import ast
 import os
@@ -12,6 +14,8 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.join(ROOT, "picopose_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "picopose_tpu")
+# host libraries of the JAX package that the port does without
+HOST_LIBRARIES = ("PIL", "cv2", "imageio", "yaml", "orbax")
 
 
 def _port_files():
@@ -40,14 +44,23 @@ def test_port_files_import_nothing_of_jax():
     assert not bad, bad
 
 
+@pytest.mark.parametrize("library", HOST_LIBRARIES)
+def test_port_files_import_no_host_library_of_the_jax_package(library):
+    bad = {os.path.relpath(f, ROOT) for f in _port_files() if library in set(_imported_roots(f))}
+    assert not bad, bad
+
+
 def test_import_leaves_jax_out_of_sys_modules():
     code = (
         "import sys, picopose_tpu_torch, picopose_tpu_torch.eval.pipeline, "
         "picopose_tpu_torch.utils.weights, picopose_tpu_torch.serve, "
         "picopose_tpu_torch.ops.preprocess, picopose_tpu_torch.ops.qconv, "
-        "picopose_tpu_torch.utils.precast; "
+        "picopose_tpu_torch.utils.precast, picopose_tpu_torch.run_test, "
+        "picopose_tpu_torch.eval.runner, picopose_tpu_torch.data.bop, picopose_tpu_torch.data.png, "
+        "picopose_tpu_torch.utils.checkpoint, picopose_tpu_torch.utils.config, "
+        "picopose_tpu_torch.utils.torch_export; "
         "print(sorted(m for m in sys.modules if m.split('.')[0] in "
-        f"{FORBIDDEN!r}))"
+        f"{FORBIDDEN + HOST_LIBRARIES!r}))"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run(
