@@ -76,9 +76,25 @@ Phases (any failure exits non-zero before the result line):
      RGBA views with 16-bit depth, two 960 x 1280 frames, 40 RLE
      detections) and a seeded ViT-L exported as a Lightning ``.ckpt``;
      ``picopose_tpu_torch.run_test.main`` runs twice in this process, with
-     the checks and times listed at ``eval_cli_phase``.
+     the checks and times listed at ``eval_cli_phase``;
+  8. the training step at full width (``train_phase``): ViT-L, bf16
+     compute with fp32 weights, batch 8 of synthetic sphere pairs at 224^2
+     (``data/synthetic.py``), AdamW as configs/base.yaml: the launches of
+     one step (96 LN, 48 attention, 3 corr-window and 3 warp in the
+     forward, none in the backward; with remat 96 LN and 48 attention
+     more in the backward), two identical steps and the backward ops that
+     make them differ, remat's loss (bitwise) and gradients and the peak
+     memory with and without it, one step through the kernels against the
+     same step through the plain dispatchers (loss terms, gradients by
+     parameter group), K1, K2, K4 and K5 at the step's shapes (group 1)
+     against their plain versions with device ms and bounds, 30 steps at
+     lr 3e-4 on the fixed batch (the loss below 0.9x its first), and the
+     step's times: ms per step and samples/s, forward / backward /
+     optimizer ms, the forward by layer, and a profile (device busy, idle
+     share, top kernels).
 Then the kernels as one JSON line (K3's int8 row with its launches from
-the int8-matching ``estimate``), the card line, and the result line.
+the int8-matching ``estimate``; each row's launches per training step as
+``train_launches``), the card line, and the result line.
 The script leaves PyTorch's TF32 flags at their defaults (cuDNN may take
 TF32 for fp32 convolutions): the package pins its fp32 work itself
 (``device.full_fp32``), and phase 5 checks that.  Inputs and weights
@@ -160,9 +176,9 @@ def device_ms(fn, inputs, iters: int = 20, floor_ms: float = 0.0, or_events: boo
     check(False, "the profiler saw the device time of every call")
 
 
-def timed(fn, inputs, iters: int = 20) -> tuple[float, float]:
+def timed(fn, inputs, iters: int = 20, floor_ms: float = 0.0) -> tuple[float, float]:
     """(device ms per call, ms per call back to back on the host clock)."""
-    return device_ms(fn, inputs, iters), cuda_ms(fn, inputs, iters)
+    return device_ms(fn, inputs, iters, floor_ms, or_events=True), cuda_ms(fn, inputs, iters)
 
 
 def bound(nbytes: float, flops: float, peak: float) -> tuple[float, str]:
@@ -170,75 +186,91 @@ def bound(nbytes: float, flops: float, peak: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_checks(g: torch.Generator) -> dict:
-    """Phase 2: every kernel at main-path shapes against its plain version."""
+def layernorm_row(g: torch.Generator, rows: int, tag: str = "kernel") -> dict:
+    """K1 on the bf16 residual stream at (rows, 257, 1024) against its plain
+    version, device ms of the kernel, the plain version and F.layer_norm,
+    per call back to back, and the bound."""
+    import torch.nn.functional as F
+
+    from picopose_tpu_torch.ops import layernorm as L
+
+    rn = lambda *s: torch.randn(*s, generator=g, device="cuda")
+    scale, bias = rn(1024) * 0.2 + 1, rn(1024) * 0.5
+    w16, b16 = scale.bfloat16(), bias.bfloat16()
+    n_sets = max(8, -(-120 * 2**20 // (rows * 257 * 1024 * 2)))  # rotated past the 50 MB L2
+    xs = [(rn(rows, 257, 1024) * 3 + 1.5).bfloat16() for _ in range(n_sets)]
+    args = [(x, scale, bias) for x in xs]
+    got, ref = L.layernorm_cuda(*args[0]), L.layernorm_plain(*args[0])
+    torch.cuda.synchronize()
+    # one bf16 rounding step apart at most: rtol 2^-7
+    torch.testing.assert_close(got.float(), ref.float(), atol=1e-3, rtol=2**-7)
+    bd = bound(2 * xs[0].numel() * 2 + 2 * 1024 * 4, 8 * xs[0].numel(), H100_FP32_FLOPS)
+    r = dict(
+        err=(got.float() - ref.float()).abs().max().item(), tol="atol 1e-3 + rtol 2^-7",
+        ms_call=cuda_ms(L.layernorm_cuda, args), plain_ms=device_ms(L.layernorm_plain, args, floor_ms=bd[0]),
+        bound=bd,
+    )
+    r["ms"], r["library_ms"], r["library_call"] = (
+        device_ms(L.layernorm_cuda, args, floor_ms=bd[0], or_events=True),
+        *timed(lambda x, s, b: F.layer_norm(x, (1024,), w16, b16, 1e-6), args, floor_ms=bd[0]),
+    )
+    print(f"[{tag}] layernorm ({rows}, 257, 1024) bf16: max_abs_err {r['err']!r}; device ms kernel {r['ms']!r}, "
+          f"plain {r['plain_ms']!r}, F.layer_norm {r['library_ms']!r}; per call back to back kernel "
+          f"{r['ms_call']!r}, F.layer_norm {r['library_call']!r}; bound {r['bound'][0]!r} ms")
+    return r
+
+
+def attention_row(g: torch.Generator, layout: str, B: int, tag: str = "kernel") -> dict:
+    """K2 on the ViT-L's bf16 attention (B, 16, 257, 64), contiguous or on
+    views of a (B, 257, 3, 16, 64) qkv projection, against its plain
+    version, device ms beside SDPA on the same tensors, and the bound."""
     import torch.nn.functional as F
 
     from picopose_tpu_torch.ops import attention as A
-    from picopose_tpu_torch.ops import layernorm as L
+
+    N, H, D = 257, 16, 64
+    rn = lambda *s: torch.randn(*s, generator=g, device="cuda")
+    sets = []
+    for _ in range(max(3, -(-120 * 2**20 // (3 * B * H * N * D * 2)))):  # rotated past L2
+        if layout == "contiguous":
+            sets.append(tuple(rn(B, H, N, D).bfloat16() for _ in range(3)))
+        else:
+            qkv = rn(B, N, 3, H, D).bfloat16()
+            sets.append(tuple(qkv[:, :, i].transpose(1, 2) for i in range(3)))
+    A.INPUT_COPIES.clear()
+    got, ref = A.attention_cuda(*sets[0]), A.attention_plain(*sets[0])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), ref.float(), atol=1e-2, rtol=2**-7)
+    check(not A.INPUT_COPIES, f"attention reads {layout} in place: {dict(A.INPUT_COPIES)}")
+    BH = B * H
+    bd = bound(4 * BH * N * D * 2, 4 * BH * N * N * D, H100_BF16_FLOPS)
+    r = dict(
+        err=(got.float() - ref.float()).abs().max().item(), tol="atol 1e-2 + rtol 2^-7",
+        ms_call=cuda_ms(A.attention_cuda, sets), plain_ms=device_ms(A.attention_plain, sets[:1], 5, bd[0]),
+        bound=bd,
+    )
+    r["ms"] = device_ms(A.attention_cuda, sets, floor_ms=bd[0], or_events=True)
+    r["library_ms"], r["library_call"] = timed(F.scaled_dot_product_attention, sets, floor_ms=bd[0])
+    print(f"[{tag}] attention ({B}, {H}, {N}, {D}) bf16 {layout}: max_abs_err {r['err']!r}; device ms "
+          f"kernel {r['ms']!r}, plain {r['plain_ms']!r}, SDPA {r['library_ms']!r}; per call back to back "
+          f"kernel {r['ms_call']!r}, SDPA {r['library_call']!r}; bound {r['bound'][0]!r} ms")
+    return r
+
+
+def kernel_checks(g: torch.Generator) -> dict:
+    """Phase 2: every kernel at main-path shapes against its plain version."""
     from picopose_tpu_torch.ops import matching as M
 
     dev = torch.device("cuda")
     rn = lambda *s: torch.randn(*s, generator=g, device=dev)
-    out = {}
-
-    # K1: LayerNorm of the bf16 residual stream, query batch and bank chunk
-    scale, bias = rn(1024) * 0.2 + 1, rn(1024) * 0.5
-    w16, b16 = scale.bfloat16(), bias.bfloat16()
-    for rows in (16, 32):
-        xs = [(rn(rows, 257, 1024) * 3 + 1.5).bfloat16() for _ in range(8)]  # 8 x >= 8.4 MB > 50 MB L2
-        args = [(x, scale, bias) for x in xs]
-        got, ref = L.layernorm_cuda(*args[0]), L.layernorm_plain(*args[0])
-        torch.cuda.synchronize()
-        # one bf16 rounding step apart at most: rtol 2^-7
-        torch.testing.assert_close(got.float(), ref.float(), atol=1e-3, rtol=2**-7)
-        r = dict(
-            err=(got.float() - ref.float()).abs().max().item(), tol="atol 1e-3 + rtol 2^-7",
-            ms_call=cuda_ms(L.layernorm_cuda, args), plain_ms=device_ms(L.layernorm_plain, args),
-            bound=bound(2 * xs[0].numel() * 2 + 2 * 1024 * 4, 8 * xs[0].numel(), H100_FP32_FLOPS),
-        )
-        r["ms"], r["library_ms"], r["library_call"] = (
-            device_ms(L.layernorm_cuda, args),
-            *timed(lambda x, s, b: F.layer_norm(x, (1024,), w16, b16, 1e-6), args),
-        )
-        print(f"[kernel] layernorm ({rows}, 257, 1024) bf16: device ms kernel {r['ms']!r}, "
-              f"F.layer_norm {r['library_ms']!r}; per call back to back kernel {r['ms_call']!r}, "
-              f"F.layer_norm {r['library_call']!r}; bound {r['bound'][0]!r} ms")
-        out.setdefault("layernorm", r)  # the query batch's shape goes in the JSON line
-        del xs, args, got, ref
-
-    # K2: the ViT-L's attention in bf16: contiguous (16, 16, 257, 64), then
-    # the main path's layout (views of a (B, N, 3, H, D) qkv projection) at
-    # the query batch (B = 16) and a bank chunk (B = 32); SDPA on the same
-    # tensors
-    N, H, D = 257, 16, 64
-    for layout, B in (("contiguous", 16), ("qkv views", 16), ("qkv views", 32)):
-        sets = []
-        for _ in range(3):  # 3 x >= 25 MB: rotated past L2
-            if layout == "contiguous":
-                sets.append(tuple(rn(B, H, N, D).bfloat16() for _ in range(3)))
-            else:
-                qkv = rn(B, N, 3, H, D).bfloat16()
-                sets.append(tuple(qkv[:, :, i].transpose(1, 2) for i in range(3)))
-        A.INPUT_COPIES.clear()
-        got, ref = A.attention_cuda(*sets[0]), A.attention_plain(*sets[0])
-        torch.cuda.synchronize()
-        torch.testing.assert_close(got.float(), ref.float(), atol=1e-2, rtol=2**-7)
-        check(not A.INPUT_COPIES, f"attention reads {layout} in place: {dict(A.INPUT_COPIES)}")
-        BH = B * H
-        r = dict(
-            err=(got.float() - ref.float()).abs().max().item(), tol="atol 1e-2 + rtol 2^-7",
-            ms_call=cuda_ms(A.attention_cuda, sets), plain_ms=device_ms(A.attention_plain, sets[:1], 5),
-            bound=bound(4 * BH * N * D * 2, 4 * BH * N * N * D, H100_BF16_FLOPS),
-        )
-        r["ms"] = device_ms(A.attention_cuda, sets)
-        r["library_ms"], r["library_call"] = timed(F.scaled_dot_product_attention, sets)
-        print(f"[kernel] attention ({B}, {H}, {N}, {D}) bf16 {layout}: max_abs_err {r['err']!r}; device ms "
-              f"kernel {r['ms']!r}, SDPA {r['library_ms']!r}; per call back to back kernel "
-              f"{r['ms_call']!r}, SDPA {r['library_call']!r}; bound {r['bound'][0]!r} ms")
-        if (layout, B) == ("qkv views", 16):
-            out["attention"] = r  # the main path's query batch goes in the JSON line
-        del sets, got, ref
+    # K1 at the query batch (its row goes in the JSON line) and a bank chunk;
+    # K2 contiguous, then on the main path's qkv views at the query batch
+    # (the JSON line's) and a bank chunk
+    out = {"layernorm": layernorm_row(g, 16)}
+    layernorm_row(g, 32)
+    attention_row(g, "contiguous", 16)
+    out["attention"] = attention_row(g, "qkv views", 16)
+    attention_row(g, "qkv views", 32)
 
     # K3: 16 queries against a 162-view bf16 bank (S = 256, C = 1024); each
     # query is a noisy copy of one view so the table has structure
@@ -451,9 +483,9 @@ def corr_timing(what: str, calls: list, tol: dict) -> dict:
 
 
 @torch.inference_mode()
-def corr_on_main_path(seen: list) -> dict:
+def corr_on_main_path(seen: list, what: str = "main-path centres") -> dict:
     """K4 on the flow decoder's inputs captured from one run_batch (its three
-    corr_lookup calls): the JSON line's K4 times."""
+    corr_lookup calls): the JSON line's K4 times; or from a training step."""
     from picopose_tpu_torch.geom.grids import pixel_coords_grid
     from picopose_tpu_torch.ops.resize import avg_pool2d
 
@@ -465,16 +497,17 @@ def corr_on_main_path(seen: list) -> dict:
         for i in range(L):
             pooled = pooled if i == 0 else avg_pool2d(pooled, 2)
             maps.append((pooled, i))
-        n = {16: 6, 32: 3}.get(G, 1)  # copies rotated per call: > 50 MB of L2
+        nbytes = (feat1.numel() + sum(m.numel() for m, _ in maps)) * feat1.element_size()
+        n = max({16: 6, 32: 3}.get(G, 1), -(-60 * 2**20 // nbytes))  # copies rotated per call: > 50 MB of L2
         calls.append([(feat1, maps, grid, radius, group)] + [
             (feat1.clone(), [(m.clone(), i) for m, i in maps], grid.clone(), radius, group) for _ in range(n - 1)])
-    return corr_timing("main-path centres", calls, dict(atol=1e-2, rtol=2**-7))
+    return corr_timing(what, calls, dict(atol=1e-2, rtol=2**-7))
 
 
 @torch.inference_mode()
-def warp_on_main_path(seen: list) -> dict:
+def warp_on_main_path(seen: list, what: str = "main-path centres") -> dict:
     """K5 on the flow decoder's inputs captured from one run_batch (its three
-    warp_by_flow calls): the JSON line's K5 times."""
+    warp_by_flow calls): the JSON line's K5 times; or from a training step."""
     from picopose_tpu_torch.geom.grids import pixel_coords_grid
 
     calls = []
@@ -482,9 +515,9 @@ def warp_on_main_path(seen: list) -> dict:
         B2, G, W, C = feat.shape
         cen = (pixel_coords_grid(G, W, device=flow.device) + flow.float()).reshape(flow.shape[0], G * W, 2)
         f = feat.reshape(B2, G * W, C)
-        n = {16: 6, 32: 3}.get(G, 1)  # copies rotated per call: > 50 MB of L2
+        n = max({16: 6, 32: 3}.get(G, 1), -(-60 * 2**20 // (f.numel() * f.element_size())))  # > 50 MB of L2
         calls.append([(f, cen, G, W, group)] + [(f.clone(), cen.clone(), G, W, group) for _ in range(n - 1)])
-    return warp_timing("main-path centres", calls)
+    return warp_timing(what, calls)
 
 
 def calm_stage3_heads_(model) -> None:
@@ -564,7 +597,9 @@ def profile_batch(run, top: int = 16) -> tuple[float, float, list]:
         wall_ms = (time.perf_counter() - t0) * 1e3
     tot_us = lambda e: getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
     averages = prof.key_averages()
-    events = [e for e in averages if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    # kernels only: a GPU user annotation (e.g. Optimizer.step) spans kernels counted on their own
+    events = [e for e in averages if e.device_type == DeviceType.CUDA and dev_us(e) > 0
+              and not getattr(e, "is_user_annotation", False)]
     busy_ms = sum(dev_us(e) for e in events) / 1e3
     conv_ms = sum(tot_us(e) for e in averages if e.key in ("aten::conv2d", "aten::conv_transpose2d")) / 1e3
     print(f"[profile] device busy {busy_ms!r} ms, convolutions {conv_ms!r} ms "
@@ -1532,6 +1567,342 @@ def eval_cli_phase(seed: int) -> None:
               f"median {float(np.median(alone[1:]))!r} ({alone[1:]!r})")
 
 
+TRAIN_GROUPS = ("feature_extractor", "affine_regressor", "dpt_head", "flow_decoder")
+
+
+def calm_scale_head_(model) -> None:
+    """Scale the stage-2 scale head's last layer by 0.01 and set its bias to
+    1, so every scale prediction starts near 1, as a trained model's do.
+    The seeded random head puts all eight predictions of the batch under
+    the loss's 5e-3 clamp, where the scale term (28 of the first step's 41)
+    has no gradient and the other terms' fall hides under it."""
+    with torch.no_grad():
+        last = model.affine_regressor.scale_predictor[4]
+        last.weight.mul_(0.01)
+        last.bias.fill_(1.0)
+TRAIN_LOSS_REL = 0.02  # each loss term, kernel path vs plain path (bf16 rounds at other points)
+TRAIN_REMAT_REL_RMS = 0.05  # gradients with remat vs without, per group
+
+
+def train_batch(B: int, seed: int) -> dict:
+    """B synthetic sphere pairs at 224^2 from the port's data/synthetic.py:
+    a template and a query view of one sphere from nearby viewpoints."""
+    from picopose_tpu_torch.data.synthetic import make_pose, make_view
+
+    rng = np.random.default_rng(seed)
+    pairs = []
+    for _ in range(B):
+        az, el = rng.uniform(-np.pi, np.pi), rng.uniform(-0.8, 0.8)
+        pairs.append(((az, el, rng.uniform(0.45, 0.6)),
+                      (az + rng.uniform(-0.3, 0.3), el + rng.uniform(-0.2, 0.2), rng.uniform(0.5, 0.7))))
+    batch = {}
+    for side, idx in (("tem", 0), ("real", 1)):
+        views = [make_view(make_pose(*p[idx]), 0.05) for p in pairs]
+        for key in ("rgb", "mask", "M", "K", "pose", "full_depth"):
+            batch[f"{side}_{key}"] = np.stack([getattr(v, key) for v in views])
+    return batch
+
+
+def rel_rms_by_group(got: dict, ref: dict) -> dict:
+    out = {}
+    for grp in TRAIN_GROUPS:
+        keys = [k for k in ref if k.startswith(grp)]
+        num = sum(float(((got[k].double() - ref[k].double()) ** 2).sum()) for k in keys)
+        den = sum(float((ref[k].double() ** 2).sum()) for k in keys)
+        out[grp] = (num / den) ** 0.5
+    return out
+
+
+def train_phase(seed: int) -> dict:
+    """Phase 8: the training step at full ViT-L width (dinov2_vitl14, taps
+    5/11/17/23, bf16 compute, fp32 weights from ``seed``), batch 8 of
+    synthetic sphere pairs at 224^2, AdamW with configs/base.yaml's settings
+    and WarmupCosineLR.  Returns the kernels' launches per training step."""
+    import picopose_tpu_torch.models.dinov2 as vit_module
+    import picopose_tpu_torch.models.flow as flow_module
+    from picopose_tpu_torch import kernels
+    from picopose_tpu_torch.ops import attention as A
+    from picopose_tpu_torch.ops import corr as CO
+    from picopose_tpu_torch.ops import layernorm as L
+    from picopose_tpu_torch.ops import sample as SA
+    from picopose_tpu_torch.train import step as ts
+    from picopose_tpu_torch.train.augment import draw_affine_noise
+    from picopose_tpu_torch.utils.weights import init_random_
+
+    dev = torch.device("cuda")
+    B = 8
+    t0 = time.perf_counter()
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in train_batch(B, seed).items()}
+    print(f"[train] {B} sphere pairs rendered at 224^2 in {time.perf_counter() - t0!r} s on the host")
+    model_kw = dict(vit_type="dinov2_vitl14", blocks_to_take=(5, 11, 17, 23), compute_dtype=torch.bfloat16)
+    tx = ts.make_optimizer()  # configs/base.yaml: AdamW lr 1e-5, betas (0.5, 0.999), eps 1e-6, wd 5e-4
+    noise_seed = seed + 8
+    noise = draw_affine_noise(B, torch.Generator(device=dev).manual_seed(noise_seed))
+    state = ts.init_state(tx, seed, **model_kw)
+    model = state.model
+    vit = model.feature_extractor.dinov2
+    check(model.device.type == "cuda" and model.training, "init_state: the model on the card, in train mode")
+
+    seen, warps = [], []
+    detach = lambda a: tuple(x.detach() if isinstance(x, torch.Tensor) else x for x in a)
+
+    def forward_backward(remat: bool, record: bool = False):
+        """One forward_train + backward from the model's weights (no update):
+        (losses, gradients by name, launches of the forward, of the backward,
+        peak GiB)."""
+        vit.remat = remat
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        lookup, warp = flow_module.corr_lookup, flow_module.warp_by_flow
+        if record:
+            def recording_lookup(*a, **kw):
+                seen.append((*detach(a), kw.get("group", 1)))
+                return lookup(*a, **kw)
+
+            def recording_warp(feat, flow, group=1):
+                warps.append((feat.detach(), flow.detach(), group))
+                return warp(feat, flow, group=group)
+
+            flow_module.corr_lookup, flow_module.warp_by_flow = recording_lookup, recording_warp
+        kernels.reset_launches()
+        try:
+            losses = ts.forward_train(model, batch, noise)
+        finally:
+            flow_module.corr_lookup, flow_module.warp_by_flow = lookup, warp
+        torch.cuda.synchronize()
+        fwd = dict(kernels.LAUNCHES)
+        kernels.reset_launches()
+        losses["loss"].backward()
+        torch.cuda.synchronize()
+        bwd = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        grads = {n: p.grad.detach().clone() for n, p in model.named_parameters() if p.grad is not None}
+        model.zero_grad(set_to_none=True)
+        vit.remat = False
+        return {k: v.detach() for k, v in losses.items()}, grads, fwd, bwd, peak
+
+    # 1. launches of one step; 5. remat; 6. repeatability
+    t0 = time.perf_counter()
+    l0, g0, fwd, bwd, peak = forward_backward(False, record=True)
+    first_s = time.perf_counter() - t0
+    print(f"[train] launches of one step without remat: forward {fwd}, backward {bwd} "
+          f"(first forward + backward {first_s!r} s)")
+    check(fwd == {"layernorm": 96, "attention": 48, "corr_window": 3, "warp": 3},
+          "the forward went through K1 (96), K2 (48), K4 (3) and K5 (3)")
+    check(not bwd, "the backward launched no kernel without remat")
+    check(all(bool(torch.isfinite(v)) for v in l0.values()), "every loss finite")
+    check(len(seen) == 3 and [s[4] for s in seen] == [1, 2, 3] and all(s[5] == 1 for s in seen),
+          "the decoder's three lookups were captured, group 1")
+    check([w[0].shape[1] for w in warps] == [16, 32, 64] and all(w[2] == 1 for w in warps),
+          "the decoder's three warps were captured, group 1")
+    print("[train] loss terms: " + ", ".join(f"{k} {float(v)!r}" for k, v in l0.items()))
+    l1, g1, *_ = forward_backward(False)
+    rep = rel_rms_by_group(g1, g0)
+    rep_abs = max(float((g1[k] - g0[k]).abs().max()) for k in g0)
+    print(f"[train] two identical steps: losses bitwise equal {all(torch.equal(l0[k], l1[k]) for k in l0)}, "
+          f"largest loss difference {max(abs(float(l0[k] - l1[k])) for k in l0)!r}; gradients bitwise equal "
+          f"{all(torch.equal(g0[k], g1[k]) for k in g0)}, largest difference {rep_abs!r}, relative RMS by "
+          f"group {rep!r}")
+    del g1
+    lr_, gr, fwd_r, bwd_r, peak_r = forward_backward(True)
+    rem = rel_rms_by_group(gr, g0)
+    print(f"[train] launches with remat: forward {fwd_r}, backward {bwd_r}; peak device memory GiB without "
+          f"remat {peak!r}, with {peak_r!r}")
+    print(f"[train] remat vs not: losses bitwise equal {all(torch.equal(l0[k], lr_[k]) for k in l0)}; gradient "
+          f"relative RMS by group {rem!r} (bound {TRAIN_REMAT_REL_RMS!r}; two identical steps {max(rep.values())!r})")
+    check(fwd_r == fwd and bwd_r == {"layernorm": 96, "attention": 48},
+          "remat: the backward recomputes the blocks through K1 (96) and K2 (48)")
+    check(all(torch.equal(l0[k], lr_[k]) for k in l0), "remat leaves the loss unchanged")
+    check(max(rem.values()) <= TRAIN_REMAT_REL_RMS, "remat gradients agree")
+    del gr
+
+    # where the run-to-run difference comes from: two steps with PyTorch's
+    # deterministic algorithms (here only, never in the package), then the
+    # candidate backward ops, each run twice on the same inputs
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        _, gd, *_ = forward_backward(False)
+        _, gd2, *_ = forward_backward(False)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    print(f"[train] two steps with torch.use_deterministic_algorithms(True, warn_only=True): gradients bitwise "
+          f"equal {all(torch.equal(gd[k], gd2[k]) for k in gd)}, largest difference "
+          f"{max(float((gd[k] - gd2[k]).abs().max()) for k in gd)!r}")
+    del gd, gd2
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 10)
+
+    def backward_spread(fn, *inputs):
+        """The largest difference between two backward passes of ``fn`` on the
+        same inputs and cotangent, over the largest gradient."""
+        outs = []
+        for _ in range(2):
+            xs = [x.detach().clone().requires_grad_() for x in inputs]
+            y = fn(*xs)
+            cot = torch.randn(y.shape, generator=torch.Generator(device=dev).manual_seed(1), device=dev).to(y.dtype)
+            outs.append(torch.autograd.grad(y, xs, cot))
+        return max(float((a.float() - b.float()).abs().max() / b.float().abs().max()) for a, b in zip(*outs))
+
+    f1, f2, fl = seen[2][:3]
+    ft, fw = warps[2][:2]
+    x = torch.randn(B, 640, 64, 64, generator=gen, device=dev).bfloat16().contiguous(memory_format=torch.channels_last)
+    w = (torch.randn(1024, 640, 3, 3, generator=gen, device=dev) * 0.02).bfloat16()
+    spreads = {
+        "corr_lookup 64^2, 3 levels (recomputed form: gather backward)":
+            backward_spread(lambda a, b, c: CO.corr_lookup(a, b, c, 2, 3, 1), f1, f2, fl),
+        "warp_by_flow 64^2 (recomputed form: index_select backward, index_add)":
+            backward_spread(lambda a, b: SA.warp_by_flow(a, b, 1), ft, fw),
+        "conv 640 -> 1024 3x3 at 64^2 bf16 (cuDNN dgrad + wgrad)":
+            backward_spread(lambda a, b: torch.nn.functional.conv2d(a, b, padding=1), x, w),
+    }
+    print(f"[train] one backward run twice on the same inputs, largest difference over the largest gradient: "
+          f"{spreads!r}")
+    del x, w
+
+    # 2. kernel path vs plain path: one step from the same state
+    init_random_(model, seed)
+    plain_state = ts.init_state(tx, seed, **model_kw)
+
+    def step_with_grads(st):
+        grads = {}
+
+        def keep(optimizer, args, kwargs):
+            grads.update({n: p.grad.detach().clone() for n, p in st.model.named_parameters()})
+
+        hook = st.optimizer.inner.register_step_pre_hook(keep)
+        try:
+            losses = ts.train_step(st, batch, noise)
+        finally:
+            hook.remove()
+        torch.cuda.synchronize()
+        return losses, grads
+
+    kernels.reset_launches()
+    lk, gk = step_with_grads(state)
+    check(dict(kernels.LAUNCHES) == fwd, "a train_step launches what its forward does")
+    plain_lookup = lambda f1, f2, fl, r, levels, group=1: CO._corr_lookup(f1, f2, fl, r, levels, group)
+    plain_warp = lambda feat, fl, group=1: SA._warp_by_flow(feat, fl, group)
+    with patched((vit_module, "layernorm", L.layernorm_plain), (vit_module, "attention", A.attention_plain),
+                 (CO, "corr_windows", CO.corr_windows_plain), (flow_module, "corr_lookup", plain_lookup),
+                 (SA, "warp", SA.warp_plain), (flow_module, "warp_by_flow", plain_warp)):
+        kernels.reset_launches()
+        lp, gp = step_with_grads(plain_state)
+    check(not kernels.LAUNCHES, "the plain step launched no kernel")
+    loss_rel = {k: abs(float(lk[k] - lp[k])) / max(abs(float(lp[k])), 1e-6) for k in lk}
+    grad_rel = rel_rms_by_group(gk, gp)
+    dparam = max(float((a.detach() - b.detach()).abs().max())
+                 for a, b in zip(model.parameters(), plain_state.model.parameters()))
+    dstat = max(float((a - b).abs().max()) for (n, a), (_, b) in zip(model.named_buffers(),
+                                                                       plain_state.model.named_buffers()))
+    print("[train] kernel path loss terms: " + ", ".join(f"{k} {float(v)!r}" for k, v in lk.items()))
+    print("[train] plain path loss terms: " + ", ".join(f"{k} {float(v)!r}" for k, v in lp.items()))
+    print(f"[train] kernel vs plain: loss terms relative difference max {max(loss_rel.values())!r} (bound "
+          f"{TRAIN_LOSS_REL!r}); gradient relative RMS by group {grad_rel!r} (bound {GRAD_REL_RMS!r}); after the "
+          f"step (lr(0) = {tx.schedule(0)!r}) largest parameter difference {dparam!r}, BatchNorm statistics {dstat!r}")
+    check(max(loss_rel.values()) <= TRAIN_LOSS_REL, "kernel-path losses agree with the plain path")
+    check(max(grad_rel.values()) <= GRAD_REL_RMS, "kernel-path gradients agree with the plain path")
+    check(all(bool(torch.isfinite(v).all()) for v in gk.values()), "every gradient finite")
+    check(all(any(float(v.abs().max()) > 0 for k, v in gk.items() if k.startswith(grp)) for grp in TRAIN_GROUPS),
+          "every parameter group has a non-zero gradient")
+    del plain_state, gk, gp, g0
+
+    # 3. K1, K2, K4 and K5 at the training step's shapes
+    g = torch.Generator(device=dev).manual_seed(seed + 9)
+    rows = {"layernorm": layernorm_row(g, B, "train"), "attention": attention_row(g, "qkv views", B, "train"),
+            "corr_window": corr_on_main_path(seen, "training step, group 1"),
+            "warp": warp_on_main_path(warps, "training step, group 1")}
+    del seen[:], warps[:]
+    for name, r in rows.items():
+        print(f"[train] {name} at the training shapes: max_abs_err {r['err']!r} ({r['tol']}), kernel {r['ms']!r} ms "
+              f"per launch, plain {r['plain_ms']!r} ms, library {r['library_ms']!r} ms, bound {r['bound'][0]!r} ms "
+              f"({r['bound'][1]})")
+
+    # 4. overfitting a fixed batch: 30 steps at lr 3e-4, the same noise every step
+    init_random_(model, seed)
+    calm_scale_head_(model)
+    fit = ts.TrainState(0, model, ts.make_optimizer(base_lr=3e-4, max_iters=10_000, warmup_iters=1).init(
+        model.parameters()))
+    w0 = vit.blocks[0].attn.qkv.weight.detach().clone()
+    s0 = model.flow_decoder.proj_bn[2].running_var.clone()
+    history = []
+    t0 = time.perf_counter()
+    for _ in range(30):
+        losses = ts.train_step(fit, batch, torch.Generator(device=dev).manual_seed(noise_seed))
+        history.append(float(losses["loss"]))
+    fit_s = time.perf_counter() - t0
+    print(f"[train] 30 steps at lr 3e-4 on one batch ({fit_s!r} s): loss {history!r}")
+    check(all(np.isfinite(history)), "every loss finite")
+    check(history[-1] < 0.9 * history[0], "the loss falls below 0.9 x its first value within 30 steps")
+    check(fit.step == 30 and fit.optimizer.scheduler.last_epoch == 30, "step counts 30 updates")
+    check(not torch.equal(w0, vit.blocks[0].attn.qkv.weight) and not torch.equal(s0, model.flow_decoder.proj_bn[2]
+          .running_var), "parameters and BatchNorm statistics changed")
+
+    # 7. times: ms per step, split into forward, backward and update, and by layer
+    steps = host_ms(lambda: ts.train_step(fit, batch, noise), 11)[1:]
+    med = float(np.median(steps))
+    parts = {"forward": [], "backward": [], "optimizer": []}
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = ts.forward_train(model, batch, noise)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        losses["loss"].backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        fit.optimizer.step()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for k, a, b in (("forward", t0, t1), ("backward", t1, t2), ("optimizer", t2, t3)):
+            parts[k].append((b - a) * 1e3)
+    layers = {}
+
+    def timed_call(name, fn):
+        def wrapped(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            layers.setdefault(name, []).append((time.perf_counter() - t) * 1e3)
+            return out
+        return wrapped
+
+    with patched((ts, "sample_keypoints", timed_call("GT keypoints", ts.sample_keypoints)),
+                 (model, "features", timed_call("ViT features (2 calls)", model.features)),
+                 (model, "stage2", timed_call("stage 2", model.stage2)),
+                 (model, "stage3", timed_call("stage 3 (DPT x 2 + flow decoder)", model.stage3))):
+        for _ in range(3):
+            layers.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ts.forward_train(model, batch, noise)["loss"].backward()
+            torch.cuda.synchronize()
+            total = (time.perf_counter() - t0) * 1e3
+            model.zero_grad(set_to_none=True)
+    vit.remat = True
+    remat_ms = float(np.median(host_ms(lambda: ts.train_step(fit, batch, noise), 6)[1:]))
+    vit.remat = False
+    print(f"[train] ms per step (median of 10 after a warm-up) {med!r} = {B / med * 1e3!r} samples/s; all "
+          f"{steps!r}; with remat (median of 5) {remat_ms!r}")
+    print("[train] forward / backward / optimizer ms, median of 5: "
+          + ", ".join(f"{k} {float(np.median(v))!r}" for k, v in parts.items()))
+    print(f"[train] forward by layer ms (synchronised around each, last of 3; forward + backward {total!r}): "
+          + ", ".join(f"{k} {sum(v)!r}" for k, v in layers.items()))
+    print("[profile] one training step:")
+    busy, conv, events = profile_batch(lambda: ts.train_step(fit, batch, noise), top=16)
+    print(f"[train] device busy {busy!r} ms of the {med!r} ms median step: idle share {1 - busy / med!r}; "
+          f"convolutions {conv!r} ms")
+    for name, match in (("K1", lambda k: "layernorm" in k), ("K2", lambda k: "attention_hopper" in k),
+                        ("K4", lambda k: "corr_tile_kernel" in k or "corr_f32_kernel" in k),
+                        ("K5", lambda k: "warp_kernel" in k)):
+        ms, n = count_kernels(events, match)
+        print(f"[train] {name} in the profiled step: {ms!r} ms over {n} launches")
+    del fit, state, model
+    return {"layernorm": 96, "attention": 48, "match_scores": 0, "match_scores_int8": 0,
+            "corr_window": 3, "warp": 3}
+
+
 def pnp_scene(rng, B: int, N: int):
     """(pts3d, pts2d, K, valid) CPU tensors: B poses, N model points each
     projected with 0.3 px noise, 30% of them moved anywhere in the image,
@@ -1663,6 +2034,9 @@ def main() -> int:
     t0 = time.perf_counter()
     eval_cli_phase(SEED)
     print(f"[phase] eval CLI {time.perf_counter() - t0!r} s")
+    t0 = time.perf_counter()
+    train_launches = train_phase(SEED)
+    print(f"[phase] training step {time.perf_counter() - t0!r} s")
 
     src = "picopose_tpu_torch/kernels/csrc/"
     replaces = {
@@ -1679,6 +2053,7 @@ def main() -> int:
         rows.append({
             "name": name, "route": "cuda", "source": src + source,
             "replaces": replaces[name], "launches": launches[name],
+            "train_launches": train_launches[name],
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r["library_ms"],

@@ -10,7 +10,9 @@ Shapes: B = instance batch, N = template views, HYP = hypotheses; the
 hypothesis axis is folded into the batch axis for stage 2.  Inputs may be
 numpy arrays or tensors; they are moved to the model's device.  Every
 entry point runs under ``device.full_fp32``: its fp32 products (stage 2,
-the geometry, PnP) take no TF32, whatever the process flags.
+the geometry, PnP) take no TF32, whatever the process flags.  The DPT
+head and the flow decoder run only on a model in ``.eval()`` (running
+BatchNorm statistics); a model left in ``.train()`` is refused.
 """
 
 from __future__ import annotations
@@ -53,6 +55,14 @@ def _to(x, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(x, device=device)
 
 
+def _eval_mode(model) -> None:
+    if model.training:
+        raise ValueError(
+            "the inference pipeline takes a model in eval mode (running BatchNorm statistics); "
+            "call model.eval() after training"
+        )
+
+
 def _take(bank_arr: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """Gather (N, ...) bank entries with (B, HYP) ids -> (B*HYP, ...)."""
     return bank_arr[ids.reshape(-1)]
@@ -71,6 +81,8 @@ def build_bank(
 ) -> TemplateBank:
     """Backbone taps (and DPT pyramids) of all N views, ``chunk`` views at a
     time to bound peak memory."""
+    if cache_dpt:
+        _eval_mode(model)
     dev = model.device
     rgb = _to(tem_rgb, dev)
     feats_chunks, dpt_chunks = [], []
@@ -154,6 +166,7 @@ def stage3_correspondences(
     the bank (or the DPT on its taps), the query pyramid once at B, the
     flow decoder seeded by the stage-2 affines ``pred_Ms`` (B*k3, 3, 3),
     and dense 2D-3D correspondences."""
+    _eval_mode(model)
     dev = model.device
     B, k3 = ids.shape
     init_flow, init_cert = init_correspondences(pred_Ms, _take(bank.mask, ids), grid=bank.feats[-1].shape[1])

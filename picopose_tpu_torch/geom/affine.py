@@ -1,6 +1,7 @@
-"""Batched 2D affine math on (x, y) pixel points: the pieces stage 2 uses.
+"""Batched 2D affine math on (x, y) pixel points: the pieces stage 2 uses,
+and the ground-truth targets training derives from two posed crops.
 
-Counterpart of picopose_tpu/geom/affine.py:18-151.  Matrices are
+Counterpart of picopose_tpu/geom/affine.py:18-219.  Matrices are
 (..., 3, 3) acting on homogeneous column vectors (x, y, 1).
 
 Everything here is fp32 geometry.  ``torch.matmul`` on fp32 CUDA tensors
@@ -14,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from picopose_tpu_torch.geom.rotation import rotation_2d
+from picopose_tpu_torch.geom.rotation import cos_sin, inplane_angle_zxy, rotation_2d
 
 # 2D translations predicted by the stage-2 head are in units of TRANS_SCALE px
 TRANS_SCALE = 14.0
@@ -121,4 +122,46 @@ def affine_from_prediction(
     target = tem_c + pred_translation * trans_scale
     out = M.clone()
     out[..., :2, 2] = target - moved
+    return out
+
+
+def relative_scale_inplane(
+    src_K: torch.Tensor, tar_K: torch.Tensor, src_pose: torch.Tensor, tar_pose: torch.Tensor,
+    src_M: torch.Tensor, tar_M: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Ground-truth relative 2D scale and in-plane angle, src crop -> tar
+    crop: scale = (src_z / tar_z) * (|tar_M| / |src_M|) / (src_f / tar_f);
+    inplane = the z angle (extrinsic 'zxy') of tar_R @ src_R^T, in
+    [0, 2 pi)."""
+    rel_z = src_pose[..., 2, 3] / tar_pose[..., 2, 3]
+    rel_crop = torch.linalg.vector_norm(tar_M[..., :2, 0], dim=-1) / torch.linalg.vector_norm(
+        src_M[..., :2, 0], dim=-1
+    )
+    rel_focal = src_K[..., 0, 0] / tar_K[..., 0, 0]
+    rel_R = mmul(tar_pose[..., :3, :3], src_pose[..., :3, :3].transpose(-1, -2))
+    inplane = inplane_angle_zxy(rel_R)
+    return rel_z * rel_crop / rel_focal, torch.remainder(inplane + 2.0 * torch.pi, 2.0 * torch.pi)
+
+
+def gt_translation_scale_inplane(src_K, tar_K, src_pose, tar_pose, src_M, tar_M):
+    """Stage-2 targets (translation (..., 2) in crop pixels, scale,
+    inplane): the translation moves the template's projected object
+    centre onto the query's; the loss divides it by ``TRANS_SCALE``."""
+    rel_scale, rel_inplane = relative_scale_inplane(src_K, tar_K, src_pose, tar_pose, src_M, tar_M)
+    tar_c = _center2d_in_crop(tar_pose, tar_K, tar_M)
+    src_c = _center2d_in_crop(src_pose, src_K, src_M)
+    return tar_c - src_c, rel_scale, rel_inplane
+
+
+def relative_affine(src_K, tar_K, src_pose, tar_pose, src_M, tar_M) -> torch.Tensor:
+    """Ground-truth src-crop -> tar-crop affine: the relative in-plane
+    rotation and scale, anchored so the template's projected centre lands
+    on the query's."""
+    rel_scale, rel_inplane = relative_scale_inplane(src_K, tar_K, src_pose, tar_pose, src_M, tar_M)
+    M = make_affine(rotation=rotation_2d(cos_sin(rel_inplane)), scale=rel_scale)
+    src_c = _center2d_in_crop(src_pose, src_K, src_M)
+    tar_c = _center2d_in_crop(tar_pose, tar_K, tar_M)
+    moved = apply_affine(M, src_c[..., None, :])[..., 0, :]
+    out = M.clone()
+    out[..., :2, 2] = tar_c - moved
     return out

@@ -9,7 +9,9 @@ attention through ops/attention.py (CUDA kernels on the card).
 stripped, NHWC, with no final LayerNorm.
 
 Parameters stay fp32 and are cast to the compute dtype at each op; the LN
-scale and bias enter the kernel in fp32.
+scale and bias enter the kernel in fp32.  ``remat`` recomputes each
+block's activations in the backward (``torch.utils.checkpoint``, as the JAX
+package's ``nn.remat``): the recompute launches K1 and K2 again.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from picopose_tpu_torch.models.layers import Conv2d, Linear
 from picopose_tpu_torch.ops.attention import attention
@@ -164,12 +167,13 @@ class Block(nn.Module):
 
 class DinoViT(nn.Module):
     """The transformer trunk.  ``forward`` returns the token stream after
-    each of the first ``depth`` blocks."""
+    each of the first ``depth`` blocks.  ``remat``: keep no block's
+    activations for the backward; recompute them there."""
 
-    def __init__(self, cfg: ViTConfig, compute_dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, cfg: ViTConfig, compute_dtype: torch.dtype = torch.bfloat16, remat: bool = False):
         super().__init__()
         c = cfg
-        self.cfg, self.compute_dtype = cfg, compute_dtype
+        self.cfg, self.compute_dtype, self.remat = cfg, compute_dtype, remat
         self.patch_embed = Conv2d(3, c.embed_dim, c.patch_size, stride=c.patch_size)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, c.embed_dim))
         self.pos_embed = nn.Parameter(torch.zeros(1, c.pos_grid * c.pos_grid + 1, c.embed_dim))
@@ -202,8 +206,9 @@ class DinoViT(nn.Module):
         x = torch.cat([cls, x], dim=1)
         x = x + self._interpolated_pos_embed(gh, gw).to(x.dtype)
         outputs = []
+        remat = self.remat and torch.is_grad_enabled()
         for blk in self.blocks[: c.depth if depth is None else depth]:
-            x = blk(x)
+            x = checkpoint(blk, x, use_reentrant=False) if remat else blk(x)
             outputs.append(x)
         return outputs
 
@@ -218,11 +223,12 @@ class FeatureExtractor(nn.Module):
         vit_type: str = "dinov2_vitl14",
         blocks_to_take: Sequence[int] = (5, 11, 17, 23),
         compute_dtype: torch.dtype = torch.bfloat16,
+        remat: bool = False,
     ):
         super().__init__()
         self.cfg = VIT_CONFIGS[vit_type]
         self.blocks_to_take = tuple(blocks_to_take)
-        self.dinov2 = DinoViT(self.cfg, compute_dtype)
+        self.dinov2 = DinoViT(self.cfg, compute_dtype, remat)
 
     def forward(self, images: torch.Tensor) -> list[torch.Tensor]:
         c = self.cfg

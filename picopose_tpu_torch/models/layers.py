@@ -37,7 +37,18 @@ class ConvTranspose2d(nn.ConvTranspose2d):
 
 
 class BatchNorm2d(nn.Module):
-    """Eval-mode BatchNorm over NCHW with running statistics."""
+    """BatchNorm over NCHW with flax's semantics (momentum 0.9).
+
+    In ``.eval()`` it normalises with the running statistics.  In
+    ``.train()`` it normalises with the batch's fp32 statistics (the biased
+    variance E[x^2] - E[x]^2, clamped at 0; gradients flow through both)
+    and moves the running statistics by ``ra = 0.9 ra + 0.1 batch``, the
+    variance biased too, where ``nn.BatchNorm2d`` would store the unbiased
+    one.  A module called twice in a step (the shared DPT head, each
+    level's ``proj_bn``) updates them twice, in call order.
+    """
+
+    momentum = 0.9
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -49,8 +60,18 @@ class BatchNorm2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = (slice(None), None, None)
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = (x.float() - self.running_mean[c]) * mul[c] + self.bias[c]
+        xf = x.float()
+        if self.training:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[c]) * mul[c] + self.bias[c]
         return y.to(x.dtype)
 
 

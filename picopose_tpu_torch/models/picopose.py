@@ -34,7 +34,14 @@ class PicoPose(nn.Module):
     ``quantize_stage3``
     (int8 stage-3 convs, ops/qconv.py) and ``fuse_xheads`` select the flow
     decoder's path over the same parameters (picopose_tpu/models/
-    picopose.py:42-57)."""
+    picopose.py:42-57); ``remat_vit`` recomputes the ViT blocks'
+    activations in the backward (a training memory saver).
+
+    The module starts in ``.eval()``.  In ``.train()`` its BatchNorms (DPT
+    head, flow decoder) normalise with batch statistics and update their
+    running ones, as the JAX methods' ``train=True`` does; the ViT and
+    stage 2 have no BatchNorm.  The inference pipeline refuses a module in
+    train mode."""
 
     def __init__(
         self,
@@ -44,13 +51,14 @@ class PicoPose(nn.Module):
         device: str | torch.device | None = None,
         quantize_stage3: bool = False,
         fuse_xheads: bool = True,
+        remat_vit: bool = False,
     ):
         super().__init__()
         self.device = resolve_device(device)
         self.compute_dtype = compute_dtype
         cfg = VIT_CONFIGS[vit_type]
         with self.device:
-            self.feature_extractor = FeatureExtractor(vit_type, blocks_to_take, compute_dtype)
+            self.feature_extractor = FeatureExtractor(vit_type, blocks_to_take, compute_dtype, remat_vit)
             self.affine_regressor = AffineRegressor()
             self.dpt_head = DPTHead(in_channels=cfg.embed_dim)
             self.flow_decoder = FlowDecoder(quantize_stage3, fuse_xheads)

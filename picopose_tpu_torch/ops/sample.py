@@ -110,10 +110,14 @@ def warp_by_flow_reference(feat: torch.Tensor, flow: torch.Tensor, group: int = 
     x0, y0 = torch.floor(x), torch.floor(y)
     wx, wy = (x - x0).to(feat.dtype)[..., None], (y - y0).to(feat.dtype)[..., None]
     b2 = (torch.arange(flow.shape[0], device=feat.device) // group)[:, None, None]
+    rows = feat.reshape(B2 * H * W, C)
 
     def tap(yi, xi):
+        # index_select, whose backward (index_add) sums in a fixed order on
+        # the CPU; advanced indexing's backward adds atomically there
         ok = (xi >= 0) & (xi <= W - 1) & (yi >= 0) & (yi <= H - 1)
-        v = feat[b2, yi.clamp(0, H - 1).long(), xi.clamp(0, W - 1).long()]
+        idx = (b2 * H + yi.clamp(0, H - 1).long()) * W + xi.clamp(0, W - 1).long()
+        v = rows.index_select(0, idx.reshape(-1)).reshape(*idx.shape, C)
         return v * ok[..., None].to(feat.dtype)
 
     top = tap(y0, x0) * (1 - wx) + tap(y0, x0 + 1) * wx

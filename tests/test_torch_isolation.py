@@ -58,7 +58,10 @@ def test_import_leaves_jax_out_of_sys_modules():
         "picopose_tpu_torch.utils.precast, picopose_tpu_torch.run_test, "
         "picopose_tpu_torch.eval.runner, picopose_tpu_torch.data.bop, picopose_tpu_torch.data.png, "
         "picopose_tpu_torch.utils.checkpoint, picopose_tpu_torch.utils.config, "
-        "picopose_tpu_torch.utils.torch_export; "
+        "picopose_tpu_torch.utils.torch_export, picopose_tpu_torch.train.step, "
+        "picopose_tpu_torch.train.loop, picopose_tpu_torch.train.keypoints, "
+        "picopose_tpu_torch.train.losses, picopose_tpu_torch.train.augment, "
+        "picopose_tpu_torch.geom.projection, picopose_tpu_torch.data.synthetic; "
         "print(sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN + HOST_LIBRARIES!r}))"
     )
@@ -84,6 +87,20 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
     model = PicoPose("vit_tiny_test", (0, 1, 2, 3), torch.float32, device="cpu")
     assert model.device.type == "cpu"
     assert next(model.parameters()).device.type == "cpu"
+
+
+def test_training_needs_a_card_unless_cpu_is_asked(monkeypatch):
+    from picopose_tpu_torch.train import step
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    small = dict(vit_type="vit_tiny_test", blocks_to_take=(0, 1, 2, 3), compute_dtype=torch.float32)
+    tx = step.make_optimizer()
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            step.init_state(tx, device=device, **small)
+    state = step.init_state(tx, device="cpu", **small)
+    assert state.step == 0 and state.model.training and state.model.device.type == "cpu"
+    assert all(p.device.type == "cpu" for group in state.optimizer.inner.param_groups for p in group["params"])
 
 
 def test_pose_estimator_needs_a_card_unless_cpu_is_asked(monkeypatch):

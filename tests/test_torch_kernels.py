@@ -40,6 +40,8 @@ from picopose_tpu_torch.ops import matching as M
 from picopose_tpu_torch.ops import sample as S
 from picopose_tpu_torch.utils.weights import init_random_
 
+TRAIN_B = 8  # configs/base.yaml train_dataloader.bs
+
 
 @pytest.fixture
 def cuda_device():
@@ -557,3 +559,80 @@ def test_layernorm_kernel_at_vit_widths(cuda_device, dtype, C):
     assert got.dtype == dtype
     tol = dict(atol=1e-5, rtol=0) if dtype == torch.float32 else dict(atol=1e-3, rtol=2**-7)
     torch.testing.assert_close(got.float(), L.layernorm_plain(x, scale, bias).float(), **tol)
+
+
+def _levels_and_grids(g, device):
+    """The flow decoder's lookups and warps at a training step: (G, pyramid
+    levels) 16^2 / 1, 32^2 / 2, 64^2 / 3, B = 8, C = 256, group 1, bf16,
+    every input requiring grad."""
+    for G, levels in ((16, 1), (32, 2), (64, 3)):
+        feat = lambda: torch.randn(TRAIN_B, G, G, 256, generator=g, device=device).bfloat16().requires_grad_()
+        flow = (_smooth_grid(g, TRAIN_B, G, device) - pixel_coords_grid(G, G, device=device)).requires_grad_()
+        yield G, levels, feat(), feat(), flow
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["layernorm", "attention", "corr_window", "warp"])
+def test_kernels_at_training_shapes(cuda_device, name, monkeypatch):
+    """K1 at (8, 257, 1024), K2 on the qkv views at B = 8, K4 and K5 at the
+    decoder's three levels at group 1, bf16: each forward against its plain
+    version (one bf16 step) and its gradients against the plain path's."""
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    rn = lambda *shape: torch.randn(*shape, generator=g, device=cuda_device)
+    calls = []
+    if name == "layernorm":
+        x = (rn(TRAIN_B, 257, 1024) * 3 + 1.5).bfloat16().requires_grad_()
+        scale, bias = (rn(1024) * 0.2 + 1).requires_grad_(), (rn(1024) * 0.5).requires_grad_()
+        calls.append(((x, scale, bias), lambda: L.layernorm(x, scale, bias), lambda: L.layernorm_plain(x, scale, bias)))
+    elif name == "attention":
+        qkv = rn(TRAIN_B, 257, 3, 16, 64).bfloat16().requires_grad_()
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        calls.append(((qkv,), lambda: A.attention(q, k, v), lambda: A.attention_plain(q, k, v)))
+    else:
+        for G, levels, f1, f2, flow in _levels_and_grids(g, cuda_device):
+            if name == "corr_window":
+                calls.append(((f1, f2, flow), lambda f1=f1, f2=f2, fl=flow, n=levels: CO.corr_lookup(f1, f2, fl, 2, n, 1),
+                              lambda f1=f1, f2=f2, fl=flow, n=levels: CO._corr_lookup(f1, f2, fl, 2, n, 1)))
+            else:
+                calls.append(((f2, flow), lambda f=f2, fl=flow: S.warp_by_flow(f, fl, 1),
+                              lambda f=f2, fl=flow: S._warp_by_flow(f, fl, 1)))
+    for inputs, kernel, plain in calls:
+        kernels.reset_launches()
+        out = kernel()
+        with monkeypatch.context() as m:
+            m.setattr(CO, "corr_windows", CO.corr_windows_plain)
+            m.setattr(S, "warp", S.warp_plain)
+            ref = plain()
+        torch.testing.assert_close(out.float(), ref.float(), **_bf16_tol(torch.bfloat16))
+        _check_grads(out, inputs, ref, torch.bfloat16, name, 1)
+
+
+@pytest.mark.cuda
+def test_train_step_launches_on_the_card(cuda_device):
+    """One ``train_step`` at vit_tiny_test width (4 blocks, batch 2 of
+    synthetic sphere pairs): the forward launches K1 (2 per block per
+    ``features`` call), K2, K4 and K5 (3 each), the backward none; with
+    remat the backward recomputes the blocks through K1 and K2 again."""
+    from picopose_tpu_torch.data.synthetic import make_pose, make_view
+    from picopose_tpu_torch.train import step as ts
+
+    views = {"tem": [make_view(make_pose(0.3 * i, 0.4, 0.45)) for i in range(2)],
+             "real": [make_view(make_pose(0.3 * i + 0.15, 0.5, 0.6)) for i in range(2)]}
+    batch = {f"{side}_{key}": np.stack([getattr(v, key) for v in vs])
+             for side, vs in views.items() for key in ("rgb", "mask", "M", "K", "pose", "full_depth")}
+    for remat in (False, True):
+        state = ts.init_state(ts.make_optimizer(), 0, vit_type="vit_tiny_test", blocks_to_take=(0, 1, 2, 3),
+                              remat_vit=remat)
+        noise = torch.Generator(device=cuda_device).manual_seed(1)
+        kernels.reset_launches()
+        losses = ts.forward_train(state.model, batch, noise)
+        torch.cuda.synchronize()
+        assert dict(kernels.LAUNCHES) == {"layernorm": 16, "attention": 8, "corr_window": 3, "warp": 3}
+        kernels.reset_launches()
+        losses["loss"].backward()
+        torch.cuda.synchronize()
+        assert dict(kernels.LAUNCHES) == ({"layernorm": 16, "attention": 8} if remat else {})
+        assert all(bool(torch.isfinite(v)) for v in losses.values())
+        before = state.model.feature_extractor.dinov2.blocks[0].attn.qkv.weight.detach().clone()
+        state.optimizer.step()
+        assert not torch.equal(before, state.model.feature_extractor.dinov2.blocks[0].attn.qkv.weight)
