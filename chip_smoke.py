@@ -91,10 +91,23 @@ Phases (any failure exits non-zero before the result line):
      lr 3e-4 on the fixed batch (the loss below 0.9x its first), and the
      step's times: ms per step and samples/s, forward / backward /
      optimizer ms, the forward by layer, and a profile (device busy, idle
-     share, top kernels).
+     share, top kernels);
+  9. the training loop at full width (``loop_phase``): a MegaPose-GSO tree
+     written with the script's own encoders (48 640 x 480 JPEG frames from
+     ``jpeg_bytes``, two objects x 162 RGBA + depth template views), the
+     port's JPEG decoder on its frames (PSNR, ms per frame), the loader
+     alone (pool start-up, batches/s), the step alone and the loop's times
+     in a fresh interpreter (``loop_timing``: a process that has profiled
+     stays slower on the host), ``run_training`` in this process with the
+     launches of every step (96 LN, 48 attention, 3 corr-window, 3 warp), a
+     profile of ten steps and the checkpoint's bytes, save and restore, one
+     loop batch's step through the kernels against the plain path, and
+     ``python -m picopose_tpu_torch.run_train`` for 2 epochs of 10 steps
+     (checkpoints at 10 and 20) and ``--resume`` to step 30.
 Then the kernels as one JSON line (K3's int8 row with its launches from
 the int8-matching ``estimate``; each row's launches per training step as
-``train_launches``), the card line, and the result line.
+``train_launches`` and per loop step as ``loop_launches``), the card line,
+and the result line.
 The script leaves PyTorch's TF32 flags at their defaults (cuDNN may take
 TF32 for fp32 convolutions): the package pins its fp32 work itself
 (``device.full_fp32``), and phase 5 checks that.  Inputs and weights
@@ -106,6 +119,7 @@ thousands of correspondences per hypothesis, as a trained model gives it.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1408,7 +1422,8 @@ def eval_cli_phase(seed: int) -> None:
             rec = {k: [] for k in ("loaded", "decoded", "ids", "rb_ms", "rb_args", "tem_ms", "bank_ev",
                                    "bank_host_ms", "wait_ms", "eval_s", "busy_ms")}
             fns = {name: getattr(mod, name) for mod, name in (
-                (run_test, "load_flax_variables"), (bop_module, "read_png"), (runner, "run_batch"),
+                (run_test, "load_flax_variables"), (bop_module, "read_png"), (bop_module, "read_image"),
+                (runner, "run_batch"),
                 (runner, "load_template_views"), (runner, "build_bank"), (run_test, "evaluate_dataset"),
                 (runner, "_stream_batches"))}
 
@@ -1416,10 +1431,12 @@ def eval_cli_phase(seed: int) -> None:
                 fns["load_flax_variables"](model, variables)
                 rec["loaded"].append({k: v.detach().clone() for k, v in model.state_dict().items()})
 
-            def decode(path):
-                arr = fns["read_png"](path)
-                rec["decoded"].append((path, image_digest(arr)))
-                return arr
+            def decoder(name):  # template views go through read_png, frames through read_image
+                def decode(path):
+                    arr = fns[name](path)
+                    rec["decoded"].append((path, image_digest(arr)))
+                    return arr
+                return decode
 
             def one_batch(*a, **kw):
                 t = time.perf_counter()
@@ -1474,7 +1491,8 @@ def eval_cli_phase(seed: int) -> None:
             cwd = os.getcwd()
             os.chdir(root)  # the CSV goes under ./log
             try:
-                with patched((run_test, "load_flax_variables", load), (bop_module, "read_png", decode),
+                with patched((run_test, "load_flax_variables", load), (bop_module, "read_png", decoder("read_png")),
+                             (bop_module, "read_image", decoder("read_image")),
                              (runner, "run_batch", one_batch), (runner, "load_template_views", templates),
                              (runner, "build_bank", bank), (run_test, "evaluate_dataset", evaluate),
                              (runner, "_stream_batches", stream)), \
@@ -1613,11 +1631,77 @@ def rel_rms_by_group(got: dict, ref: dict) -> dict:
     return out
 
 
+def step_kernel_vs_plain(state, plain_state, batch, noise, launches: dict, tag: str) -> dict:
+    """One train_step of ``state`` through the kernels (its launches must be
+    ``launches``) and of ``plain_state`` (the same weights) through the plain
+    dispatchers, on the same batch and noise: loss terms within
+    TRAIN_LOSS_REL and gradients by parameter group within GRAD_REL_RMS
+    relative RMS, every gradient finite and every group's non-zero.
+    Returns the kernel path's gradients."""
+    import picopose_tpu_torch.models.dinov2 as vit_module
+    import picopose_tpu_torch.models.flow as flow_module
+    from picopose_tpu_torch import kernels
+    from picopose_tpu_torch.ops import attention as A
+    from picopose_tpu_torch.ops import corr as CO
+    from picopose_tpu_torch.ops import layernorm as L
+    from picopose_tpu_torch.ops import sample as SA
+    from picopose_tpu_torch.train import step as ts
+
+    lrs = []
+
+    def step_with_grads(st):
+        grads = {}
+
+        def keep(optimizer, args, kwargs):
+            grads.update({n: p.grad.detach().clone() for n, p in st.model.named_parameters()})
+            lrs.append(optimizer.param_groups[0]["lr"])
+
+        hook = st.optimizer.inner.register_step_pre_hook(keep)
+        try:
+            losses = ts.train_step(st, batch, noise)
+        finally:
+            hook.remove()
+        torch.cuda.synchronize()
+        return losses, grads
+
+    kernels.reset_launches()
+    lk, gk = step_with_grads(state)
+    check(dict(kernels.LAUNCHES) == launches, f"{tag} a train_step launches {launches}")
+    plain_lookup = lambda f1, f2, fl, r, levels, group=1: CO._corr_lookup(f1, f2, fl, r, levels, group)
+    plain_warp = lambda feat, fl, group=1: SA._warp_by_flow(feat, fl, group)
+    with patched((vit_module, "layernorm", L.layernorm_plain), (vit_module, "attention", A.attention_plain),
+                 (CO, "corr_windows", CO.corr_windows_plain), (flow_module, "corr_lookup", plain_lookup),
+                 (SA, "warp", SA.warp_plain), (flow_module, "warp_by_flow", plain_warp)):
+        kernels.reset_launches()
+        lp, gp = step_with_grads(plain_state)
+    check(not kernels.LAUNCHES, f"{tag} the plain step launched no kernel")
+    loss_rel = {k: abs(float(lk[k] - lp[k])) / max(abs(float(lp[k])), 1e-6) for k in lk}
+    grad_rel = rel_rms_by_group(gk, gp)
+    model = state.model
+    dparam = max(float((a.detach() - b.detach()).abs().max())
+                 for a, b in zip(model.parameters(), plain_state.model.parameters()))
+    dstat = max(float((a - b).abs().max()) for (n, a), (_, b) in zip(model.named_buffers(),
+                                                                       plain_state.model.named_buffers()))
+    print(f"{tag} kernel path loss terms: " + ", ".join(f"{k} {float(v)!r}" for k, v in lk.items()))
+    print(f"{tag} plain path loss terms: " + ", ".join(f"{k} {float(v)!r}" for k, v in lp.items()))
+    print(f"{tag} kernel vs plain: loss terms relative difference max {max(loss_rel.values())!r} (bound "
+          f"{TRAIN_LOSS_REL!r}); gradient relative RMS by group {grad_rel!r} (bound {GRAD_REL_RMS!r}); after the "
+          f"step (lr {lrs[0]!r}) largest parameter difference {dparam!r}, "
+          f"BatchNorm statistics {dstat!r}")
+    check(max(loss_rel.values()) <= TRAIN_LOSS_REL, f"{tag} kernel-path losses agree with the plain path")
+    check(max(grad_rel.values()) <= GRAD_REL_RMS, f"{tag} kernel-path gradients agree with the plain path")
+    check(all(bool(torch.isfinite(v).all()) for v in gk.values()), f"{tag} every gradient finite")
+    check(all(any(float(v.abs().max()) > 0 for k, v in gk.items() if k.startswith(grp)) for grp in TRAIN_GROUPS),
+          f"{tag} every parameter group has a non-zero gradient")
+    return gk
+
+
 def train_phase(seed: int) -> dict:
     """Phase 8: the training step at full ViT-L width (dinov2_vitl14, taps
     5/11/17/23, bf16 compute, fp32 weights from ``seed``), batch 8 of
     synthetic sphere pairs at 224^2, AdamW with configs/base.yaml's settings
-    and WarmupCosineLR.  Returns the kernels' launches per training step."""
+    and WarmupCosineLR.  Returns the kernels' launches per training step and
+    the median ms per step."""
     import picopose_tpu_torch.models.dinov2 as vit_module
     import picopose_tpu_torch.models.flow as flow_module
     from picopose_tpu_torch import kernels
@@ -1762,50 +1846,8 @@ def train_phase(seed: int) -> dict:
 
     # 2. kernel path vs plain path: one step from the same state
     init_random_(model, seed)
-    plain_state = ts.init_state(tx, seed, **model_kw)
-
-    def step_with_grads(st):
-        grads = {}
-
-        def keep(optimizer, args, kwargs):
-            grads.update({n: p.grad.detach().clone() for n, p in st.model.named_parameters()})
-
-        hook = st.optimizer.inner.register_step_pre_hook(keep)
-        try:
-            losses = ts.train_step(st, batch, noise)
-        finally:
-            hook.remove()
-        torch.cuda.synchronize()
-        return losses, grads
-
-    kernels.reset_launches()
-    lk, gk = step_with_grads(state)
-    check(dict(kernels.LAUNCHES) == fwd, "a train_step launches what its forward does")
-    plain_lookup = lambda f1, f2, fl, r, levels, group=1: CO._corr_lookup(f1, f2, fl, r, levels, group)
-    plain_warp = lambda feat, fl, group=1: SA._warp_by_flow(feat, fl, group)
-    with patched((vit_module, "layernorm", L.layernorm_plain), (vit_module, "attention", A.attention_plain),
-                 (CO, "corr_windows", CO.corr_windows_plain), (flow_module, "corr_lookup", plain_lookup),
-                 (SA, "warp", SA.warp_plain), (flow_module, "warp_by_flow", plain_warp)):
-        kernels.reset_launches()
-        lp, gp = step_with_grads(plain_state)
-    check(not kernels.LAUNCHES, "the plain step launched no kernel")
-    loss_rel = {k: abs(float(lk[k] - lp[k])) / max(abs(float(lp[k])), 1e-6) for k in lk}
-    grad_rel = rel_rms_by_group(gk, gp)
-    dparam = max(float((a.detach() - b.detach()).abs().max())
-                 for a, b in zip(model.parameters(), plain_state.model.parameters()))
-    dstat = max(float((a - b).abs().max()) for (n, a), (_, b) in zip(model.named_buffers(),
-                                                                       plain_state.model.named_buffers()))
-    print("[train] kernel path loss terms: " + ", ".join(f"{k} {float(v)!r}" for k, v in lk.items()))
-    print("[train] plain path loss terms: " + ", ".join(f"{k} {float(v)!r}" for k, v in lp.items()))
-    print(f"[train] kernel vs plain: loss terms relative difference max {max(loss_rel.values())!r} (bound "
-          f"{TRAIN_LOSS_REL!r}); gradient relative RMS by group {grad_rel!r} (bound {GRAD_REL_RMS!r}); after the "
-          f"step (lr(0) = {tx.schedule(0)!r}) largest parameter difference {dparam!r}, BatchNorm statistics {dstat!r}")
-    check(max(loss_rel.values()) <= TRAIN_LOSS_REL, "kernel-path losses agree with the plain path")
-    check(max(grad_rel.values()) <= GRAD_REL_RMS, "kernel-path gradients agree with the plain path")
-    check(all(bool(torch.isfinite(v).all()) for v in gk.values()), "every gradient finite")
-    check(all(any(float(v.abs().max()) > 0 for k, v in gk.items() if k.startswith(grp)) for grp in TRAIN_GROUPS),
-          "every parameter group has a non-zero gradient")
-    del plain_state, gk, gp, g0
+    gk = step_kernel_vs_plain(state, ts.init_state(tx, seed, **model_kw), batch, noise, fwd, "[train]")
+    del gk, g0
 
     # 3. K1, K2, K4 and K5 at the training step's shapes
     g = torch.Generator(device=dev).manual_seed(seed + 9)
@@ -1899,6 +1941,501 @@ def train_phase(seed: int) -> dict:
         ms, n = count_kernels(events, match)
         print(f"[train] {name} in the profiled step: {ms!r} ms over {n} launches")
     del fit, state, model
+    launches = {"layernorm": 96, "attention": 48, "match_scores": 0, "match_scores_int8": 0,
+                "corr_window": 3, "warp": 3}
+    return launches, med
+
+
+# Annex K.1 quantisation tables (natural order) and K.3 Huffman tables, for
+# the MegaPose frames of phase 9 (the port reads them with data/jpeg.py)
+JPEG_QUANT = (
+    np.array([16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55, 14, 13, 16, 24, 40, 57, 69, 56,
+              14, 17, 22, 29, 51, 87, 80, 62, 18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+              49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99]),
+    np.array([17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99, 24, 26, 56, 99, 99, 99, 99, 99,
+              47, 66, 99, 99, 99, 99, 99, 99] + [99] * 32),
+)
+_AC_LUMA = bytes.fromhex(
+    "01020300041105122131410613516107227114328191a1082342b1c11552d1f02433627282090a161718191a25262728"
+    "292a3435363738393a434445464748494a535455565758595a636465666768696a737475767778797a83848586878889"
+    "8a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2"
+    "e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8f9fa")
+_AC_CHROMA = bytes.fromhex(
+    "000102031104052131061241510761711322328108144291a1b1c109233352f0156272d10a162434e125f11718191a"
+    "262728292a35363738393a434445464748494a535455565758595a636465666768696a737475767778797a8283848586"
+    "8788898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9"
+    "dae2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8f9fa")
+JPEG_HUFFMAN = {  # (class, id): (counts of codes of length 1..16, symbols)
+    (0, 0): (bytes([0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0]), bytes(range(12))),
+    (0, 1): (bytes([0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0]), bytes(range(12))),
+    (1, 0): (bytes([0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7D]), _AC_LUMA),
+    (1, 1): (bytes([0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77]), _AC_CHROMA),
+}
+ZIGZAG = np.array([0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33, 40, 48, 41, 34, 27,
+                   20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51, 58,
+                   59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
+
+
+def _codes(counts: bytes, symbols: bytes) -> tuple[np.ndarray, np.ndarray]:
+    """Canonical Huffman codes: (code, length) per symbol value 0..255."""
+    code_of, len_of = np.zeros(256, np.int64), np.zeros(256, np.int64)
+    code, k = 0, 0
+    for n in range(1, 17):
+        for _ in range(counts[n - 1]):
+            code_of[symbols[k]], len_of[symbols[k]] = code, n
+            code, k = code + 1, k + 1
+        code <<= 1
+    return code_of, len_of
+
+
+def jpeg_bytes(rgb: np.ndarray, quality: int = 95) -> bytes:
+    """Baseline JFIF bytes of an (H, W, 3) uint8 image: YCbCr 4:2:0 (chroma
+    averaged over 2 x 2), a float DCT, the Annex K quantisation tables scaled
+    for ``quality`` as libjpeg scales them, and the Annex K Huffman tables;
+    the Huffman symbols and their bits are laid out for the whole image at
+    once in numpy."""
+    import struct
+
+    H, W = rgb.shape[:2]
+    scale = 5000 / quality if quality < 50 else 200 - 2 * quality
+    quant = [np.clip((q * scale + 50) // 100, 1, 255) for q in JPEG_QUANT]
+    x = rgb.astype(np.float64)
+    y = 0.299 * x[..., 0] + 0.587 * x[..., 1] + 0.114 * x[..., 2]
+    cb = -0.168736 * x[..., 0] - 0.331264 * x[..., 1] + 0.5 * x[..., 2] + 128
+    cr = 0.5 * x[..., 0] - 0.418688 * x[..., 1] - 0.081312 * x[..., 2] + 128
+    Hp, Wp = -(-H // 16) * 16, -(-W // 16) * 16
+    pad = lambda p: np.pad(p, ((0, Hp - H), (0, Wp - W)), mode="edge")
+    y, cb, cr = pad(y), pad(cb), pad(cr)
+    sub = lambda p: p.reshape(Hp // 2, 2, Wp // 2, 2).mean(axis=(1, 3))
+    planes = [y, sub(cb), sub(cr)]
+    n = np.arange(8)
+    dct = np.sqrt(np.where(n[:, None] == 0, 1 / 8, 2 / 8)) * np.cos((2 * n[None, :] + 1) * n[:, None] * np.pi / 16)
+    blocks = []  # per component: (rows, cols, 64) zigzag, quantised
+    for ci, p in enumerate(planes):
+        b = p.reshape(p.shape[0] // 8, 8, p.shape[1] // 8, 8).transpose(0, 2, 1, 3) - 128.0
+        coef = np.einsum("uy,rcyx,vx->rcuv", dct, b, dct).reshape(b.shape[0], b.shape[1], 64)
+        blocks.append(np.round(coef / quant[min(ci, 1)])[..., ZIGZAG].astype(np.int64))
+    my, mx = Hp // 16, Wp // 16
+    yb = blocks[0].reshape(my, 2, mx, 2, 64).transpose(0, 2, 1, 3, 4).reshape(my, mx, 4, 64)
+    mcu = np.concatenate([yb, blocks[1][:, :, None], blocks[2][:, :, None]], axis=2).reshape(-1, 64)
+    comp = np.tile([0, 0, 0, 0, 1, 2], my * mx)
+    # DC differences per component, in block order
+    dc = mcu[:, 0].copy()
+    for c in range(3):
+        sel = comp == c
+        dc[sel] = np.diff(np.concatenate([[0], mcu[sel, 0]]))
+    size_of = lambda v: np.where(v == 0, 0, np.floor(np.log2(np.maximum(np.abs(v), 1))).astype(np.int64) + 1)
+    extra = lambda v, s: np.where(v >= 0, v, v + (1 << s) - 1)
+    table = np.minimum(comp, 1)
+    codes = {k: _codes(*v) for k, v in JPEG_HUFFMAN.items()}
+    nb = len(mcu)
+    # items: (block, order key, code, code length, extra bits, extra length)
+    s = size_of(dc)
+    dcode = np.where(table == 0, codes[0, 0][0][s], codes[0, 1][0][s])
+    dlen = np.where(table == 0, codes[0, 0][1][s], codes[0, 1][1][s])
+    items = [(np.arange(nb), np.zeros(nb, np.int64), dcode, dlen, extra(dc, s), s)]
+    b, k = np.nonzero(mcu[:, 1:])
+    k = k + 1
+    first = np.r_[True, b[1:] != b[:-1]]
+    prev = np.where(first, 0, np.r_[0, k[:-1]])
+    run = k - prev - 1
+    v = mcu[b, k]
+    s = size_of(v)
+    sym = (run % 16) * 16 + s
+    tb = table[b]
+    acode = lambda sy, t: np.where(t == 0, codes[1, 0][0][sy], codes[1, 1][0][sy])
+    alen = lambda sy, t: np.where(t == 0, codes[1, 0][1][sy], codes[1, 1][1][sy])
+    items.append((b, 2 * k, acode(sym, tb), alen(sym, tb), extra(v, s), s))
+    nz = run // 16  # ZRL symbols before the coefficient
+    zb, zk = np.repeat(b, nz), np.repeat(2 * k - 1, nz)
+    zt = table[zb]
+    items.append((zb, zk, acode(np.full_like(zb, 0xF0), zt), alen(np.full_like(zb, 0xF0), zt), 0 * zb, 0 * zb))
+    last = np.zeros(nb, np.int64)
+    np.maximum.at(last, b, k)
+    eb = np.flatnonzero(last < 63)
+    et = table[eb]
+    items.append((eb, np.full_like(eb, 200), acode(0 * eb, et), alen(0 * eb, et), 0 * eb, 0 * eb))
+    blk, key, code, clen, ext, elen = (np.concatenate(a) for a in zip(*items))
+    order = np.lexsort((key, blk))
+    value = (code[order] << elen[order]) | (ext[order] & ((1 << elen[order]) - 1))
+    nbits = (clen + elen)[order]
+    # the bits, most significant first, then 1-padding to a byte
+    total = int(nbits.sum())
+    starts = np.cumsum(nbits) - nbits
+    within = np.arange(total) - np.repeat(starts, nbits)
+    bits = (np.repeat(value, nbits) >> (np.repeat(nbits, nbits) - 1 - within)) & 1
+    bits = np.concatenate([bits, np.ones(-total % 8, np.int64)]).astype(np.uint8)
+    data = np.packbits(bits).tobytes().replace(b"\xff", b"\xff\x00")
+    seg = lambda marker, payload: struct.pack(">BBH", 0xFF, marker, len(payload) + 2) + payload
+    out = [b"\xff\xd8", seg(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")]
+    for t, q in enumerate(quant):
+        out.append(seg(0xDB, bytes([t]) + bytes(q[ZIGZAG].astype(np.uint8))))
+    out.append(seg(0xC0, struct.pack(">BHHB", 8, H, W, 3) + bytes([1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1])))
+    for (tc, th), (counts, symbols) in JPEG_HUFFMAN.items():
+        out.append(seg(0xC4, bytes([tc << 4 | th]) + counts + symbols))
+    out.append(seg(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0])))
+    return b"".join(out) + data + b"\xff\xd9"
+
+
+MP_FRAMES, MP_HW, MP_OBJECTS = 48, (480, 640), (1, 2)
+MP_K = np.array([[600.0, 0.0, 320.0], [0.0, 600.0, 240.0], [0.0, 0.0, 1.0]])
+SPHERE_RADIUS = 0.1  # meters
+LOOP_STEPS = 12  # the in-process loop: 1 warm-up step, 10 profiled, 1 more
+LOOP_PROFILED = range(1, 11)
+LOOP_TIMED = 40  # the loop timed in a fresh interpreter; the median over its last 30 steps
+
+
+def megapose_world(root: str, seed: int) -> dict:
+    """A MegaPose-GSO tree under ``root`` in the layout
+    picopose_tpu/data/megapose.py reads, written with this script's own
+    encoders: MP_FRAMES 640 x 480 JPEG frames (q95, 4:2:0) of one or two
+    textured spheres (objects 1 and 2; object 2 with its colour channels
+    reversed) in front of a procedural background, each with 16-bit depth
+    (mm), mask_visib RLEs, gt, gt_info and camera JSON; and per object a
+    level-1 bank of 162 RGBA views and depth PNGs at 640 x 480 with
+    TEMPLATES_K and object_poses from the port's geom/templates.py, at the
+    GSO x10 scale (picopose_tpu/data/megapose.py:245-247).  Returns the
+    root and, for a few frames, the pixels that were encoded."""
+    from picopose_tpu_torch.data.bop import TEMPLATES_K
+    from picopose_tpu_torch.data.synthetic import _texture, render_sphere
+    from picopose_tpu_torch.geom.templates import template_object_poses
+
+    rng = np.random.default_rng(seed)
+    web = os.path.join(root, "MegaPose-GSO", "train_pbr_web")
+    shard = os.path.join(web, "shard-000000")
+    os.makedirs(shard)
+    H, W = MP_HW
+    yy, xx = np.mgrid[:H, :W]
+    keys, encoded = {}, {}
+    for i in range(MP_FRAMES):
+        n = 1 + int(rng.random() < 0.5)
+        objs = [int(o) for o in rng.choice(MP_OBJECTS, n, replace=False)]
+        background = np.stack([70 + 40 * np.sin(xx / (19 + 4 * c) + i) * np.cos(yy / (23 - 3 * c))
+                               for c in range(3)], -1) / 255.0
+        depth, rgb, renders = np.full((H, W), np.inf), background, []
+        for j, obj in enumerate(objs):
+            q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+            pose = np.eye(4)
+            pose[:3, :3] = q * np.sign(np.linalg.det(q))
+            pose[:3, 3] = [(-0.12 if j == 0 else 0.12) * (n - 1) + rng.uniform(-0.05, 0.05),
+                           rng.uniform(-0.06, 0.06), rng.uniform(0.45, 0.8)]
+            col, d, m = render_sphere(MP_K, pose, SPHERE_RADIUS, MP_HW)
+            col = col if obj == 1 else col[..., ::-1]
+            front = (m > 0) & (d < depth)
+            depth, rgb = np.where(front, d, depth), np.where(front[..., None], col, rgb)
+            renders.append((obj, pose, d, m))
+        depth = np.where(np.isinf(depth), 0.0, depth)
+        rgb8 = (rgb * 255).astype(np.uint8)
+        key = f"{i:08d}"
+        keys[key] = 0
+        base = os.path.join(shard, key)
+        with open(base + ".rgb.jpg", "wb") as f:
+            f.write(jpeg_bytes(rgb8, 95))
+        if i < 8:
+            encoded[base + ".rgb.jpg"] = rgb8
+        with open(base + ".depth.png", "wb") as f:
+            f.write(png_bytes(np.round(depth * 1000.0).astype(np.uint16)))
+        masks, gt, gt_info = {}, [], []
+        for j, (obj, pose, d, m) in enumerate(renders):
+            vis = ((m > 0) & (d <= depth)).astype(np.uint8)
+            masks[str(j)] = rle_string(vis)
+            gt.append({"obj_id": obj, "cam_R_m2c": pose[:3, :3].reshape(-1).tolist(),
+                       "cam_t_m2c": (pose[:3, 3] * 1000.0).tolist()})
+            gt_info.append({"px_count_valid": int(vis.sum()), "visib_fract": float(vis.sum() / max(m.sum(), 1))})
+        for name, obj in (("mask_visib", masks), ("gt", gt), ("gt_info", gt_info),
+                          ("camera", {"cam_K": MP_K.reshape(-1).tolist(), "depth_scale": 1.0})):
+            with open(f"{base}.{name}.json", "w") as f:
+                json.dump(obj, f)
+    with open(os.path.join(web, "key_to_shard.json"), "w") as f:
+        json.dump(keys, f)
+
+    # every template view sees its sphere 1 m ahead at the same place: one
+    # hit map, textured per view
+    tdir = os.path.join(root, "MegaPose-Templates", "GSO")
+    os.makedirs(os.path.join(tdir, "object_poses"))
+    table = template_object_poses(1)  # mm
+    first = table[0].copy()
+    first[:3, 3] /= 1000.0
+    K = TEMPLATES_K.astype(np.float64)
+    _, tdepth, tmask = render_sphere(K, first, SPHERE_RADIUS, MP_HW)
+    ys, xs = np.nonzero(tmask)
+    p_cam = (np.stack([xs + 0.5, ys + 0.5, np.ones_like(xs)], -1) @ np.linalg.inv(K).T) * tdepth[ys, xs, None]
+    depth_png = png_bytes(np.round(tdepth * 10000.0).astype(np.uint16))  # mm x 10
+    for obj in MP_OBJECTS:
+        odir = os.path.join(tdir, f"{obj:06d}")
+        os.makedirs(odir)
+        np.save(os.path.join(tdir, "object_poses", f"{obj:06d}.npy"), table * np.array([1, 1, 1, 10.0]))
+        for v, pose in enumerate(table):
+            tex = _texture((p_cam - pose[:3, 3] / 1000.0) @ pose[:3, :3], SPHERE_RADIUS)
+            rgba = np.zeros((H, W, 4), np.uint8)
+            rgba[ys, xs, :3] = ((tex if obj == 1 else tex[..., ::-1]) * 255).astype(np.uint8)
+            rgba[ys, xs, 3] = 255
+            with open(os.path.join(odir, f"{v:06d}.png"), "wb") as f:
+                f.write(png_bytes(rgba))
+            with open(os.path.join(odir, f"{v:06d}_depth.png"), "wb") as f:
+                f.write(depth_png)
+    return {"root": root, "encoded": encoded}
+
+
+def loop_log(log_dir: str) -> tuple[list[str], list[float]]:
+    """The training log's line heads ("iter 5", "epoch 0 done at iter 10")
+    and every loss value it holds."""
+    heads, losses = [], []
+    with open(os.path.join(log_dir, "training_logger.log")) as f:
+        for line in f:
+            body = line.split("] ", 1)[1].rstrip("\n")
+            heads.append(body.split(" |")[0])
+            losses += [float(t.split(": ")[1]) for t in body.split(" | ")[-1].split(", ")]
+    return heads, losses
+
+
+def loop_timing(config: str, overrides: list, log_dir: str, seed: int) -> dict:
+    """The loop's host-clock times, taken in an interpreter that has never
+    run torch.profiler: once it has run, the host stays slower for the rest
+    of the process (PERF.md §6, PR 9), so ``loop_phase`` runs this in a
+    fresh one.  One loader batch's ``train_step`` alone (median of 10 after
+    a warm-up), then ``run_training`` for LOOP_TIMED steps, each step end to
+    step end with a synchronise, split into the time between steps
+    (logging, waiting for the uploaded batch) and in ``train_step``."""
+    from picopose_tpu_torch import kernels
+    from picopose_tpu_torch.data.megapose import MegaPoseTrainingDataset, collate
+    from picopose_tpu_torch.train import loop
+    from picopose_tpu_torch.train import step as ts
+    from picopose_tpu_torch.train.augment import draw_affine_noise
+    from picopose_tpu_torch.utils.config import load_config
+
+    kernels.build()
+    cfg = load_config(config, overrides + ["trainer.training_epoch=1", f"lr_scheduler.max_iters={LOOP_TIMED}",
+                                           "trainer.iters_to_print=10"])
+    d, bs, dev = cfg.train_dataset, cfg.train_dataloader.bs, torch.device("cuda")
+    ds = MegaPoseTrainingDataset(d.data_dir, d.img_size, d.min_visib_fract, d.min_px_count_visib, d.augment_real,
+                                 d.rgb_mask_flag, seed=seed)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in collate([ds.get(i) for i in range(bs)]).items()}
+    state = ts.init_state(ts.make_optimizer(), seed, **loop._model_kwargs(cfg))
+    noise = draw_affine_noise(bs, torch.Generator(device=dev).manual_seed(seed))
+    alone = host_ms(lambda: ts.train_step(state, batch, noise), 11)[1:]
+    del state, batch
+    torch.cuda.empty_cache()
+    real_step = loop.train_step
+    rec = {"ms": [], "wait_ms": [], "step_ms": []}
+    clock = [None]
+
+    def step(state, batch, noise):
+        entry = time.perf_counter()
+        losses = real_step(state, batch, noise)
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        if clock[0] is not None:
+            rec["ms"].append((now - clock[0]) * 1e3)
+            rec["wait_ms"].append((entry - clock[0]) * 1e3)
+            rec["step_ms"].append((now - entry) * 1e3)
+        clock[0] = now
+        return losses
+
+    with patched((loop, "train_step", step), (loop.ckpt, "save", lambda *a: None)):
+        loop.run_training(cfg, log_dir, max_steps=LOOP_TIMED)
+    return {"alone_ms": alone, **rec}
+
+
+def loop_phase(seed: int, step_ms_alone: float) -> dict:
+    """Phase 9: the training loop at full ViT-L width on a MegaPose tree
+    (``megapose_world``) with configs/base.yaml (bf16, batch 8, AdamW,
+    WarmupCosineLR, colour augmentation on, worker processes): the JPEG
+    decoder on the script's frames; the loader alone; ``loop_timing`` in a
+    fresh interpreter; ``run_training`` in this process for LOOP_STEPS
+    steps with each step's launches and a profile of ten steps, the
+    checkpoint's save and restore; one loop batch's step through the
+    kernels against the plain path; then
+    ``python -m picopose_tpu_torch.run_train`` for 2 epochs of 10 steps and
+    ``--resume`` for one more.  Everything is written to a temporary
+    directory in the checkout, removed at the end (at most two train-state
+    files, ~4.5 GB each, exist at a time).  Returns the kernels' launches
+    per loop step."""
+    import shutil
+    import tempfile
+
+    from picopose_tpu_torch import kernels
+    from picopose_tpu_torch.data.jpeg import read_jpeg
+    from picopose_tpu_torch.train import loop
+    from picopose_tpu_torch.train import step as ts
+    from picopose_tpu_torch.train.augment import draw_affine_noise
+    from picopose_tpu_torch.utils import checkpoint as ckpt
+    from picopose_tpu_torch.utils.config import load_config
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    config = os.path.join(here, "configs", "base.yaml")
+    tmp = tempfile.mkdtemp(prefix="loop_phase_", dir=here)
+    try:
+        t0 = time.perf_counter()
+        world = megapose_world(os.path.join(tmp, "mp"), seed)
+        data = world["root"]
+        print(f"[loop] MegaPose tree ({MP_FRAMES} JPEG frames, 2 x 162 template views) written in "
+              f"{time.perf_counter() - t0!r} s; os.cpu_count() {os.cpu_count()}")
+
+        # the decoder on the script's own frames
+        ms, psnr = [], []
+        for path, pixels in world["encoded"].items():
+            t0 = time.perf_counter()
+            got = read_jpeg(path)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            check(got.shape == pixels.shape and got.dtype == np.uint8, "read_jpeg: a 480 x 640 RGB uint8 frame")
+            psnr.append(10 * np.log10(255.0**2 / np.mean((got.astype(np.float64) - pixels) ** 2)))
+        print(f"[loop] JPEG decode ms per 640 x 480 q95 4:2:0 frame: median {float(np.median(ms))!r}, all {ms!r}; "
+              f"PSNR against the encoded pixels dB {psnr!r}")
+        check(min(psnr) > 35.0, "read_jpeg of the script's frames within 35 dB PSNR of the encoded pixels")
+
+        overrides = [f"train_dataset.data_dir={data}", "train_dataloader.backend=procs"]
+        cfg = load_config(config, overrides + ["trainer.training_epoch=1", f"lr_scheduler.max_iters={LOOP_STEPS}",
+                                               "trainer.iters_to_print=6"])
+        bs, workers = cfg.train_dataloader.bs, cfg.train_dataloader.num_workers
+        check(bs == 8 and cfg.model.vit_type == "dinov2_vitl14" and cfg.model.compute_dtype == "bfloat16"
+              and cfg.train_dataset.augment_real and cfg.optimizer.type == "AdamW", "base.yaml's training setup")
+
+        # the loader alone: pool start-up, then batches/s
+        d = cfg.train_dataset
+        ds_kwargs = dict(data_dir=d.data_dir, img_size=d.img_size, min_visib_fract=d.min_visib_fract,
+                         min_px_count_visib=d.min_px_count_visib, augment_real=d.augment_real,
+                         rgb_mask_flag=d.rgb_mask_flag)
+        n_batches = 2 * workers + 4
+        t0 = time.perf_counter()
+        batches = loop.mp_prefetch_batches(ds_kwargs, bs, steps=n_batches, workers=workers, seed=seed)
+        first = next(batches)
+        startup = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rest = sum(1 for _ in batches)
+        rate = rest / (time.perf_counter() - t0)
+        check(rest == n_batches - 1 and first["real_rgb"].shape == (bs, 224, 224, 3), "the loader's batches")
+        print(f"[loop] loader alone ({workers} worker processes, batch {bs}): pool start-up and first batch "
+              f"{startup!r} s, then {rate!r} batches/s = {rate * bs!r} samples/s over {rest} batches")
+
+        # the loop's times, in a fresh interpreter
+        env = {**os.environ, "PYTHONPATH": here}
+        code = ("import json, chip_smoke; print('LOOP_TIMING', json.dumps(chip_smoke.loop_timing("
+                f"{config!r}, {overrides!r}, {os.path.join(tmp, 'log_timing')!r}, {seed})))")
+        r = subprocess.run([sys.executable, "-c", code], cwd=here, env=env, capture_output=True, text=True,
+                           timeout=900)
+        if r.returncode != 0:
+            print(r.stdout[-3000:], r.stderr[-6000:], file=sys.stderr)
+        check(r.returncode == 0, "the loop's timing run exits 0")
+        timing = json.loads(r.stdout.split("LOOP_TIMING ", 1)[1].splitlines()[0])
+        alone = float(np.median(timing["alone_ms"]))
+        steady = slice(LOOP_TIMED - 31, None)  # the last 30 steps: past the pool's first wave of batches
+        med = float(np.median(timing["ms"][steady]))
+        print(f"[loop] in a fresh interpreter: train_step alone on a loader batch {alone!r} ms = "
+              f"{bs / alone * 1e3!r} samples/s (median of 10; all {timing['alone_ms']!r}); ms per step inside "
+              f"run_training (step end to step end, synchronised; median of the last 30 of {LOOP_TIMED}) {med!r} = "
+              f"{bs / med * 1e3!r} samples/s; of which between steps (logging, waiting for the uploaded batch) "
+              f"{float(np.median(timing['wait_ms'][steady]))!r} ms, in train_step "
+              f"{float(np.median(timing['step_ms'][steady]))!r} ms; all {[round(x, 1) for x in timing['ms']]!r}")
+        print(f"[loop] phase 8's step alone in this process, after it has profiled: {step_ms_alone!r} ms = "
+              f"{bs / step_ms_alone * 1e3!r} samples/s")
+
+        # run_training in this process, each step instrumented
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        real_step, real_save = loop.train_step, ckpt.save
+        rec = {"launches": [], "saves": [], "state": None, "batch": None}
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+        def step(state, batch, noise):
+            i = len(rec["launches"])
+            if i == LOOP_PROFILED.start:
+                prof.start()
+            kernels.reset_launches()
+            losses = real_step(state, batch, noise)
+            rec["launches"].append(dict(kernels.LAUNCHES))
+            if i == LOOP_PROFILED.stop - 1:
+                torch.cuda.synchronize()
+                prof.stop()
+            if i == 3:
+                rec["batch"] = {k: torch.as_tensor(v).clone() for k, v in batch.items()}
+            rec["state"] = state
+            return losses
+
+        def save(log_dir, step_, state, epoch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = real_save(log_dir, step_, state, epoch)
+            rec["saves"].append((time.perf_counter() - t0, os.path.getsize(path), path))
+            return path
+
+        log_dir = os.path.join(tmp, "log_in_process")
+        t0 = time.perf_counter()
+        with patched((loop, "train_step", step), (loop.ckpt, "save", save)):
+            loop.run_training(cfg, log_dir, max_steps=LOOP_STEPS)
+        run_s = time.perf_counter() - t0
+        want = {"layernorm": 96, "attention": 48, "corr_window": 3, "warp": 3}
+        print(f"[loop] launches per loop step: {rec['launches'][0]} (the same in all {len(rec['launches'])}: "
+              f"{all(x == rec['launches'][0] for x in rec['launches'])})")
+        check(len(rec["launches"]) == LOOP_STEPS and all(x == want for x in rec["launches"]),
+              "every loop step went through K1 (96), K2 (48), K4 (3) and K5 (3)")
+        heads, losses = loop_log(log_dir)
+        check(heads == [f"iter {k}" for k in range(6, LOOP_STEPS + 1, 6)] + [f"epoch 0 done at iter {LOOP_STEPS}"]
+              and all(np.isfinite(losses)), "the in-process run's log: iteration lines, the epoch line, finite losses")
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and dev_us(e) > 0
+                  and not getattr(e, "is_user_annotation", False)]
+        busy = sum(dev_us(e) for e in events) / 1e3 / len(LOOP_PROFILED)
+        print(f"[loop] device busy {busy!r} ms per step over {len(LOOP_PROFILED)} profiled loop steps: idle share "
+              f"{1 - busy / med!r} of the fresh interpreter's median loop step; the run {run_s!r} s")
+        for e in sorted(events, key=dev_us, reverse=True)[:8]:
+            print(f"[profile] {dev_us(e) / 1e3 / len(LOOP_PROFILED)!r} ms per step x{e.count} {e.key[:100]}")
+        save_s, nbytes, path = rec["saves"][-1]
+        check(len(rec["saves"]) == 1 and path.endswith(f"{LOOP_STEPS}.pt"), "the run saved once, at its last step")
+        state = rec["state"]
+        before = {k: v.clone() for k, v in list(state.model.state_dict().items())[:8]}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.restore(log_dir, None, state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check(state.step == LOOP_STEPS and all(torch.equal(v, state.model.state_dict()[k]) for k, v in before.items()),
+              "the restored state is the saved one")
+        print(f"[loop] checkpoint {nbytes} bytes, save {save_s!r} s, restore {restore_s!r} s")
+        shutil.rmtree(log_dir)
+        batch = rec["batch"]
+        del rec, state, before
+
+        # one loop batch's step, kernel path against plain path
+        tx = ts.make_optimizer()
+        model_kw = dict(vit_type="dinov2_vitl14", blocks_to_take=(5, 11, 17, 23), compute_dtype=torch.bfloat16)
+        noise = draw_affine_noise(bs, torch.Generator(device="cuda").manual_seed(seed + 9))
+        step_kernel_vs_plain(ts.init_state(tx, seed, **model_kw), ts.init_state(tx, seed, **model_kw), batch,
+                             noise, want, "[loop]")
+        del batch
+        torch.cuda.empty_cache()
+
+        # the CLI: 2 epochs of 10 steps, then --resume for one more
+        env = {**os.environ, "PYTHONPATH": here}
+        args = ["--config", config, "--version_id", "9", "--set", *overrides, "trainer.training_epoch=3", "lr_scheduler.max_iters=30",
+                "trainer.iters_to_print=5", "trainer.ckpt_every_epochs=1"]
+        log_dir = os.path.join(tmp, "log", "picopose", "version_9")
+        runs = {}
+        for name, extra in (("first", ["--max_steps", "20"]), ("resumed", ["--max_steps", "30", "--resume"])):
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable, "-m", "picopose_tpu_torch.run_train", *extra, *args], cwd=tmp, env=env,
+                               capture_output=True, text=True, timeout=600)
+            runs[name] = time.perf_counter() - t0
+            if r.returncode != 0:
+                print(r.stdout[-3000:], r.stderr[-6000:], file=sys.stderr)
+            check(r.returncode == 0, f"run_train ({name} run) exits 0")
+            if name == "first":
+                saved = sorted(os.listdir(os.path.join(log_dir, "checkpoints")))
+                check(saved == ["10.pt", "20.pt"], f"checkpoints at steps 10 and 20 ({saved})")
+                os.remove(os.path.join(log_dir, "checkpoints", "10.pt"))  # at most two train states at a time
+            else:
+                check("resumed from step 20" in r.stdout, "the resumed run starts at step 20")
+                saved = sorted(os.listdir(os.path.join(log_dir, "checkpoints")))
+                check(saved == ["20.pt", "30.pt"], f"the resumed run saved at step 30 ({saved})")
+        heads, losses = loop_log(log_dir)
+        print(f"[loop] run_train: 2 epochs of 10 steps in {runs['first']!r} s, --resume to step 30 in "
+              f"{runs['resumed']!r} s; log {heads!r}; losses finite {bool(np.isfinite(losses).all())}")
+        check(heads == ["iter 5", "iter 10", "epoch 0 done at iter 10", "iter 15", "iter 20",
+                        "epoch 1 done at iter 20", "iter 25", "iter 30", "epoch 0 done at iter 30"],
+              "the log's iteration and epoch lines (the resumed run's epoch counter restarts at 0)")
+        check(len(losses) > 0 and all(np.isfinite(losses)), "every logged loss finite")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     return {"layernorm": 96, "attention": 48, "match_scores": 0, "match_scores_int8": 0,
             "corr_window": 3, "warp": 3}
 
@@ -2035,8 +2572,11 @@ def main() -> int:
     eval_cli_phase(SEED)
     print(f"[phase] eval CLI {time.perf_counter() - t0!r} s")
     t0 = time.perf_counter()
-    train_launches = train_phase(SEED)
+    train_launches, step_ms = train_phase(SEED)
     print(f"[phase] training step {time.perf_counter() - t0!r} s")
+    t0 = time.perf_counter()
+    loop_launches = loop_phase(SEED, step_ms)
+    print(f"[phase] training loop {time.perf_counter() - t0!r} s")
 
     src = "picopose_tpu_torch/kernels/csrc/"
     replaces = {
@@ -2053,7 +2593,7 @@ def main() -> int:
         rows.append({
             "name": name, "route": "cuda", "source": src + source,
             "replaces": replaces[name], "launches": launches[name],
-            "train_launches": train_launches[name],
+            "train_launches": train_launches[name], "loop_launches": loop_launches[name],
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r["library_ms"],

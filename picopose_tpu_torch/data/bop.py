@@ -13,11 +13,12 @@ layout:
   template_dir/<obj:06d>/{view:06d}.png (RGBA), {view:06d}_depth.png (16-bit mm)
   template_dir/object_poses/<obj:06d>.npy   (mm -> m)
 
-Images are decoded by data/png.py instead of PIL, and the template points'
-INTER_NEAREST resize is data/crops.py::nearest_index instead of cv2's; the
-arrays are the same.  A frame found as ``.jpg`` or ``.tif`` (looked for in
-that order around ``.png``, as the JAX package does) raises
-NotImplementedError: the port has no JPEG or TIFF decoder yet.
+Images are decoded by data/png.py and data/jpeg.py instead of PIL, and
+the template points' INTER_NEAREST resize is data/crops.py::nearest_index
+instead of cv2's; the arrays are the same.  Frames are looked for as
+``.jpg``, ``.png`` and ``.tif``, in that order, as the JAX package does; a
+``.tif`` frame raises NotImplementedError: the port has no TIFF decoder
+yet.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from picopose_tpu_torch.data.crops import (
     nearest_index,
     square_bbox,
 )
+from picopose_tpu_torch.data.jpeg import read_image
 from picopose_tpu_torch.data.png import read_png
 from picopose_tpu_torch.data.rle import rle_to_mask
 
@@ -172,12 +174,12 @@ class BOPTestDataset:
         return ImageRecord(raw.scene_id, raw.img_id, raw.seg_time)
 
     def load_raw(self, index: int) -> tuple[np.ndarray, np.ndarray]:
-        """Decode one image's full RGB (uint8) + camera K.  PNG only: a
-        JPEG or TIFF frame raises NotImplementedError."""
+        """Decode one image's full RGB (uint8) + camera K.  PNG or JPEG: a
+        TIFF frame raises NotImplementedError."""
         raw = self.images[self.keys[index]]
         cam = self._scene_camera(raw.scene_id)
         K = np.array(cam[str(raw.img_id)]["cam_K"], np.float64).reshape(3, 3)
-        rgb = read_png(self._rgb_path(raw.scene_id, raw.img_id)).astype(np.uint8)
+        rgb = read_image(self._rgb_path(raw.scene_id, raw.img_id)).astype(np.uint8)
         if rgb.ndim == 2:
             rgb = np.stack([rgb] * 3, axis=-1)
         return rgb, K

@@ -9,9 +9,9 @@ Counterpart of run_test.py (:18-131) with the same flags plus ``--device``
 ``picopose-stage3-<hyp>hyp_<dataset>-test.csv`` under
 ``log/<model>/version_<id>/<dataset>_eval/``, relative to the working
 directory.  ``--checkpoint_path`` takes a reference PyTorch checkpoint
-(``.ckpt``/``.pth``); ``none`` resolves ``--iter`` (or the latest step)
-under ``log/<model>/version_<id>/checkpoints/`` as the JAX entry point
-does, and with no checkpoint found the weights are drawn from seed 0
+(``.ckpt``/``.pth``) or a train state the port saved; ``none`` resolves ``--iter``
+(or the latest step) to ``log/<model>/version_<id>/checkpoints/<step>.pt``
+as the JAX entry point resolves its step directories, and with no checkpoint found the weights are drawn from seed 0
 (a smoke run, with a warning).
 """
 
@@ -27,7 +27,7 @@ from picopose_tpu_torch.device import resolve_device
 from picopose_tpu_torch.eval.runner import evaluate_dataset
 from picopose_tpu_torch.models import PicoPose
 from picopose_tpu_torch.models.dinov2 import VIT_CONFIGS
-from picopose_tpu_torch.utils.checkpoint import load_any
+from picopose_tpu_torch.utils.checkpoint import checkpoint_dir, checkpoint_path, load_any
 from picopose_tpu_torch.utils.config import load_config
 from picopose_tpu_torch.utils.weights import init_random_, load_flax_variables
 
@@ -71,13 +71,16 @@ def main(argv: list[str] | None = None) -> list[str]:
 
     log_dir = os.path.join("log", args.model, f"version_{args.version_id}")
     ckpt_path = args.checkpoint_path
-    if ckpt_path == "none":
-        # resolve by step under the version's log dir, as the JAX entry point does
-        step_dir = os.path.join(log_dir, "checkpoints")
-        if os.path.isdir(step_dir) and os.listdir(step_dir):
-            step = args.iter if args.iter != -1 else max(
-                int(d) for d in os.listdir(step_dir) if d.isdigit()
-            )
+    step_dir = checkpoint_dir(log_dir)
+    steps = {int(n.removesuffix(".pt")) for n in os.listdir(step_dir)
+             if n.removesuffix(".pt").isdigit()} if os.path.isdir(step_dir) else set()
+    if ckpt_path == "none" and steps:
+        # resolve by step under the version's log dir, as the JAX entry point
+        # does: <step>.pt is a train state; a <step>/ directory is an orbax
+        # checkpoint, which load_any refuses
+        step = args.iter if args.iter != -1 else max(steps)
+        ckpt_path = checkpoint_path(log_dir, step)
+        if not os.path.exists(ckpt_path):
             ckpt_path = os.path.join(step_dir, str(step))
 
     if ckpt_path != "none":

@@ -117,13 +117,13 @@ class PoseEstimator:
         generator: torch.Generator | None = None,
     ):
         """``checkpoint``: a reference PyTorch checkpoint (``.ckpt`` or
-        ``.pth``, utils/checkpoint.py); ``variables``, the JAX package's
-        flax variables (``params`` and ``batch_stats`` as arrays), take
-        precedence over it; with neither the weights are drawn from
-        ``seed``, with a warning.  ``device``: the card unless "cpu" is
-        passed (raises when no card is present).  ``generator``: the PnP
-        draws' generator, on ``device`` (by default one seeded with
-        ``seed``)."""
+        ``.pth``) or a train state the port saved (utils/checkpoint.py);
+        ``variables``, the JAX package's flax variables (``params`` and
+        ``batch_stats`` as arrays), take precedence over it; with neither
+        the weights are drawn from ``seed``, with a warning.  ``device``:
+        the card unless "cpu" is passed (raises when no card is
+        present).  ``generator``: the PnP draws' generator, on ``device``
+        (by default one seeded with ``seed``)."""
         self.device = resolve_device(device)
         dtype = _DTYPES[compute_dtype] if isinstance(compute_dtype, str) else compute_dtype
         self.model = PicoPose(vit_type, blocks_to_take, dtype, device=self.device,

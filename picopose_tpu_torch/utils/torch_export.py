@@ -56,20 +56,25 @@ def _reference_key(key: str) -> str:
     return key
 
 
-def export_picopose(model: nn.Module) -> dict[str, np.ndarray]:
-    """The port's ``PicoPose`` -> reference ``Net`` state dict (fp32 numpy
-    values; bf16-stored weights widen exactly)."""
+def export_state_dict(state: dict) -> dict[str, np.ndarray]:
+    """The port's ``PicoPose`` state dict -> reference ``Net`` state dict
+    (fp32 numpy values; bf16-stored weights widen exactly)."""
     out: dict[str, np.ndarray] = {}
-    for key, value in model.state_dict().items():
+    C = state["affine_regressor.conv1.weight"].shape[0]
+    for key, value in state.items():
         value = value.detach().float().cpu().numpy()
         ref = _reference_key(key)
         if key == "affine_regressor.fc1.weight":
-            C = model.affine_regressor.conv1.weight.shape[0]
             value = value.reshape(-1, 8, 8, C).transpose(0, 3, 1, 2).reshape(value.shape[0], -1)
         out[ref] = np.ascontiguousarray(value)
         if key.endswith(".running_var"):
             out[ref[: -len("running_var")] + "num_batches_tracked"] = np.array(0, np.int64)
     return out
+
+
+def export_picopose(model: nn.Module) -> dict[str, np.ndarray]:
+    """The port's ``PicoPose`` -> reference ``Net`` state dict."""
+    return export_state_dict(model.state_dict())
 
 
 def save_torch_checkpoint(model: nn.Module, path: str, lightning: bool = True) -> None:

@@ -16,6 +16,7 @@ import shutil
 
 import numpy as np
 import pytest
+from PIL import Image
 from torch_bop_tree import write_bop_tree
 
 from picopose_tpu.data import bop as jbop
@@ -93,12 +94,21 @@ def test_template_views_match(tree, obj):
 
 
 def test_jpeg_and_tiff_frames_raise(tree, tmp_path):
+    """A ``.jpg`` frame (found before the ``.png``) decodes as PIL decodes
+    it, and a truncated one raises naming the file; a ``.tif`` frame raises
+    (no TIFF decoder yet)."""
     root = tmp_path / "bop"
     shutil.copytree(tree["data_dir"], root)
     ds = bop.BOPTestDataset(str(root), "fakeds", tree["det_path"])
     scene = root / "fakeds" / "test" / "000001"
-    (scene / "rgb" / "000000.jpg").write_bytes(b"\xff\xd8\xff")  # found before the .png
-    with pytest.raises(NotImplementedError, match="000000.jpg"):
+    jpg = scene / "rgb" / "000000.jpg"
+    Image.open(scene / "rgb" / "000000.png").save(jpg, quality=90)
+    rgb, K = ds.load_raw(0)
+    np.testing.assert_array_equal(rgb, np.asarray(Image.open(jpg)))
+    jds = jbop.BOPTestDataset(str(root), "fakeds", tree["det_path"])
+    np.testing.assert_array_equal(rgb, jds.load_raw(0)[0])
+    jpg.write_bytes(jpg.read_bytes()[: len(jpg.read_bytes()) // 2])
+    with pytest.raises(ValueError, match="000000.jpg"):
         ds.load_raw(0)
     os.remove(scene / "rgb" / "000002.png")
     os.makedirs(scene / "gray")

@@ -61,7 +61,10 @@ def test_import_leaves_jax_out_of_sys_modules():
         "picopose_tpu_torch.utils.torch_export, picopose_tpu_torch.train.step, "
         "picopose_tpu_torch.train.loop, picopose_tpu_torch.train.keypoints, "
         "picopose_tpu_torch.train.losses, picopose_tpu_torch.train.augment, "
-        "picopose_tpu_torch.geom.projection, picopose_tpu_torch.data.synthetic; "
+        "picopose_tpu_torch.geom.projection, picopose_tpu_torch.data.synthetic, "
+        "picopose_tpu_torch.data.jpeg, picopose_tpu_torch.data.color_augment, "
+        "picopose_tpu_torch.data.megapose, picopose_tpu_torch.geom.templates, "
+        "picopose_tpu_torch.utils.logging, picopose_tpu_torch.run_train; "
         "print(sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN + HOST_LIBRARIES!r}))"
     )
@@ -101,6 +104,34 @@ def test_training_needs_a_card_unless_cpu_is_asked(monkeypatch):
     state = step.init_state(tx, device="cpu", **small)
     assert state.step == 0 and state.model.training and state.model.device.type == "cpu"
     assert all(p.device.type == "cpu" for group in state.optimizer.inner.param_groups for p in group["params"])
+
+
+def test_the_training_loop_needs_a_card_unless_cpu_is_asked(monkeypatch):
+    """run_training and run_train raise before reading any data."""
+    from picopose_tpu_torch import run_train
+    from picopose_tpu_torch.train.loop import run_training
+    from picopose_tpu_torch.utils.config import load_config
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = load_config(None, ["train_dataset.data_dir=/nonexistent"])
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run_training(cfg, "/nonexistent/log", device=device)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_train.main(["--set", "train_dataset.data_dir=/nonexistent"])
+
+
+def test_importing_the_data_path_starts_no_cuda():
+    """The loader's worker processes import these modules: no CUDA context
+    and no kernel build on import."""
+    code = (
+        "import torch, picopose_tpu_torch.train.loop, picopose_tpu_torch.data.megapose; "
+        "from picopose_tpu_torch import kernels; "
+        "print(torch.cuda.is_initialized(), len(kernels._libs))"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=120, check=True)
+    assert out.stdout.strip() == "False 0", out.stdout
 
 
 def test_pose_estimator_needs_a_card_unless_cpu_is_asked(monkeypatch):

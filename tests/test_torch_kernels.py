@@ -636,3 +636,26 @@ def test_train_step_launches_on_the_card(cuda_device):
         before = state.model.feature_extractor.dinov2.blocks[0].attn.qkv.weight.detach().clone()
         state.optimizer.step()
         assert not torch.equal(before, state.model.feature_extractor.dinov2.blocks[0].attn.qkv.weight)
+
+
+@pytest.mark.cuda
+def test_device_prefetch_uploads_every_batch_intact(cuda_device):
+    """train/loop.py::device_prefetch on the card: pinned copies on a side
+    stream, three ahead; a slow consumer that overwrites each batch on its
+    own stream still reads every later batch as it was produced, in order."""
+    import time
+
+    from picopose_tpu_torch.train.loop import device_prefetch
+
+    rng = np.random.default_rng(0)
+    batches = [{"real_rgb": rng.standard_normal((8, 224, 224, 3)).astype(np.float32),
+                "real_K": np.full((8, 3, 3), i, np.float32)} for i in range(12)]
+    seen = 0
+    for i, b in enumerate(device_prefetch(iter(batches), cuda_device, depth=3)):
+        assert b["real_rgb"].device.type == "cuda"
+        assert torch.equal(b["real_rgb"].cpu(), torch.from_numpy(batches[i]["real_rgb"]))
+        assert torch.equal(b["real_K"].cpu(), torch.from_numpy(batches[i]["real_K"]))
+        b["real_rgb"].mul_(0.0)  # the consumer's work on the batch
+        time.sleep(0.05)
+        seen += 1
+    assert seen == len(batches)
