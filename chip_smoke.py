@@ -50,18 +50,23 @@ Phases (any failure exits non-zero before the result line):
      one 960 x 1280 uint8 frame holding 16 template views on a 4 x 4 grid
      of 224^2 squares, 16 full-square masks plus one RLE and one bbox-only
      detection (18: two chunks of 16, the second padded).  Host and
-     on-device crops of both chunks agree within 1e-3; ``estimate`` with
-     each, with the launch counts of one call (set to 0 just before, read
-     just after), the ranked poses of every chunk checked and the top-1
-     view of each detection the pasted one; ms per frame (median of 10
-     after a warm-up), host decode ms and preprocess_frame device ms; the
-     serving modes, each with the launch counts of one ``estimate``:
-     PICOPOSE_MATCH_INT8=1 (K3's int8 branch, two launches, top-1 as bf16
-     on the 16 pasted crops), PICOPOSE_MATCH_FP32=1 (K3's fp32 path),
-     quantize_stage3 (flows against the float path as relative RMS, stage-3
-     device time of both); TF32: with the caller's matmul and cuDNN TF32
-     flags on, one ``estimate`` and ``stage2_poses`` bitwise equal to the
-     calls with both off, the flags as the caller set them afterwards; the
+     on-device crops of both chunks agree within 1e-3; ``estimate`` (which
+     replays its compiled programs, phase 10) with each, with the launch
+     counts of one call (set to 0 just before, read just after): the
+     wrappers' (one run_batch execution where the call captures
+     run_batch's program, its warm-up, else none) and the trace's (the
+     warm-up and two replays, else two), the ranked poses
+     of every chunk checked and the top-1 view of each detection the
+     pasted one; ms per frame (median of 10 after a warm-up), host decode
+     ms and preprocess_frame device ms; the serving modes, each with the
+     launch counts of one ``estimate``: PICOPOSE_MATCH_INT8=1 (K3's int8
+     branch, one launch per run_batch execution, top-1 as bf16 on the 16
+     pasted crops), PICOPOSE_MATCH_FP32=1 (K3's fp32 path), quantize_stage3
+     (flows against the float path as relative RMS, stage-3 device time of
+     both); TF32: with the caller's matmul and cuDNN TF32 flags on, one
+     ``estimate`` (its programs captured under those flags) and
+     ``stage2_poses`` bitwise equal to the calls with both off, the flags
+     as the caller set them afterwards; the
      bank build with and without precast (device busy, copy kernels; banks
      bitwise equal); and a bank file round trip, bitwise;
   6. gradients at full width (``gradient_phase``): ViT-L features of 2
@@ -103,11 +108,34 @@ Phases (any failure exits non-zero before the result line):
      profile of ten steps and the checkpoint's bytes, save and restore, one
      loop batch's step through the kernels against the plain path, and
      ``python -m picopose_tpu_torch.run_train`` for 2 epochs of 10 steps
-     (checkpoints at 10 and 20) and ``--resume`` to step 30.
-Then the kernels as one JSON line (K3's int8 row with its launches from
-the int8-matching ``estimate``; each row's launches per training step as
-``train_launches`` and per loop step as ``loop_launches``), the card line,
-and the result line.
+     (checkpoints at 10 and 20) and ``--resume`` to step 30;
+ 10. the compiled inference programs at full width (``graph_phase``, run
+     right after phase 5 on its estimator, bank and frame): CUDA graphs
+     (utils/graphs.py) of run_batch, the bank build's chunks and
+     preprocess_frame.  ``run_batch_graphed`` against the eager
+     ``run_batch`` from equal generator states, the capturing call and a
+     replay, for the default path and each serving mode: template ids,
+     ranking order, PnP success, ratios and scores bitwise, R and t within
+     GRAPH_POSE_TOL; the wrappers' launches (the capturing call's eager
+     warm-up; nothing on a replay) and the kernels in a profiler trace of
+     one replay, by kernel name (48 LN, 24 attention, one K3 or K3 int8,
+     3 K4, 3 K5); two queued calls that do not alias; a
+     second bank of the same shape built by ``build_bank_graphed`` (bitwise
+     the eager bank) swapped in and out; then ``graph_timing`` in a fresh
+     interpreter: eager against graphed bank build, run_batch (crops/s),
+     ``estimate`` with host and on-device crops, capture seconds per
+     program, host ms of a replay by part, device memory with one and two
+     banks, and the replays' idle share.
+Launch counts are the wrappers' (``kernels.LAUNCHES``), which count a
+kernel where they launch it: an eager call and a program's warm-up, not
+a capture or a replay.  What a replay ran is counted by kernel name in a
+profiler trace of it (``traced_launches``).
+Then the kernels as one JSON line (K3's int8 row with the wrappers'
+launches in the int8-matching ``estimate`` that captures its program;
+each row's executions per replayed run_batch, from the trace, as
+``replay_launches``, per training step as
+``train_launches`` and per loop step as ``loop_launches``), the card
+line, and the result line.
 The script leaves PyTorch's TF32 flags at their defaults (cuDNN may take
 TF32 for fp32 convolutions): the package pins its fp32 work itself
 (``device.full_fp32``), and phase 5 checks that.  Inputs and weights
@@ -597,6 +625,16 @@ def check_outputs(name, scores, ids, pred_Ms, poses, n_views, expected_top1):
     check(orth < 1e-4, f"{name}: stage-2 rotations orthonormal")
 
 
+def run_batch_launches(calls: int, k3: str = "match_scores") -> dict:
+    """K1-K5 launches of ``calls`` executions of run_batch at ViT-L width
+    (24 blocks of two LNs and one attention each; one K3, three K4 and
+    three K5 launches)."""
+    if calls == 0:
+        return {}
+    return {"layernorm": 48 * calls, "attention": 24 * calls, k3: calls, "corr_window": 3 * calls,
+            "warp": 3 * calls}
+
+
 def profile_batch(run, top: int = 16) -> tuple[float, float, list]:
     """Device time by kernel over one call of ``run`` (torch.profiler);
     returns the device's busy ms, the device ms under aten::conv2d and
@@ -857,12 +895,55 @@ def count_kernels(events, match) -> tuple[float, int]:
     return sum(dev_us(e) for e in sel) / 1e3, sum(e.count for e in sel)
 
 
+# the CUDA kernels each wrapper's entry point launches, as a profiler trace names them
+KERNEL_SYMBOLS = {
+    "layernorm": r"\blayernorm_(row|loop)_kernel<",
+    "attention": r"\battention_(hopper|tc|f32)_kernel<",
+    "match_scores": r"\bmatch_scores_(hopper_kernel<__nv_bfloat16>|f32_kernel\b)",
+    "match_scores_int8": r"\bmatch_scores_hopper_kernel<signed char>",
+    "corr_window": r"\bcorr_(tile|f32)_kernel\b",
+    "warp": r"\bwarp_kernel<",
+}
+
+
+def traced_launches(averages) -> dict:
+    """Executions of each wrapper's kernels in a profiler trace
+    (``key_averages()``), by kernel name: what ran on the card, a CUDA
+    graph's replay included, where the wrappers count only what they
+    launched."""
+    import re
+
+    from torch.autograd import DeviceType
+
+    seen = {}
+    for e in averages:
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for name, pattern in KERNEL_SYMBOLS.items():
+            if re.search(pattern, e.key):
+                seen[name] = seen.get(name, 0) + e.count
+    return seen
+
+
+def trace_launches(fn):
+    """``fn()`` under torch.profiler, then synchronised: (its result, the
+    executions of each wrapper's kernels in the trace)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, traced_launches(prof.key_averages())
+
+
 def serve_phase(seed: int) -> dict:
     """Phase 5: ``PoseEstimator`` at full ViT-L width on one 960 x 1280
     frame with 18 detections (two chunks of 16, the second padded): host
     and on-device preprocessing, the serving modes with their launch
-    counts, precast, the bank file round trip.  Returns the launch counts
-    of the int8-matching ``estimate``."""
+    counts, precast, the bank file round trip.  Returns the wrappers'
+    launch counts of the int8-matching ``estimate`` that captures its
+    program (its eager warm-up; the replays run no wrapper), and the
+    estimator, its bank and the frame for phase 10."""
     import os
     import tempfile
     import warnings
@@ -887,26 +968,41 @@ def serve_phase(seed: int) -> dict:
     check(est.objects == [1], "one object registered")
     n = len(dets)
 
-    def run(tag: str) -> dict:
-        """One estimate with every kernel's count set to 0 just before and
-        read just after; the ranked poses and top-1 views recorded."""
-        with Recorder(SV, "run_batch", lambda out, a: out) as rb, \
-                Recorder(P, "match_templates", lambda out, a: out[1][:, 0]) as mt, \
+    def run(tag: str, warmups: int, k3: str = "match_scores") -> dict:
+        """One estimate (two chunks) with every kernel's count set to 0 just
+        before and read just after, under the profiler: the wrappers count
+        ``warmups`` run_batch executions (1 where the call captures the
+        program: its eager warm-up), the trace holds ``warmups`` + 2 (the
+        two replays); the ranked poses and top-1 views of the graphed
+        calls recorded."""
+        seen = []
+
+        def record(graphs, model, batch, bank, **kw):
+            out, ids, _ = P._ranked_graphed(graphs, model, batch, bank, kw["hyp"], kw["pnp_iters"],
+                                            kw["stage3_topk"], kw["generator"])
+            seen.append((out, ids[:, 0]))
+            return out
+
+        with patched((SV, "run_batch_graphed", record)), \
                 Recorder(M, "match_scores_cuda", lambda out, a: a[0].dtype) as ms:
             kernels.reset_launches()
-            res = est.estimate(frame, K, dets)
-            torch.cuda.synchronize()
+            res, traced = trace_launches(lambda: est.estimate(frame, K, dets))
             launches = dict(kernels.LAUNCHES)
+        check(launches == run_batch_launches(warmups, k3),
+              f"{tag}: the wrappers launched {warmups} run_batch executions")
+        check(traced == run_batch_launches(warmups + 2, k3),
+              f"{tag}: the trace holds {warmups + 2} run_batch executions' kernels")
         check(len(res) == n and all(r.obj_id == 1 for r in res), f"{tag}: {n} results in order")
-        for i, out in enumerate(rb.seen):
+        for i, (out, _) in enumerate(seen):
             check_eval_output(f"{tag} chunk {i}", out, est.max_batch, est.hyp)
-        top1 = torch.cat(mt.seen)[:n].tolist()
+        top1 = torch.cat([ids for _, ids in seen])[:n].tolist()
         hits = sum(a == b for a, b in zip(top1, expected))
         for r in res:
             check(np.isfinite(r.R).all() and np.isfinite(r.t).all(), f"{tag}: finite poses")
             check(np.abs(r.R.T @ r.R - np.eye(3)).max() < 1e-4, f"{tag}: orthonormal R")
-        print(f"[serve] {tag}: launches {launches}; K3 operands {sorted(set(map(str, ms.seen)))}; top-1 is the "
-              f"pasted view for {hits}/{n} detections; PnP success {sum(r.success for r in res)}/{n}")
+        print(f"[serve] {tag}: launches by the wrappers {launches}, in the trace {traced}; K3 operands "
+              f"{sorted(set(map(str, ms.seen)))}; top-1 is the pasted view for {hits}/{n} detections; "
+              f"PnP success {sum(r.success for r in res)}/{n}")
         return dict(launches=launches, top1=top1, hits=hits, operands=set(ms.seen))
 
     # batch parity: host crops against on-device crops, both chunks
@@ -920,14 +1016,12 @@ def serve_phase(seed: int) -> dict:
         check(err["real_mask"] == 0 and err["real_K"] == 0, "masks and K equal")
         torch.testing.assert_close(dev["real_M"], host["real_M"], rtol=1e-5, atol=0)
 
-    host_run = run("estimate, host preprocessing")
+    # the first estimate captures run_batch's program: its warm-up and two replays
+    host_run = run("estimate, host preprocessing (capture)", 1)
     check(host_run["hits"] == n, "top-1 is the pasted view for every detection")
-    launches = host_run["launches"]
-    for name in DEFAULT_PATH_KERNELS:
-        check(launches.get(name, 0) > 0, f"kernel {name} launched by estimate")
-    check(launches.get("match_scores") == 2 and "match_scores_int8" not in launches, "two bf16 K3 launches")
+    run("estimate, host preprocessing (replays)", 0)
     est.device_preprocess = True
-    dev_run = run("estimate, on-device preprocessing")
+    dev_run = run("estimate, on-device preprocessing", 0)
     check(dev_run["hits"] == n, "top-1 is the pasted view for every detection (on-device crops)")
     est.device_preprocess = False
 
@@ -951,21 +1045,19 @@ def serve_phase(seed: int) -> dict:
     # serving modes, each with its launch counts during one estimate
     os.environ["PICOPOSE_MATCH_INT8"] = "1"
     try:
-        int8_run = run("estimate, PICOPOSE_MATCH_INT8=1")
+        int8_run = run("estimate, PICOPOSE_MATCH_INT8=1 (capture)", 1, "match_scores_int8")
+        run("estimate, PICOPOSE_MATCH_INT8=1 (replays)", 0, "match_scores_int8")
     finally:
         del os.environ["PICOPOSE_MATCH_INT8"]
-    check(int8_run["launches"].get("match_scores_int8", 0) == 2 and "match_scores" not in int8_run["launches"],
-          "int8 matching launches K3's int8 branch, once per chunk")
     agree = sum(a == b for a, b in zip(int8_run["top1"][:16], host_run["top1"][:16]))
     print(f"[serve] int8 matching: top-1 agrees with bf16 matching on {agree}/16 pasted crops")
     check(agree == 16, "int8 top-1 agrees with bf16 on the pasted crops")
     os.environ["PICOPOSE_MATCH_FP32"] = "1"
     try:
-        fp32_run = run("estimate, PICOPOSE_MATCH_FP32=1")
+        fp32_run = run("estimate, PICOPOSE_MATCH_FP32=1 (capture)", 1)
     finally:
         del os.environ["PICOPOSE_MATCH_FP32"]
-    check(fp32_run["operands"] == {torch.float32} and fp32_run["launches"].get("match_scores", 0) == 2,
-          "fp32-operand matching launches K3's fp32 path")
+    check(fp32_run["operands"] == {torch.float32}, "fp32-operand matching launches K3's fp32 path")
 
     # quantize_stage3: flows against the float path, stage-3 device time
     batch = est._host_batch(frame, K, dets[:16], 0)
@@ -977,7 +1069,7 @@ def serve_phase(seed: int) -> dict:
     busy_f, conv_f, _ = profile_batch(stage3, top=8)
     est.model.flow_decoder.quantize = True
     try:
-        q_run = run("estimate, quantize_stage3")
+        q_run = run("estimate, quantize_stage3 (capture)", 1)
         got = stage3()
         print("[profile] stage 3 with the int8 convs (im2col + torch._int_mm):")
         busy_q, _, ev_q = profile_batch(stage3, top=12)
@@ -1027,7 +1119,7 @@ def serve_phase(seed: int) -> dict:
             check(x.dtype == y.dtype and x.device == y.device and torch.equal(x, y), "bank round trip bitwise")
         print(f"[serve] bank file {sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))} bytes, "
               "loads back bitwise equal")
-    return int8_run["launches"]
+    return int8_run["launches"], dict(est=est, bank=bank, bank_np=bank_np, frame=frame, K=K, dets=dets)
 
 
 class patched:
@@ -1148,13 +1240,15 @@ def gradient_phase(seed: int) -> None:
 
 def tf32_check(est, bank, frame, K, dets, batch, seed: int) -> None:
     """The caller's TF32 flags reach no fp32 work of the package: one
-    ``estimate`` and stage 2 of one run_batch (``stage2_poses``) with both
+    ``estimate`` (its programs captured under the flags it is called with)
+    and stage 2 of one run_batch (``stage2_poses``) with both
     flags on are bitwise the calls with both off (the same PnP draws), and
     the flags are as the caller set them after each call.  The affine
     head's convs called directly, outside the package's entry points, show
     what the flags would move."""
     from picopose_tpu_torch.eval import pipeline as P
     from picopose_tpu_torch.ops.matching import feature_similarity_volume
+    from picopose_tpu_torch.utils.graphs import GraphCache
 
     flags = lambda: (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     default = flags()
@@ -1163,11 +1257,12 @@ def tf32_check(est, bank, frame, K, dets, batch, seed: int) -> None:
     with torch.inference_mode():
         sim = feature_similarity_volume(bank.feats[-1][ids[:, 0]].float(), feats_real[-1].float(),
                                         bank.mask[ids[:, 0]])
-    outs = {}
+    outs, graphs = {}, est.graphs
     try:
         for f in ((False, False), (True, True)):
             torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = f
             est.generator.manual_seed(seed)
+            est.graphs = GraphCache(est.device)  # the programs captured under these flags
             res = est.estimate(frame, K, dets)
             check(flags() == f, "estimate leaves the caller's flags as they were")
             s2 = P.stage2_poses(est.model, batch, bank, feats_real, ids)
@@ -1178,6 +1273,7 @@ def tf32_check(est, bank, frame, K, dets, batch, seed: int) -> None:
             outs[f] = (rows, s2, head)
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = default
+        est.graphs = graphs
     on, off = outs[True, True], outs[False, False]
     moved = max((a.double() - b.double()).abs().max().item() for a, b in zip(on[2], off[2]))
     print(f"[tf32] estimate with the caller's flags on vs off bitwise equal: {np.array_equal(on[0], off[0])}; "
@@ -1322,10 +1418,18 @@ def bop_world(root: str, seed: int) -> dict:
                 n_instances=20 * len(EVAL_FRAMES))
 
 
-# K1-K5 launches of one eval CLI run: two 162-view banks (6 chunks of 32 x
-# 24 blocks) and four batches (each object: 16 instances, then 4 padded to 16)
-EVAL_LAUNCHES = {"layernorm": 2 * 288 + 4 * 48, "attention": 2 * 144 + 4 * 24,
-                 "match_scores": 4, "corr_window": 4 * 3, "warp": 4 * 3}
+# K1-K5 in one eval CLI run: two 162-view banks (6 chunks each: 5 of 32
+# views, 1 of 2; 24 blocks of two LNs and one attention per chunk) and four
+# batches (each object: 16 instances, then 4 padded to 16), through the
+# run's compiled programs.  The wrappers launch only the eager warm-ups of
+# the first call of each program (the chunk programs of 32 and of 2 views,
+# run_batch's): 2 chunk and 1 run_batch executions.  The card runs those
+# and every replay: 12 + 2 chunk and 4 + 1 run_batch executions, which a
+# profiler trace of the run counts by kernel name.
+EVAL_LAUNCHES = {"layernorm": 2 * 48 + 48, "attention": 2 * 24 + 24, "match_scores": 1, "corr_window": 3,
+                 "warp": 3}
+EVAL_TRACED = {"layernorm": (12 + 2) * 48 + (4 + 1) * 48, "attention": (12 + 2) * 24 + (4 + 1) * 24,
+               "match_scores": 4 + 1, "corr_window": (4 + 1) * 3, "warp": (4 + 1) * 3}
 
 
 def expected_rows(world: dict) -> list[tuple[str, str, str, str]]:
@@ -1360,7 +1464,9 @@ def eval_cli_phase(seed: int) -> None:
     under it; the CSV has one row per instance in the dataset's order with
     the targets' scene, image, object and score, orthonormal R, finite t
     and time > 0; the second run's first six columns equal the first's;
-    the launches of K1-K5 are those of two banks and four batches.
+    the wrappers launched K1-K5 as the warm-ups of the run's compiled
+    programs imply (``EVAL_LAUNCHES``), and the profiled run's trace holds
+    the kernels of two banks and four batches (``EVAL_TRACED``).
     Prints PNG decode ms, template loading and bank ms per object, wall
     time, instances/s, the eval loop's device idle share (device busy in a
     profiled second run over the first run's wall) and run_batch's host
@@ -1423,8 +1529,8 @@ def eval_cli_phase(seed: int) -> None:
                                    "bank_host_ms", "wait_ms", "eval_s", "busy_ms")}
             fns = {name: getattr(mod, name) for mod, name in (
                 (run_test, "load_flax_variables"), (bop_module, "read_png"), (bop_module, "read_image"),
-                (runner, "run_batch"),
-                (runner, "load_template_views"), (runner, "build_bank"), (run_test, "evaluate_dataset"),
+                (runner, "run_batch_graphed"),
+                (runner, "load_template_views"), (runner, "build_bank_graphed"), (run_test, "evaluate_dataset"),
                 (runner, "_stream_batches"))}
 
             def load(model, variables):
@@ -1438,12 +1544,14 @@ def eval_cli_phase(seed: int) -> None:
                     return arr
                 return decode
 
-            def one_batch(*a, **kw):
+            def one_batch(graphs, model, batch, bank, **kw):
                 t = time.perf_counter()
-                out = fns["run_batch"](*a, **kw)
+                out, ids, _ = P._ranked_graphed(graphs, model, batch, bank, kw["hyp"], kw["pnp_iters"],
+                                                kw["stage3_topk"], kw["generator"])
                 rec["rb_ms"].append((time.perf_counter() - t) * 1e3)
+                rec["ids"].append(ids[:, 0])
                 if not rec["rb_args"]:
-                    rec["rb_args"].append((a, kw))
+                    rec["rb_args"].append(((graphs, model, batch, bank), kw))
                 return out
 
             def templates(*a, **kw):
@@ -1456,7 +1564,7 @@ def eval_cli_phase(seed: int) -> None:
                 ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
                 t = time.perf_counter()
                 ev[0].record()
-                out = fns["build_bank"](*a, **kw)
+                out = fns["build_bank_graphed"](*a, **kw)
                 ev[1].record()
                 rec["bank_host_ms"].append((time.perf_counter() - t) * 1e3)
                 rec["bank_ev"].append(ev)
@@ -1485,6 +1593,7 @@ def eval_cli_phase(seed: int) -> None:
                         torch.cuda.synchronize()
                     rec["busy_ms"].append(sum(dev_us(e) for e in prof.key_averages()
                                               if e.device_type == DeviceType.CUDA) / 1e3)
+                    rec["traced"] = traced_launches(prof.key_averages())
                 rec["eval_s"].append(time.perf_counter() - t)
                 return out
 
@@ -1493,10 +1602,9 @@ def eval_cli_phase(seed: int) -> None:
             try:
                 with patched((run_test, "load_flax_variables", load), (bop_module, "read_png", decoder("read_png")),
                              (bop_module, "read_image", decoder("read_image")),
-                             (runner, "run_batch", one_batch), (runner, "load_template_views", templates),
-                             (runner, "build_bank", bank), (run_test, "evaluate_dataset", evaluate),
-                             (runner, "_stream_batches", stream)), \
-                        Recorder(P, "match_templates", lambda out, a: out[1][:, 0]) as mt:
+                             (runner, "run_batch_graphed", one_batch), (runner, "load_template_views", templates),
+                             (runner, "build_bank_graphed", bank), (run_test, "evaluate_dataset", evaluate),
+                             (runner, "_stream_batches", stream)):
                     kernels.reset_launches()
                     t = time.perf_counter()
                     (path,) = run_test.main(argv)
@@ -1507,7 +1615,6 @@ def eval_cli_phase(seed: int) -> None:
                 os.chdir(cwd)
             with open(os.path.join(root, path)) as f:
                 rec["rows"] = list(csv.reader(f))
-            rec["ids"] = mt.seen
             rec["bank_ms"] = [a.elapsed_time(b) for a, b in rec["bank_ev"]]
             return rec
 
@@ -1524,9 +1631,12 @@ def eval_cli_phase(seed: int) -> None:
         decoded = dict(first["decoded"])
         check(decoded.keys() == world["digests"].keys(), "every PNG of the tree was decoded")
         check(all(decoded[p] == world["digests"][p] for p in decoded), "every decoded PNG is bitwise as written")
-        print(f"[eval] launches during one run: {first['launches']}")
+        print(f"[eval] launches during one run: by the wrappers {first['launches']}; in the profiled "
+              f"run's trace {second['traced']}")
         check(first["launches"] == EVAL_LAUNCHES and second["launches"] == EVAL_LAUNCHES,
-              f"K1-K5 launched as two banks and four batches imply: {EVAL_LAUNCHES}")
+              f"the wrappers launched K1-K5 as the warm-ups of the run's programs imply: {EVAL_LAUNCHES}")
+        check(second["traced"] == EVAL_TRACED,
+              f"the trace holds K1-K5 as two banks and four batches through the run's programs imply: {EVAL_TRACED}")
 
         # the CSV: rows in the dataset's order, each detection's top view
         want = expected_rows(world)
@@ -1577,10 +1687,11 @@ def eval_cli_phase(seed: int) -> None:
         for _ in range(6):
             torch.cuda.synchronize()
             t = time.perf_counter()
-            runner.run_batch(*a, **kw)
+            runner.run_batch_graphed(*a, **kw)
             alone.append((time.perf_counter() - t) * 1e3)
         torch.cuda.synchronize()
-        print(f"[eval] run_batch host ms (the call's return, device work queued): in the runner "
+        print(f"[eval] run_batch_graphed host ms (the call's return, device work queued; the first call "
+              f"captures): in the runner "
               f"{first['rb_ms']!r} (second run {second['rb_ms']!r}); alone, 5 calls after one warm-up "
               f"median {float(np.median(alone[1:]))!r} ({alone[1:]!r})")
 
@@ -2440,6 +2551,281 @@ def loop_phase(seed: int, step_ms_alone: float) -> dict:
             "corr_window": 3, "warp": 3}
 
 
+def graph_outputs_equal(tag: str, got, ref) -> dict:
+    """A graphed run_batch against the eager one: template ids, ranking
+    order, PnP success, inlier ratios and scores bitwise; R and t within
+    GRAPH_POSE_TOL (whether they came out bitwise is printed)."""
+    (out, ids, order), (rout, rids, rorder) = got, ref
+    check(torch.equal(ids, rids), f"{tag}: template ids bitwise")
+    check(torch.equal(order, rorder), f"{tag}: ranking order bitwise")
+    check(torch.equal(out.pnp_success, rout.pnp_success), f"{tag}: PnP success bitwise")
+    check(torch.equal(out.inlier_ratio, rout.inlier_ratio) and torch.equal(out.template_score, rout.template_score),
+          f"{tag}: inlier ratios and template scores bitwise")
+    err = max((out.R - rout.R).abs().max().item(), (out.t - rout.t).abs().max().item())
+    bitwise = torch.equal(out.R, rout.R) and torch.equal(out.t, rout.t)
+    print(f"[graphs] {tag}: ids, order, success, ratios, scores bitwise; R and t max abs diff {err!r} "
+          f"(bitwise {bitwise})")
+    check(err <= GRAPH_POSE_TOL, f"{tag}: R and t within {GRAPH_POSE_TOL}")
+    return {"err": err, "bitwise": bitwise}
+
+
+# R and t of a replay against the eager call: fp32 PnP on the same
+# correspondences and draws; a replay runs the same kernels in the same
+# order, so any difference is a fault (it came out bitwise on the card)
+GRAPH_POSE_TOL = 1e-5
+
+
+def graph_phase(seed: int, world: dict) -> dict:
+    """Phase 10: the compiled inference programs at full ViT-L width, on
+    phase 5's estimator (phase 3's seeded weights, precast), its 162-view
+    bank and 16 host crops of its frame.  ``run_batch_graphed`` against
+    the eager ``run_batch`` from equal generator states, for the default
+    path and each serving mode (PICOPOSE_MATCH_INT8=1, PICOPOSE_MATCH_FP32=1,
+    quantize_stage3): the capturing call and a replay, each against an
+    eager call; the generators' states equal after; the wrappers' launches
+    (set to 0 just before, read just after: the capturing call's warm-up,
+    nothing on a replay) and the kernels in a profiler trace of one
+    replay.  Two calls queued with
+    different crops before either is read.  A second bank of the same
+    shape (``build_bank_graphed``, bitwise the eager bank) swapped in and
+    out of the program's slot.  Then ``graph_timing`` in a fresh
+    interpreter.  Returns the kernels' executions per replayed run_batch,
+    counted in the trace."""
+    from picopose_tpu_torch import kernels
+    from picopose_tpu_torch.eval import pipeline as P
+    from picopose_tpu_torch.utils.graphs import GraphCache
+
+    est, bank, frame, K, dets = (world[k] for k in ("est", "bank", "frame", "K", "dets"))
+    model = est.model
+    batches = [est._host_batch(frame, K, dets[s : s + 16], 0) for s in (0, 2)]
+    graphs = GraphCache("cuda")
+    replay_launches, errs = {}, {}
+
+    def graphed(batch, bank, gen):
+        return P._ranked_graphed(graphs, model, batch, bank, est.hyp, est.pnp_iters, None, gen)
+
+    def eager(batch, bank, gen):
+        return P._ranked(model, batch, bank, est.hyp, est.pnp_iters, None, gen, None)
+
+    def pair(tag: str, batch, bank, gens) -> dict:
+        """A graphed call against an eager one; the wrappers' launches
+        during the graphed call (counts set to 0 just before)."""
+        kernels.reset_launches()
+        got = graphed(batch, bank, gens[0])
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        ref = eager(batch, bank, gens[1])
+        torch.cuda.synchronize()
+        errs[tag] = graph_outputs_equal(tag, got, ref)
+        check(torch.equal(gens[0].get_state(), gens[1].get_state()), f"{tag}: the generators advanced alike")
+        return launches
+
+    modes = (("default", None, "match_scores"), ("PICOPOSE_MATCH_INT8=1", "PICOPOSE_MATCH_INT8", "match_scores_int8"),
+             ("PICOPOSE_MATCH_FP32=1", "PICOPOSE_MATCH_FP32", "match_scores"),
+             ("quantize_stage3", "quantize", "match_scores"))
+    for tag, switch, k3 in modes:
+        if switch and switch.startswith("PICOPOSE"):
+            os.environ[switch] = "1"
+        model.flow_decoder.quantize = switch == "quantize"
+        try:
+            gens = [torch.Generator(device="cuda").manual_seed(seed) for _ in range(2)]
+            warm = pair(f"{tag}, capturing call", batches[0], bank, gens)
+            check(warm == run_batch_launches(1, k3), f"{tag}: the capturing call's wrappers launch its warm-up")
+            kernels.reset_launches()
+            got, traced = trace_launches(lambda: graphed(batches[0], bank, gens[0]))
+            launches = dict(kernels.LAUNCHES)
+            ref = eager(batches[0], bank, gens[1])
+            errs[f"{tag}, replay"] = graph_outputs_equal(f"{tag}, replay", got, ref)
+            print(f"[graphs] {tag}: one replay: launches by the wrappers {launches}, in the trace {traced}")
+            check(not launches, f"{tag}: no wrapper runs on a replay")
+            check(traced == run_batch_launches(1, k3), f"{tag}: the trace of one replay holds one run_batch's kernels")
+            replay_launches.update(traced)
+        finally:
+            os.environ.pop("PICOPOSE_MATCH_INT8", None)
+            os.environ.pop("PICOPOSE_MATCH_FP32", None)
+            model.flow_decoder.quantize = False
+    check(graphs.captures["run_batch"] == 4 and graphs.replays["run_batch"] == 8,
+          "one program per serving mode, captured once and replayed twice")
+    print(f"[graphs] capture s per run_batch program (default, int8, fp32, quantize_stage3): "
+          f"{graphs.capture_s['run_batch']!r}")
+
+    # two calls queued before either is read
+    gens = [torch.Generator(device="cuda").manual_seed(seed + 1) for _ in range(2)]
+    got = [graphed(b, bank, gens[0]) for b in batches]
+    ref = [eager(b, bank, gens[1]) for b in batches]
+    torch.cuda.synchronize()
+    for i in range(2):
+        errs[f"queued call {i}"] = graph_outputs_equal(f"queued call {i}", got[i], ref[i])
+    check(not torch.equal(got[0][1], got[1][1]), "the two queued calls matched other templates")
+
+    # a second bank of the same shape: the views in another order, swapped in and out of the slot
+    perm = torch.randperm(162, generator=torch.Generator().manual_seed(seed)).to("cuda")
+    other = [torch.as_tensor(a, device="cuda")[perm] for a in world["bank_np"]]
+    t0 = time.perf_counter()
+    bank2 = P.build_bank_graphed(graphs, model, *other, chunk=32)
+    torch.cuda.synchronize()
+    ref2 = P.build_bank(model, *other, chunk=32)
+    check(all(torch.equal(a, b) for a, b in zip(bank2.feats + bank2.dpt + bank2[1:6], ref2.feats + ref2.dpt + ref2[1:6])),
+          "build_bank_graphed gives the eager bank bitwise")
+    print(f"[graphs] build_bank_graphed (its first call: two chunk programs captured, "
+          f"{graphs.capture_s['bank_chunk']!r} s) {time.perf_counter() - t0!r} s; bitwise the eager bank")
+    del ref2
+    gens = [torch.Generator(device="cuda").manual_seed(seed + 2) for _ in range(2)]
+    for i, b in enumerate((bank2, bank, bank2)):
+        pair(f"bank swap {i}", batches[0], b, gens)
+    check(len(graphs._slots) == 1, "both banks share one slot")
+    del bank2, graphs
+
+    # the times, in a fresh interpreter
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = f"import json, chip_smoke; print('GRAPH_TIMING', json.dumps(chip_smoke.graph_timing({seed})))"
+    r = subprocess.run([sys.executable, "-c", code], cwd=here, env={**os.environ, "PYTHONPATH": here},
+                       capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        print(r.stdout[-3000:], r.stderr[-6000:], file=sys.stderr)
+    check(r.returncode == 0, "the compiled programs' timing run exits 0")
+    for line in r.stdout.splitlines():
+        if line.startswith("[profile]"):
+            print(f"[graphs] fresh interpreter {line}")
+    t = json.loads(r.stdout.split("GRAPH_TIMING ", 1)[1].splitlines()[0])
+    med = lambda k: float(np.median(t[k]))
+    for what, key in (("run_batch (16 x 5, 150 PnP iterations)", "run_batch"), ("bank build (162 views)", "bank"),
+                      ("estimate, host crops (18 detections)", "estimate_host"),
+                      ("estimate, on-device crops", "estimate_device")):
+        e, g = med(f"{key}_eager_ms"), med(f"{key}_graphed_ms")
+        extra = f" = {16 / e * 1e3!r} vs {16 / g * 1e3!r} crops/s" if key == "run_batch" else ""
+        print(f"[graphs] fresh interpreter, {what} ms, median of {len(t[f'{key}_graphed_ms'])} after a warm-up: "
+              f"eager {e!r} (min {min(t[f'{key}_eager_ms'])!r}), graphed {g!r} (min {min(t[f'{key}_graphed_ms'])!r})"
+              f"{extra}")
+    print(f"[graphs] fresh interpreter, capture s per program (warm-up + capture): {t['capture_s']!r}")
+    print(f"[graphs] fresh interpreter, host ms of one replayed run_batch by part (median of 20): {t['replay_host_ms']!r}")
+    print(f"[graphs] fresh interpreter, device memory GiB (max allocated during the call from a reset; "
+          f"reserved after it): {t['memory']!r}")
+    print(f"[graphs] fresh interpreter, profiled replays: run_batch device busy {t['busy_ms']!r} ms of the "
+          f"{med('run_batch_graphed_ms')!r} ms median = idle share {1 - t['busy_ms'] / med('run_batch_graphed_ms')!r}; "
+          f"bank build busy {t['bank_busy_ms']!r} ms of {med('bank_graphed_ms')!r} = idle share "
+          f"{1 - t['bank_busy_ms'] / med('bank_graphed_ms')!r}")
+    return replay_launches
+
+
+def replay_host_ms(graphs, model, batch, bank, gen, call) -> dict:
+    """Host ms of the parts of one replayed run_batch, each the median of
+    20 after a synchronisation: the whole call up to its return (device
+    work queued), the program's key (flattening the batch and the bank,
+    the module's parameter addresses), ``module_key`` alone and the graph's
+    launch (``CUDAGraph.replay``)."""
+    from torch.utils import _pytree as pytree
+
+    from picopose_tpu_torch.eval import pipeline as P
+    from picopose_tpu_torch.utils import graphs as G
+
+    (prog,) = [p for k, p in graphs._programs.items() if k[0] == "run_batch"]
+    args = ({k: torch.as_tensor(batch[k]) for k in P.BATCH_KEYS},)
+    parts = {
+        "call": call,
+        "key": lambda: G._key("run_batch", (), pytree.tree_flatten(args), pytree.tree_flatten(bank), gen, model),
+        "module_key": lambda: G.module_key(model),
+        "graph_replay": prog.graph.replay,
+    }
+    out = {}
+    for name, fn in parts.items():
+        times = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = float(np.median(times))
+    torch.cuda.synchronize()
+    return out
+
+
+def graph_timing(seed: int) -> dict:
+    """Phase 10's host-clock times, in an interpreter that has never run
+    torch.profiler (PERF.md §6): a seeded ViT-L ``PoseEstimator`` on
+    phase 5's world.  Eager against graphed, each the median of runs after a
+    warm-up: the bank build (162 views), run_batch (16 host crops x 5
+    hypotheses), ``estimate`` with host and with on-device crops (the eager
+    one with the graphed entries patched to the eager functions); the
+    first-call (warm-up + capture) seconds of every program; the host ms
+    of a replayed run_batch by part (``replay_host_ms``); device memory
+    of an eager and a graphed run_batch and with a second bank registered;
+    then profiles of one graphed run_batch and one graphed bank build."""
+    import warnings
+
+    from picopose_tpu_torch import kernels
+    from picopose_tpu_torch import serve as SV
+    from picopose_tpu_torch.eval import pipeline as P
+    from picopose_tpu_torch.ops import preprocess as PP
+
+    kernels.build()
+    queries = list(range(0, 162, 10))[:16]
+    bank_np, frame, K, dets, _ = serve_world(seed, queries)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        est = SV.PoseEstimator(seed=seed)
+    calm_stage3_heads_(est.model)
+    model, graphs, gen = est.model, est.graphs, est.generator
+    dev_bank = [torch.as_tensor(a, device="cuda") for a in bank_np]
+    out = {}
+
+    def first_s(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def memory(fn) -> dict:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return {"max_allocated": torch.cuda.max_memory_allocated() / 2**30, "reserved": torch.cuda.memory_reserved() / 2**30}
+
+    eager_bank = lambda: P.build_bank(model, *dev_bank, chunk=32)
+    graphed_bank = lambda: P.build_bank_graphed(graphs, model, *dev_bank, chunk=32)
+    out["bank_eager_ms"] = host_ms(eager_bank, 6)[1:]
+    out["bank_first_s"] = first_s(graphed_bank)
+    out["bank_graphed_ms"] = host_ms(graphed_bank, 6)[1:]
+    bank = graphed_bank()
+    est.register_bank(1, bank)
+    batch = est._host_batch(frame, K, dets[:16], 0)
+    eager_rb = lambda: P.run_batch(model, batch, bank, generator=gen)
+    graphed_rb = lambda: P.run_batch_graphed(graphs, model, batch, bank, generator=gen)
+    mem = {"eager run_batch": memory(eager_rb)}
+    out["run_batch_eager_ms"] = host_ms(eager_rb, 13)[1:]
+    mem["graphed run_batch, capturing call"] = memory(graphed_rb)
+    mem["graphed run_batch, replay"] = memory(graphed_rb)
+    out["run_batch_graphed_ms"] = host_ms(graphed_rb, 13)[1:]
+    out["replay_host_ms"] = replay_host_ms(graphs, model, batch, bank, gen, graphed_rb)
+    perm = torch.randperm(162, generator=torch.Generator().manual_seed(seed)).to("cuda")
+    bank2 = P.build_bank_graphed(graphs, model, *(a[perm] for a in dev_bank), chunk=32)
+    est.register_bank(2, bank2)
+    mem["graphed run_batch, a second bank registered, swapped in"] = memory(
+        lambda: P.run_batch_graphed(graphs, model, batch, bank2, generator=gen))
+    del est._banks[2], bank2
+    out["memory"] = mem
+
+    for flag in (False, True):
+        est.device_preprocess = flag
+        key = "estimate_device" if flag else "estimate_host"
+        out[f"{key}_graphed_ms"] = host_ms(lambda: est.estimate(frame, K, dets), 11)[1:]
+        eager = lambda g, *a, **kw: P.run_batch(*a, **kw)
+        with patched((SV, "run_batch_graphed", eager),
+                     (SV, "preprocess_frame_graphed", lambda g, *a, **kw: PP.preprocess_frame(*a, **kw))):
+            out[f"{key}_eager_ms"] = host_ms(lambda: est.estimate(frame, K, dets), 11)[1:]
+    est.device_preprocess = False
+    out["capture_s"] = {k: v for k, v in graphs.capture_s.items()}
+
+    print("[profile] one graphed run_batch (a replay):")
+    out["busy_ms"] = profile_batch(graphed_rb, top=8)[0]
+    print("[profile] one graphed bank build (replays):")
+    out["bank_busy_ms"] = profile_batch(graphed_bank, top=8)[0]
+    return out
+
+
 def pnp_scene(rng, B: int, N: int):
     """(pts3d, pts2d, K, valid) CPU tensors: B poses, N model points each
     projected with 0.3 px noise, 30% of them moved anywhere in the image,
@@ -2563,8 +2949,13 @@ def main() -> int:
     small_reference(SEED)
     print(f"[phase] small reference {time.perf_counter() - t0!r} s")
     t0 = time.perf_counter()
-    launches["match_scores_int8"] = serve_phase(SEED)["match_scores_int8"]
+    int8_launches, world = serve_phase(SEED)
+    launches["match_scores_int8"] = int8_launches["match_scores_int8"]
     print(f"[phase] serve {time.perf_counter() - t0!r} s")
+    t0 = time.perf_counter()
+    replay_launches = graph_phase(SEED, world)
+    del world
+    print(f"[phase] compiled programs (phase 10) {time.perf_counter() - t0!r} s")
     t0 = time.perf_counter()
     gradient_phase(SEED)
     print(f"[phase] gradients {time.perf_counter() - t0!r} s")
@@ -2593,6 +2984,7 @@ def main() -> int:
         rows.append({
             "name": name, "route": "cuda", "source": src + source,
             "replaces": replaces[name], "launches": launches[name],
+            "replay_launches": replay_launches[name],
             "train_launches": train_launches[name], "loop_launches": loop_launches[name],
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],

@@ -6,6 +6,11 @@ and ``run_batch`` (:61-232), which composes ``select_templates`` and
 flow decoder, dense correspondences), batched RANSAC-PnP, the stage-2
 fallback where PnP fails and the ranking by inlier ratio.
 
+``run_batch_graphed`` and ``build_bank_graphed`` are the compiled
+programs (utils/graphs.py): CUDA graphs captured at fixed shapes and
+replayed, as the JAX package jit-compiles ``run_batch_jit`` (:235-243)
+and the bank build's ``feat_fn`` / ``dpt_fn`` (:262-263).
+
 Shapes: B = instance batch, N = template views, HYP = hypotheses; the
 hypothesis axis is folded into the batch axis for stage 2.  Inputs may be
 numpy arrays or tensors; they are moved to the model's device.  Every
@@ -25,8 +30,9 @@ from picopose_tpu_torch.device import full_fp32
 from picopose_tpu_torch.geom.affine import affine_from_prediction
 from picopose_tpu_torch.geom.pose2d import pose_from_affine_2d
 from picopose_tpu_torch.models.correspondence import final_correspondences, init_correspondences
-from picopose_tpu_torch.ops.matching import match_templates
+from picopose_tpu_torch.ops.matching import match_mode_from_env, match_templates
 from picopose_tpu_torch.ops.pnp import _inv3, ransac_pnp
+from picopose_tpu_torch.utils.graphs import GraphCache
 
 
 class TemplateBank(NamedTuple):
@@ -73,6 +79,31 @@ def _tile(x: torch.Tensor, hyp: int) -> torch.Tensor:
     return x[:, None].expand(x.shape[0], hyp, *x.shape[1:]).reshape(-1, *x.shape[1:])
 
 
+def _chunk_program(model, cache_dpt: bool):
+    """One chunk of views -> (4 backbone taps, 3 DPT pyramids or None)."""
+
+    def program(rgb: torch.Tensor):
+        f = model.features(rgb)
+        return tuple(f), (tuple(model.dpt(f)) if cache_dpt else None)
+
+    return program
+
+
+def _assemble_bank(model, chunk_fn, tem_rgb, tem_mask, tem_pts3d, tem_pose, tem_K, tem_M,
+                   chunk: int, cache_dpt: bool) -> TemplateBank:
+    if cache_dpt:
+        _eval_mode(model)
+    dev = model.device
+    rgb = _to(tem_rgb, dev)
+    parts = [chunk_fn(rgb[s : s + chunk]) for s in range(0, rgb.shape[0], chunk)]
+    feats = tuple(torch.cat([p[0][i] for p in parts]) for i in range(4))
+    dpt = tuple(torch.cat([p[1][i] for p in parts]) for i in range(3)) if cache_dpt else None
+    return TemplateBank(
+        feats=feats, mask=_to(tem_mask, dev), pts3d=_to(tem_pts3d, dev),
+        pose=_to(tem_pose, dev), K=_to(tem_K, dev), M=_to(tem_M, dev), dpt=dpt,
+    )
+
+
 @torch.inference_mode()
 @full_fp32()
 def build_bank(
@@ -81,25 +112,25 @@ def build_bank(
 ) -> TemplateBank:
     """Backbone taps (and DPT pyramids) of all N views, ``chunk`` views at a
     time to bound peak memory."""
-    if cache_dpt:
-        _eval_mode(model)
-    dev = model.device
-    rgb = _to(tem_rgb, dev)
-    feats_chunks, dpt_chunks = [], []
-    for s in range(0, rgb.shape[0], chunk):
-        f = model.features(rgb[s : s + chunk])
-        feats_chunks.append(f)
-        if cache_dpt:
-            dpt_chunks.append(model.dpt(f))
-    feats = tuple(torch.cat([c[i] for c in feats_chunks]) for i in range(4))
-    dpt = (
-        tuple(torch.cat([c[i] for c in dpt_chunks]) for i in range(3))
-        if cache_dpt else None
-    )
-    return TemplateBank(
-        feats=feats, mask=_to(tem_mask, dev), pts3d=_to(tem_pts3d, dev),
-        pose=_to(tem_pose, dev), K=_to(tem_K, dev), M=_to(tem_M, dev), dpt=dpt,
-    )
+    return _assemble_bank(model, _chunk_program(model, cache_dpt), tem_rgb, tem_mask, tem_pts3d,
+                          tem_pose, tem_K, tem_M, chunk, cache_dpt)
+
+
+@torch.inference_mode()
+@full_fp32()
+def build_bank_graphed(
+    graphs: GraphCache, model, tem_rgb, tem_mask, tem_pts3d, tem_pose, tem_K, tem_M,
+    chunk: int = 32, cache_dpt: bool = True,
+) -> TemplateBank:
+    """``build_bank`` with each chunk's features and DPT pyramids as one
+    program of ``graphs`` (counterpart of the JAX ``build_bank``'s jitted
+    ``feat_fn`` / ``dpt_fn``, picopose_tpu/eval/pipeline.py:262-263): a
+    162-view bank in chunks of 32 is two programs, 32 views and the last
+    2.  The same banks as ``build_bank``, bitwise."""
+    program = _chunk_program(model, cache_dpt)
+    chunk_fn = lambda rgb: graphs.run("bank_chunk", program, (rgb,), static=(cache_dpt,), module=model)
+    return _assemble_bank(model, chunk_fn, tem_rgb, tem_mask, tem_pts3d, tem_pose, tem_K, tem_M,
+                          chunk, cache_dpt)
 
 
 @torch.inference_mode()
@@ -202,8 +233,6 @@ def stage3_correspondences(
     return Correspondences(flows, certs, tar_pts, valid, model_pts, pts2d)
 
 
-@torch.inference_mode()
-@full_fp32()
 def run_batch(
     model, batch: dict, bank: TemplateBank, hyp: int = 5, pnp_iters: int = 150,
     stage3_topk: int | None = None, generator: torch.Generator | None = None,
@@ -218,6 +247,15 @@ def run_batch(
     reference's behaviour).  PnP draws come from ``generator``, or from
     ``pnp_draws(valid) -> (sample_idx, subset_idx)`` where given.
     """
+    return _ranked(model, batch, bank, hyp, pnp_iters, stage3_topk, generator, pnp_draws)[0]
+
+
+@torch.inference_mode()
+@full_fp32()
+def _ranked(model, batch, bank, hyp, pnp_iters, stage3_topk, generator, pnp_draws):
+    """``run_batch``'s (EvalOutput, ids, order): ids (B, HYP) the matched
+    template views, best match first; order (B, HYP) the ranking (output
+    slot j holds hypothesis order[:, j])."""
     dev = model.device
     feats_real, scores, ids = select_templates(model, batch, bank, hyp=hyp)
     pred_Ms, poses_2d = stage2_poses(model, batch, bank, feats_real, ids)
@@ -249,10 +287,44 @@ def run_batch(
 
     # rank by inlier ratio, best first; ties keep the matching order
     order = torch.argsort(-ratio, dim=1, stable=True)
-    return EvalOutput(
+    out = EvalOutput(
         R=torch.take_along_dim(R, order[..., None, None], dim=1),
         t=torch.take_along_dim(t, order[..., None], dim=1),
         inlier_ratio=torch.take_along_dim(ratio, order, dim=1),
         pnp_success=torch.take_along_dim(success, order, dim=1),
         template_score=scores,
     )
+    return out, ids, order
+
+
+BATCH_KEYS = ("real_rgb", "real_mask", "real_M", "real_K")
+
+
+def run_batch_graphed(
+    graphs: GraphCache, model, batch: dict, bank: TemplateBank, hyp: int = 5, pnp_iters: int = 150,
+    stage3_topk: int | None = None, generator: torch.Generator | None = None,
+) -> EvalOutput:
+    """``run_batch`` as one program of ``graphs``: the counterpart of the
+    JAX package's ``run_batch_jit`` (picopose_tpu/eval/pipeline.py:235-243).
+
+    Static: ``hyp``, ``pnp_iters``, ``stage3_topk`` and what Python reads
+    at capture (the matching mode from the environment, the flow decoder's
+    ``quantize`` and ``fuse_xheads``).  Inputs: the batch's four arrays,
+    copied in per call, and the bank, by value into one static slot per
+    bank shape (copied in when another bank comes in: ~0.83 GB for a
+    162-view ViT-L bank).  PnP draws come from ``generator`` (the
+    device's default when None) as in ``run_batch``, replay by replay.
+    A ``pnp_draws`` callback runs on the host, which no graph can hold:
+    only the eager ``run_batch`` takes it.  Returns what ``run_batch``
+    returns, as fresh tensors."""
+    return _ranked_graphed(graphs, model, batch, bank, hyp, pnp_iters, stage3_topk, generator)[0]
+
+
+@torch.inference_mode()
+def _ranked_graphed(graphs, model, batch, bank, hyp, pnp_iters, stage3_topk, generator):
+    """``_ranked`` as the program of ``run_batch_graphed``."""
+    fd = model.flow_decoder
+    static = (hyp, pnp_iters, stage3_topk, match_mode_from_env(), fd.quantize, fd.fuse_xheads)
+    program = lambda b, bk: _ranked(model, b, bk, hyp, pnp_iters, stage3_topk, generator, None)
+    args = ({k: torch.as_tensor(batch[k]) for k in BATCH_KEYS},)
+    return graphs.run("run_batch", program, args, static=static, slot=bank, generator=generator, module=model)

@@ -20,6 +20,14 @@ Counterpart of picopose_tpu/eval/runner.py (``RawImageCache`` :41,
     time between consecutive reads, divided by the batch's real instance
     count, not the padded size) plus the detector's ``seg_time``.
 
+On the card each batch replays ``run_batch_graphed`` and each bank the
+bank build's chunk programs, CUDA graphs in one ``GraphCache`` per run
+(utils/graphs.py), as the JAX runner calls ``run_batch_jit``; the
+decode thread pins its batches under the cache's lock, since a capture
+refuses other threads' CUDA calls.  A ``pnp_draws`` callback (the CPU
+parity tests' shared draws) runs on the host, which no graph holds: with
+it every batch runs the eager ``run_batch``.
+
 With a bf16 model the bf16-consumed weights are stored in bf16 first
 (utils/precast.py, in place; outputs bitwise unchanged).  Sharding over
 several devices (the JAX package's mesh branch, :159-171) is not ported.
@@ -39,7 +47,8 @@ import torch
 
 from picopose_tpu_torch.data.bop import BOPTestDataset, load_template_views
 from picopose_tpu_torch.eval.bop_csv import format_row, write_csv
-from picopose_tpu_torch.eval.pipeline import build_bank, run_batch
+from picopose_tpu_torch.eval.pipeline import build_bank_graphed, run_batch, run_batch_graphed
+from picopose_tpu_torch.utils.graphs import GraphCache
 from picopose_tpu_torch.utils.precast import precast_inference_params
 
 _BATCH_KEYS = ("rgb", "mask", "M", "K", "pts2d")
@@ -83,10 +92,11 @@ def _stream_batches(
     batch_size: int,
     workers: int = 8,
     depth: int = 3,
-    pin: bool = False,
+    pin: threading.Lock | None = None,
 ):
     """Yield (chunk refs, real count, padded batch of CPU tensors, pinned
-    when ``pin``) decoded in the background, at most ``depth`` ahead."""
+    under the lock ``pin`` when given) decoded in the background, at most
+    ``depth`` ahead."""
     q: queue.Queue = queue.Queue(maxsize=depth)
     stop = threading.Event()
 
@@ -110,7 +120,10 @@ def _stream_batches(
                         if pad:
                             arr = np.concatenate([arr, np.repeat(arr[-1:], pad, axis=0)])
                         t = torch.from_numpy(arr)
-                        batch[f"real_{name}"] = t.pin_memory() if pin else t
+                        if pin is not None:
+                            with pin:
+                                t = t.pin_memory()
+                        batch[f"real_{name}"] = t
                     q.put((chunk, len(chunk), batch))
             q.put(None)
         except BaseException as e:  # handed to the consumer, which raises it
@@ -156,7 +169,7 @@ def evaluate_dataset(
 
     PnP draws come from ``generator`` (by default one on the model's
     device seeded with 0), or from ``pnp_draws(valid)`` for each batch in
-    order, as ``run_batch`` takes them."""
+    order, as ``run_batch`` takes them (the eager route)."""
     dev = model.device
     if model.compute_dtype == torch.bfloat16:
         precast_inference_params(model)  # outside inference mode: the weights stay normal tensors
@@ -164,6 +177,7 @@ def evaluate_dataset(
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
         cuda = dev.type == "cuda"
+        graphs = GraphCache(dev)
 
         # ---- metadata pass: group instance refs by object, no pixel decode
         n_images = len(dataset)
@@ -199,13 +213,14 @@ def evaluate_dataset(
 
         for obj_id, refs in sorted(by_obj.items()):
             t0 = time.perf_counter()
-            stream = _stream_batches(dataset, cache, refs, batch_size, workers=decode_workers, pin=cuda)
+            stream = _stream_batches(dataset, cache, refs, batch_size, workers=decode_workers,
+                                     pin=graphs.lock if cuda else None)
             tem = load_template_views(
                 template_dir, obj_id, dataset.n_template_view,
                 dataset.img_size, dataset.pts_size, dataset.rgb_mask_flag,
             )
-            bank = build_bank(
-                model, tem["tem_rgb"], tem["tem_mask"], tem["tem_pts3d"],
+            bank = build_bank_graphed(
+                graphs, model, tem["tem_rgb"], tem["tem_mask"], tem["tem_pts3d"],
                 tem["tem_pose"], tem["tem_K"], tem["tem_M"],
             )
             if progress:
@@ -220,10 +235,12 @@ def evaluate_dataset(
             mark = time.perf_counter()
             for chunk, B, batch in stream:
                 batch = {k: v.to(dev, non_blocking=True) for k, v in batch.items()}
-                out = run_batch(
-                    model, batch, bank, hyp=hyp, pnp_iters=pnp_iters, stage3_topk=stage3_topk,
-                    generator=generator, pnp_draws=pnp_draws,
-                )
+                if pnp_draws is None:
+                    out = run_batch_graphed(graphs, model, batch, bank, hyp=hyp, pnp_iters=pnp_iters,
+                                            stage3_topk=stage3_topk, generator=generator)
+                else:
+                    out = run_batch(model, batch, bank, hyp=hyp, pnp_iters=pnp_iters, stage3_topk=stage3_topk,
+                                    generator=generator, pnp_draws=pnp_draws)
                 packed = torch.cat([out.R[:B, 0].reshape(B, 9), out.t[:B, 0]], dim=1)
                 host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=cuda)
                 host.copy_(packed, non_blocking=cuda)

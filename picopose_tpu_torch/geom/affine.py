@@ -64,7 +64,8 @@ def make_affine(
         else rotation.new_zeros((*batch, 2))
     )
     top = torch.cat([lin, t[..., :, None]], dim=-1)  # (..., 2, 3)
-    bottom = rotation.new_tensor([0.0, 0.0, 1.0]).expand(*batch, 1, 3)
+    bottom = (torch.arange(3, device=rotation.device) == 2).to(rotation.dtype)  # (0, 0, 1), no host copy
+    bottom = bottom.expand(*batch, 1, 3)
     return torch.cat([top, bottom], dim=-2)
 
 

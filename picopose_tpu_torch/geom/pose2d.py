@@ -48,7 +48,7 @@ def pose_from_affine_2d(
     focal_ratio = query_K[..., 0, 0] / template_K[..., 0, 0]
     query_z = (tem_z / scale2d) * focal_ratio
 
-    ray = _matvec(torch.linalg.inv(query_K), query_c)
+    ray = _matvec(torch.linalg.inv_ex(query_K).inverse, query_c)  # unchecked: no host sync
     ray = ray / ray[..., 2:3]
     pred_pose[..., :3, 3] = ray * query_z[..., None]
     return pred_pose

@@ -9,7 +9,9 @@ flags, so a changed source is rebuilt).  Nothing is built at import time.
 
 ``LAUNCHES`` counts, per kernel, the launches made through ``launch``: a
 caller sets it to zero before a run and reads it after, to show that the
-run went through the kernels.  A kernel may have several names that share
+run went through the kernels.  A launch made while its stream captures a
+CUDA graph is not counted: it runs only when the graph is replayed, and
+no wrapper runs then (utils/graphs.py).  A kernel may have several names that share
 one source and entry point (K3's int8 branch, ``match_scores_int8``), so
 that each branch is counted on its own; the source is built once.
 """
@@ -128,10 +130,13 @@ def build(names=None, verbose: bool = False) -> dict[str, str]:
 
 
 def launch(name: str, *args) -> None:
-    """Launch kernel ``name`` (building it at first use) and count the launch.
+    """Launch kernel ``name`` (building it at first use) and count the
+    launch, unless the current stream is capturing a CUDA graph.
 
     Raises if the launch was refused; a fault during the run shows at the
     next synchronisation."""
+    import torch
+
     fn = _entries.get(name)
     if fn is None:
         build([name])
@@ -140,7 +145,8 @@ def launch(name: str, *args) -> None:
     if err != 0:
         msg = _libs[name].pp_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err} ({msg})")
-    LAUNCHES[name] += 1
+    if not torch.cuda.is_current_stream_capturing():
+        LAUNCHES[name] += 1
 
 
 def reset_launches() -> None:

@@ -16,6 +16,7 @@ package's ``nn.remat``): the recompute launches K1 and K2 again.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Sequence
 
@@ -28,6 +29,14 @@ from torch.utils.checkpoint import checkpoint
 from picopose_tpu_torch.models.layers import Conv2d, Linear
 from picopose_tpu_torch.ops.attention import attention
 from picopose_tpu_torch.ops.layernorm import layernorm
+
+
+@functools.lru_cache(maxsize=None)
+def _resize_matrix(in_size: int, out_size: int, scale: float, device: torch.device) -> torch.Tensor:
+    """``bicubic_resize_matrix`` on ``device``, uploaded once (a CUDA graph
+    cannot hold a host copy) as a normal tensor, usable under autograd."""
+    with torch.inference_mode(False):
+        return torch.as_tensor(bicubic_resize_matrix(in_size, out_size, scale), dtype=torch.float32, device=device)
 
 
 @dataclass(frozen=True)
@@ -186,9 +195,8 @@ class DinoViT(nn.Module):
         G = c.pos_grid
         if (h, w) == (G, G):
             return pe
-        f32 = dict(dtype=torch.float32, device=pe.device)
-        Wy = torch.as_tensor(bicubic_resize_matrix(G, h, (h + c.interpolate_offset) / G), **f32)
-        Wx = torch.as_tensor(bicubic_resize_matrix(G, w, (w + c.interpolate_offset) / G), **f32)
+        Wy = _resize_matrix(G, h, (h + c.interpolate_offset) / G, pe.device)
+        Wx = _resize_matrix(G, w, (w + c.interpolate_offset) / G, pe.device)
         grid = pe[:, 1:].reshape(G, G, -1).float()
         grid = torch.einsum("yg,ghc->yhc", Wy, grid)
         grid = torch.einsum("xh,yhc->yxc", Wx, grid)

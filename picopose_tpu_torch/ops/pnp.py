@@ -101,6 +101,11 @@ def _det3(A: torch.Tensor) -> torch.Tensor:
     return a * (e * i - f * h) - b * (d * i - f * g) + c * (d * h - e * g)
 
 
+def _unit_z(like: torch.Tensor) -> torch.Tensor:
+    """(0, 0, 1) in ``like``'s dtype, made on its device (no host copy)."""
+    return (torch.arange(3, device=like.device) == 2).to(like.dtype)
+
+
 def _inv3(A: torch.Tensor) -> torch.Tensor:
     """Closed-form (adjugate) inverse of (..., 3, 3); |det| < 1e-30 -> 1e-30."""
     a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
@@ -217,7 +222,7 @@ def _weighted_dlt(pts3d: torch.Tensor, uv: torch.Tensor, w: torch.Tensor):
     t = P[..., 3] / scale[..., None]
     ok = torch.isfinite(R).all(-1).all(-1) & torch.isfinite(t).all(-1)
     R = torch.where(ok[..., None, None], R, _eye(3, R).expand_as(R))
-    t = torch.where(ok[..., None], t, torch.tensor([0.0, 0.0, 1.0], dtype=t.dtype, device=t.device))
+    t = torch.where(ok[..., None], t, _unit_z(t))
     return R, t, ok
 
 
@@ -370,8 +375,6 @@ def ransac_pnp(
     n_inl = ((err2 < REPROJ_PX**2) & valid).sum(-1)
     success = (n_valid >= MIN_POINTS) & (best_score > 0)
     R_out = torch.where(success[:, None, None], R_out, _eye(3, R_out).expand_as(R_out))
-    t_out = torch.where(
-        success[:, None], t_out, torch.tensor([0.0, 0.0, 1.0], device=t_out.device)
-    )
+    t_out = torch.where(success[:, None], t_out, _unit_z(t_out))
     ratio = torch.where(success, n_inl.float() / torch.clamp(n_valid, min=1.0), torch.zeros_like(n_valid))
     return PnPResult(R_out, t_out, ratio, success)

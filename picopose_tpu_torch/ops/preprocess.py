@@ -16,6 +16,10 @@ JAX package computes it).  The products run in fp32 under
 counterpart of the JAX code's ``Precision.HIGHEST``.  The bbox follows the host's integer
 flow exactly (``_bbox_from_mask`` :43 with exclusive y2/x2, ``_squareize``
 :58); M and pts2d are closed forms of data/crops.py's.
+
+``preprocess_frame_graphed`` is the compiled program, a CUDA graph
+(utils/graphs.py), as the JAX package jit-compiles ``preprocess_frame``
+(:154).  Nothing here copies from the host, so a graph can hold it.
 """
 
 from __future__ import annotations
@@ -23,9 +27,15 @@ from __future__ import annotations
 import torch
 
 from picopose_tpu_torch.device import full_fp32
+from picopose_tpu_torch.utils.graphs import GraphCache
 
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
+
+
+def _vector(values: tuple[float, ...], dev: torch.device) -> torch.Tensor:
+    """fp32 constants filled on the device (no host copy)."""
+    return torch.stack([torch.full((), v, dtype=torch.float32, device=dev) for v in values])
 
 
 def _bbox_from_mask(masks: torch.Tensor) -> torch.Tensor:
@@ -120,9 +130,7 @@ def preprocess_frame(
     else:
         rows = torch.einsum("byh,hwc->bywc", Ry, ff)
     crop = torch.einsum("bywc,bxw->byxc", rows, Rx)
-    mean = torch.tensor(CLIP_MEAN, device=dev)
-    std = torch.tensor(CLIP_STD, device=dev)
-    rgb = (crop - mean) / std
+    rgb = (crop - _vector(CLIP_MEAN, dev)) / _vector(CLIP_STD, dev)
 
     Ny = _nearest_rows(y1, hsz, H, out)
     Nx = _nearest_rows(x1, wsz, W, out)
@@ -141,3 +149,20 @@ def preprocess_frame(
     px = (xx + (s * x1)[:, None, None]) / s[:, None, None]
     py = (yy + (sx * y1)[:, None, None]) / sx[:, None, None]
     return {"real_rgb": rgb, "real_mask": m, "real_M": M, "real_pts2d": torch.stack([px, py], dim=-1)}
+
+
+@torch.inference_mode()
+def preprocess_frame_graphed(
+    graphs: GraphCache,
+    frame: torch.Tensor,
+    masks: torch.Tensor,
+    bboxes: torch.Tensor | None = None,
+    use_bbox: torch.Tensor | None = None,
+    out: int = 224,
+    pts: int = 64,
+    mask_rgb: bool = False,
+) -> dict[str, torch.Tensor]:
+    """``preprocess_frame`` as one program of ``graphs``, keyed on the
+    frame's shape, the mask count, ``out``, ``pts`` and ``mask_rgb``."""
+    program = lambda f, m, b, u: preprocess_frame(f, m, b, u, out=out, pts=pts, mask_rgb=mask_rgb)
+    return graphs.run("preprocess_frame", program, (frame, masks, bboxes, use_bbox), static=(out, pts, mask_rgb))

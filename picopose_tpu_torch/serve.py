@@ -16,6 +16,16 @@ results of all of them come back to the host in one copy at the end.
 Crops are cut on the host (data/crops.py) or, with ``device_preprocess``,
 on the device from one uploaded frame and its masks (ops/preprocess.py).
 
+On the card the estimator runs its compiled programs, CUDA graphs in one
+``GraphCache`` (``self.graphs``, utils/graphs.py), as the JAX package's
+entry point runs ``run_batch_jit``: ``estimate`` replays
+``run_batch_graphed`` per chunk (and ``preprocess_frame_graphed`` with
+``device_preprocess``), ``register_object`` the bank build's chunk
+programs.  Each captures at its first call of a shape, after the weights
+are loaded and precast; no entry point re-assigns them after
+(``load_flax_variables`` copies in place), and a model whose parameters
+were re-assigned is captured anew.
+
 Bank files are the JAX package's: ``bank_<obj:06d>.npz`` with the fields
 mask, pts3d, pose, K, M, feats_<i> and dpt_<i>, bf16 arrays stored as raw
 uint16 under the structured dtype [("bf16", uint16)], so a bank written by
@@ -51,11 +61,12 @@ from picopose_tpu_torch.data.crops import (
 )
 from picopose_tpu_torch.data.rle import rle_to_mask
 from picopose_tpu_torch.device import full_fp32, resolve_device
-from picopose_tpu_torch.eval.pipeline import TemplateBank, build_bank, run_batch
+from picopose_tpu_torch.eval.pipeline import TemplateBank, build_bank_graphed, run_batch_graphed
 from picopose_tpu_torch.models import PicoPose
 from picopose_tpu_torch.models.dinov2 import VIT_CONFIGS
-from picopose_tpu_torch.ops.preprocess import preprocess_frame
+from picopose_tpu_torch.ops.preprocess import preprocess_frame_graphed
 from picopose_tpu_torch.utils.checkpoint import load_any
+from picopose_tpu_torch.utils.graphs import GraphCache
 from picopose_tpu_torch.utils.precast import precast_inference_params
 from picopose_tpu_torch.utils.weights import init_random_, load_flax_variables
 
@@ -92,7 +103,7 @@ class PoseResult:
 
 
 class PoseEstimator:
-    """Single-process estimator around ``run_batch`` on one device."""
+    """Single-process estimator around ``run_batch_graphed`` on one device."""
 
     def __init__(
         self,
@@ -136,6 +147,7 @@ class PoseEstimator:
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(seed)
         self.generator = generator
+        self.graphs = GraphCache(self.device)
         self._banks: dict[int, TemplateBank] = {}
         if variables is None and checkpoint is not None:
             variables = load_any(checkpoint, depth=VIT_CONFIGS[vit_type].depth)
@@ -157,8 +169,8 @@ class PoseEstimator:
             template_dir, obj_id, self.n_template_view,
             self.img_size, self.pts_size, self.rgb_mask_flag,
         )
-        self._banks[obj_id] = build_bank(
-            self.model, tem["tem_rgb"], tem["tem_mask"], tem["tem_pts3d"],
+        self._banks[obj_id] = build_bank_graphed(
+            self.graphs, self.model, tem["tem_rgb"], tem["tem_mask"], tem["tem_pts3d"],
             tem["tem_pose"], tem["tem_K"], tem["tem_M"],
         )
 
@@ -282,8 +294,8 @@ class PoseEstimator:
             bboxes = np.concatenate([bboxes, np.repeat(bboxes[-1:], pad, 0)])
             use_bbox = np.concatenate([use_bbox, np.repeat(use_bbox[-1:], pad, 0)])
         put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-        batch = preprocess_frame(
-            put(rgb), put(masks), bboxes=put(bboxes), use_bbox=put(use_bbox),
+        batch = preprocess_frame_graphed(
+            self.graphs, put(rgb), put(masks), bboxes=put(bboxes), use_bbox=put(use_bbox),
             out=self.img_size, pts=self.pts_size, mask_rgb=self.rgb_mask_flag,
         )
         batch["real_K"] = put(np.repeat(K.astype(np.float32)[None], len(dets) + pad, 0))
@@ -318,9 +330,9 @@ class PoseEstimator:
                     batch = self._device_batch(rgb, K, dets, pad)
                 else:
                     batch = self._host_batch(rgb, K, dets, pad)
-                out = run_batch(self.model, batch, self._banks[obj], hyp=self.hyp,
-                                pnp_iters=self.pnp_iters, stage3_topk=self.stage3_topk,
-                                generator=self.generator)
+                out = run_batch_graphed(self.graphs, self.model, batch, self._banks[obj], hyp=self.hyp,
+                                        pnp_iters=self.pnp_iters, stage3_topk=self.stage3_topk,
+                                        generator=self.generator)
                 n = len(chunk)
                 packed.append(torch.cat([
                     out.R[:n, 0].reshape(n, 9), out.t[:n, 0], out.inlier_ratio[:n, :1],

@@ -64,7 +64,8 @@ def test_import_leaves_jax_out_of_sys_modules():
         "picopose_tpu_torch.geom.projection, picopose_tpu_torch.data.synthetic, "
         "picopose_tpu_torch.data.jpeg, picopose_tpu_torch.data.color_augment, "
         "picopose_tpu_torch.data.megapose, picopose_tpu_torch.geom.templates, "
-        "picopose_tpu_torch.utils.logging, picopose_tpu_torch.run_train; "
+        "picopose_tpu_torch.utils.logging, picopose_tpu_torch.run_train, "
+        "picopose_tpu_torch.utils.graphs; "
         "print(sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN + HOST_LIBRARIES!r}))"
     )

@@ -659,3 +659,213 @@ def test_device_prefetch_uploads_every_batch_intact(cuda_device):
         time.sleep(0.05)
         seen += 1
     assert seen == len(batches)
+
+
+# ---- compiled inference programs (utils/graphs.py): replays against eager calls
+
+GRAPH_HYP, GRAPH_ITERS, GRAPH_VIEWS = 3, 16, 6
+
+
+@pytest.fixture(scope="module")
+def graph_world():
+    """vit_tiny_test in bf16 with precast weights on the card, two 6-view
+    banks of one shape and two query batches of 2."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from picopose_tpu_torch.eval import pipeline as P
+    from picopose_tpu_torch.utils.precast import precast_inference_params
+
+    dev = torch.device("cuda")
+    model = PicoPose("vit_tiny_test", (0, 1, 2, 3), torch.bfloat16, device=dev)
+    init_random_(model, 0)
+    precast_inference_params(model)
+    rng = np.random.default_rng(0)
+
+    def bank_arrays():
+        n = GRAPH_VIEWS
+        pose = np.tile(np.eye(4, dtype=np.float32), (n, 1, 1))
+        pose[:, 2, 3] = 0.5
+        K = np.tile(np.diag([300.0, 300.0, 1.0]).astype(np.float32), (n, 1, 1))
+        return [torch.as_tensor(a, device=dev) for a in (
+            rng.normal(size=(n, 224, 224, 3)).astype(np.float32), (rng.random((n, 224, 224)) > 0.3).astype(np.float32),
+            (rng.normal(size=(n, 64, 64, 3)) + [0, 0, 1]).astype(np.float32), pose, K,
+            np.tile(np.eye(3, dtype=np.float32), (n, 1, 1)))]
+
+    def batch():
+        return {"real_rgb": torch.as_tensor(rng.normal(size=(2, 224, 224, 3)).astype(np.float32), device=dev),
+                "real_mask": torch.as_tensor((rng.random((2, 224, 224)) > 0.3).astype(np.float32), device=dev),
+                "real_M": torch.eye(3, device=dev).repeat(2, 1, 1),
+                "real_K": torch.as_tensor(np.diag([300.0, 300.0, 1.0]), dtype=torch.float32, device=dev).repeat(2, 1, 1)}
+
+    arrays = bank_arrays()
+    banks = [P.build_bank(model, *arrays, chunk=4), P.build_bank(model, *bank_arrays(), chunk=4)]
+    return P, model, arrays, banks, [batch(), batch()]
+
+
+def _run_pair(P, graphs, model, batch, bank, g_graph, g_eager):
+    """(EvalOutput, ids, order) of a graphed and an eager run_batch."""
+    args = (model, batch, bank, GRAPH_HYP, GRAPH_ITERS, None)
+    return P._ranked_graphed(graphs, *args, g_graph), P._ranked(*args, g_eager, None)
+
+
+# the CUDA kernels each wrapper's entry point launches, as a profiler trace names them
+KERNEL_SYMBOLS = {
+    "layernorm": r"\blayernorm_(row|loop)_kernel<",
+    "attention": r"\battention_(hopper|tc|f32)_kernel<",
+    "match_scores": r"\bmatch_scores_(hopper_kernel<__nv_bfloat16>|f32_kernel\b)",
+    "match_scores_int8": r"\bmatch_scores_hopper_kernel<signed char>",
+    "corr_window": r"\bcorr_(tile|f32)_kernel\b",
+    "warp": r"\bwarp_kernel<",
+}
+
+
+def _traced_launches(fn) -> dict:
+    """Executions of each wrapper's kernels during ``fn()`` on the card, by
+    kernel name in a torch.profiler trace (a graph's replay included)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    seen = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for name, pattern in KERNEL_SYMBOLS.items():
+            if re.search(pattern, e.key):
+                seen[name] = seen.get(name, 0) + e.count
+    return seen
+
+
+def _assert_replay_equals_eager(got, ref):
+    """Template ids, ranking order, success, ratios and scores bitwise; R
+    and t within 1e-5 (fp32 PnP on the same correspondences and draws)."""
+    (out, ids, order), (rout, rids, rorder) = got, ref
+    assert torch.equal(ids, rids) and torch.equal(order, rorder)
+    assert torch.equal(out.pnp_success, rout.pnp_success)
+    assert torch.equal(out.inlier_ratio, rout.inlier_ratio)
+    assert torch.equal(out.template_score, rout.template_score)
+    torch.testing.assert_close(out.R, rout.R, atol=1e-5, rtol=0)
+    torch.testing.assert_close(out.t, rout.t, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_run_batch_replay_equals_eager(graph_world):
+    """The first call (warm-up, capture, replay) and the second (replay)
+    equal the first and second eager calls from an equal generator state;
+    warm-up and capture leave the caller's generator as an eager call
+    leaves it.  Launches: the wrappers count the warm-up's (the eager
+    call's), not the capture's, and nothing on a replay; the profiler
+    trace of a replay holds the eager call's kernels."""
+    from picopose_tpu_torch.utils.graphs import GraphCache
+
+    P, model, _, banks, batches = graph_world
+    graphs = GraphCache("cuda")
+    g_graph = torch.Generator(device="cuda").manual_seed(3)
+    g_eager = torch.Generator(device="cuda").manual_seed(3)
+    for call in range(2):
+        got, ref = _run_pair(P, graphs, model, batches[0], banks[0], g_graph, g_eager)
+        torch.cuda.synchronize()
+        _assert_replay_equals_eager(got, ref)
+        assert torch.equal(g_graph.get_state(), g_eager.get_state()), call
+    assert graphs.captures["run_batch"] == 1 and graphs.replays["run_batch"] == 2
+    kw = dict(hyp=GRAPH_HYP, pnp_iters=GRAPH_ITERS)
+    kernels.reset_launches()
+    traced_eager = _traced_launches(lambda: P.run_batch(model, batches[0], banks[0], generator=g_eager, **kw))
+    eager = dict(kernels.LAUNCHES)
+    assert eager == traced_eager == {"layernorm": 8, "attention": 4, "match_scores": 1, "corr_window": 3, "warp": 3}
+    kernels.reset_launches()
+    P.run_batch_graphed(GraphCache("cuda"), model, batches[0], banks[0], generator=g_graph, **kw)
+    assert dict(kernels.LAUNCHES) == eager  # the warm-up; the capture and its replay count nothing
+    kernels.reset_launches()
+    replay = _traced_launches(lambda: P.run_batch_graphed(graphs, model, batches[0], banks[0], generator=g_graph, **kw))
+    assert not kernels.LAUNCHES and replay == eager
+
+
+@pytest.mark.cuda
+def test_queued_calls_do_not_alias(graph_world):
+    """Two calls queued with different inputs before any is read each keep
+    their own results."""
+    from picopose_tpu_torch.utils.graphs import GraphCache
+
+    P, model, _, banks, batches = graph_world
+    graphs = GraphCache("cuda")
+    g_graph = torch.Generator(device="cuda").manual_seed(5)
+    g_eager = torch.Generator(device="cuda").manual_seed(5)
+    args = (GRAPH_HYP, GRAPH_ITERS, None)
+    got = [P._ranked_graphed(graphs, model, b, banks[0], *args, g_graph) for b in batches]
+    ref = [P._ranked(model, b, banks[0], *args, g_eager, None) for b in batches]
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        _assert_replay_equals_eager(a, b)
+    assert not torch.equal(got[0][0].template_score, got[1][0].template_score)
+
+
+@pytest.mark.cuda
+def test_bank_swap_gives_each_banks_eager_result(graph_world):
+    """Banks of one shape share one program and one slot: each call copies
+    in the bank it is given when the slot holds another."""
+    from picopose_tpu_torch.utils.graphs import GraphCache
+
+    P, model, _, banks, batches = graph_world
+    graphs = GraphCache("cuda")
+    g_graph = torch.Generator(device="cuda").manual_seed(7)
+    g_eager = torch.Generator(device="cuda").manual_seed(7)
+    for bank in (banks[0], banks[1], banks[1], banks[0]):
+        got, ref = _run_pair(P, graphs, model, batches[0], bank, g_graph, g_eager)
+        torch.cuda.synchronize()
+        _assert_replay_equals_eager(got, ref)
+    assert graphs.captures["run_batch"] == 1 and graphs.replays["run_batch"] == 4
+    assert len(graphs._slots) == 1
+
+
+@pytest.mark.cuda
+def test_bank_and_preprocess_programs_equal_eager(graph_world):
+    """build_bank_graphed (chunks of 4 and 2: two programs, three replays)
+    and preprocess_frame_graphed equal the eager functions bitwise."""
+    from picopose_tpu_torch.ops.preprocess import preprocess_frame, preprocess_frame_graphed
+    from picopose_tpu_torch.utils.graphs import GraphCache
+
+    P, model, arrays, banks, _ = graph_world
+    graphs = GraphCache("cuda")
+    got = P.build_bank_graphed(graphs, model, *arrays, chunk=4)
+    for a, b in zip(got.feats + got.dpt, banks[0].feats + banks[0].dpt):
+        assert torch.equal(a, b)
+    assert graphs.captures["bank_chunk"] == 2 and graphs.replays["bank_chunk"] == 2
+    g = torch.Generator(device="cuda").manual_seed(1)
+    frame = torch.randint(0, 256, (240, 320, 3), generator=g, device="cuda", dtype=torch.uint8)
+    masks = torch.zeros(3, 240, 320, dtype=torch.uint8, device="cuda")
+    for i, (y, x) in enumerate([(10, 20), (100, 150), (30, 200)]):
+        masks[i, y : y + 60 + 10 * i, x : x + 50] = 1
+    for call in range(2):
+        got = preprocess_frame_graphed(graphs, frame, masks, out=224, pts=64)
+        ref = preprocess_frame(frame, masks, out=224, pts=64)
+        for k in ref:
+            assert torch.equal(got[k], ref[k]), (call, k)
+        frame = frame.flip(0).contiguous()
+    assert graphs.captures["preprocess_frame"] == 1 and graphs.replays["preprocess_frame"] == 2
+
+
+@pytest.mark.cuda
+def test_capture_failure_raises(graph_world):
+    """A program that reads a value back to the host cannot be captured:
+    the call raises, no program is kept, the launch counts are as before
+    and nothing ran eagerly in its place."""
+    from picopose_tpu_torch.utils.graphs import GraphCache
+
+    graphs = GraphCache("cuda")
+    x = torch.randn(4, 64, device="cuda")
+    w, b = torch.ones(64, device="cuda"), torch.zeros(64, device="cuda")
+
+    def program(x):
+        y = L.layernorm(x, w, b)
+        return y * float(y.sum())  # a host read: refused under capture
+
+    kernels.reset_launches()
+    for _ in range(2):
+        with pytest.raises(Exception):
+            graphs.run("bad", program, (x,))
+    torch.cuda.synchronize()
+    assert not graphs._programs and not graphs.replays
+    assert dict(kernels.LAUNCHES) == {"layernorm": 2}  # the two warm-ups, nothing more
