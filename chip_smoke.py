@@ -87,8 +87,11 @@ Phases (any failure exits non-zero before the result line):
      (``data/synthetic.py``), AdamW as configs/base.yaml: the launches of
      one step (96 LN, 48 attention, 3 corr-window and 3 warp in the
      forward, none in the backward; with remat 96 LN and 48 attention
-     more in the backward), two identical steps and the backward ops that
-     make them differ, remat's loss (bitwise) and gradients and the peak
+     more in the backward), two identical steps bitwise equal (losses and
+     gradients), each gather's backward run twice in the package's
+     fixed-order form (bitwise) and in the index_add_ form it replaced, the
+     forward + backward's device time in both forms, in turns, remat's
+     loss (bitwise) and gradients and the peak
      memory with and without it, one step through the kernels against the
      same step through the plain dispatchers (loss terms, gradients by
      parameter group), K1, K2, K4 and K5 at the step's shapes (group 1)
@@ -125,7 +128,16 @@ Phases (any failure exits non-zero before the result line):
      interpreter: eager against graphed bank build, run_batch (crops/s),
      ``estimate`` with host and on-device crops, capture seconds per
      program, host ms of a replay by part, device memory with one and two
-     banks, and the replays' idle share.
+     banks, and the replays' idle share;
+ 11. the configurable flow decoder at full width (``decoder_phase``, run
+     at the end of phase 7 on its tree): ``run_test.main`` with ``--set
+     model.radius=8`` (lookup radius 4) and a seeded radius-8 checkpoint,
+     its CSV, launches and profiler trace (3 K4 per run_batch execution);
+     the graphed run_batch bitwise the eager one at radius 8; graphed
+     run_batch ms at config radius 4 and 8 in turns; K4 against its plain
+     version at lookup radii 1 to 4 on the decoder's captured inputs
+     and on wild centres, with its tile counts, device ms and bound; one
+     radius-8 training step's launches and losses.
 Launch counts are the wrappers' (``kernels.LAUNCHES``), which count a
 kernel where they launch it: an eager call and a program's warm-up, not
 a capture or a replay.  What a replay ran is counted by kernel name in a
@@ -148,6 +160,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -188,13 +201,16 @@ def dev_us(e) -> float:
     return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
 
 
-def device_ms(fn, inputs, iters: int = 20, floor_ms: float = 0.0, or_events: bool = False) -> float:
+def device_ms(fn, inputs, iters: int = 20, floor_ms: float = 0.0, or_events: bool = False,
+              kernels_per_call: int | None = None) -> float:
     """Device ms per call: the kernel time of ``iters`` calls, summed over a
     torch.profiler trace (so host overhead between launches is left out),
     inputs cycled as in ``cuda_ms``.  A trace whose time per call is below
-    ``floor_ms`` (the work's bound: no call can be faster) lost device
-    events and is taken again; after three such traces ``or_events`` times
-    the calls with CUDA events instead (``cuda_ms``), else the run fails."""
+    ``floor_ms`` (the work's bound: no call can be faster), or that holds
+    another number of device events than ``iters`` x ``kernels_per_call``
+    where that is given, lost device events and is taken again; after three
+    such traces ``or_events`` times the calls with CUDA events instead
+    (``cuda_ms``), else the run fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -206,11 +222,13 @@ def device_ms(fn, inputs, iters: int = 20, floor_ms: float = 0.0, or_events: boo
             for i in range(iters):
                 fn(*inputs[i % len(inputs)])
             torch.cuda.synchronize()
-        us = sum(dev_us(e) for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
-        if us > 0 and us / iters / 1e3 >= floor_ms:
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        us, count = sum(dev_us(e) for e in events), sum(e.count for e in events)
+        whole = kernels_per_call is None or count == iters * kernels_per_call
+        if us > 0 and us / iters / 1e3 >= floor_ms and whole:
             return us / iters / 1e3
-        print(f"[profile] a trace held {us!r} us of device time for {iters} calls, below the bound "
-              f"{floor_ms!r} ms per call; profiling again")
+        print(f"[profile] a trace held {us!r} us of device time in {count} events for {iters} calls (bound "
+              f"{floor_ms!r} ms per call, {kernels_per_call} kernels per call); profiling again")
     if or_events:
         ms = cuda_ms(fn, inputs, iters)
         print(f"[profile] timed with CUDA events instead: {ms!r} ms per call")
@@ -400,37 +418,50 @@ def match_int8_checks(q32: torch.Tensor, qm: torch.Tensor, t32: torch.Tensor) ->
     return r
 
 
+B2_MAIN, GROUP_MAIN = 16, 5  # run_batch's query maps and hypotheses per map
+SETS = {16: 6, 32: 3, 64: 1}  # input sets rotated per call at each grid: > 50 MB of L2
+K4_TOL = dict(atol=1e-2, rtol=2**-7)  # one bf16 step where fp32 sums straddle a rounding boundary
+
+
+def wild_centres(g: torch.Generator, B: int, G: int, level: int = 0) -> torch.Tensor:
+    """(B, G*G, 2) centres of scattered windows, a fifth of the rows pushed
+    about a map width past the edges."""
+    from picopose_tpu_torch.geom.grids import pixel_coords_grid
+
+    dev = torch.device("cuda")
+    flow = torch.randn(B, G, G, 2, generator=g, device=dev) * 3
+    flow[:, ::5] += torch.sign(torch.randn(B, 1, G, 2, generator=g, device=dev)) * G * 0.9
+    return ((pixel_coords_grid(G, G, device=dev) + flow) / 2.0**level).reshape(B, G * G, 2)
+
+
+def rows_bf16(g: torch.Generator, n: int, P: int, C: int = 256) -> torch.Tensor:
+    return torch.randn(n, P, C, generator=g, device="cuda").bfloat16()
+
+
+def wild_corr_args(g: torch.Generator, radius: int, sets: dict = SETS) -> list:
+    """K4's argument sets at the flow decoder's shapes for 16 queries x 5
+    hypotheses (80 streams over 16 query maps, C = 256, bf16), one list per
+    decoder level (16^2 with one pyramid level, 32^2 with two, 64^2 with
+    three), on wild centres; ``sets`` argument sets per grid."""
+    B2, group, C = B2_MAIN, GROUP_MAIN, 256
+    B = B2 * group
+    pyramid = lambda G, L: [(rows_bf16(g, B2, (G >> i) ** 2).view(B2, G >> i, G >> i, C), i) for i in range(L)]
+    return [[(rows_bf16(g, B, G * G).view(B, G, G, C), pyramid(G, L), wild_centres(g, B, G).view(B, G, G, 2),
+              radius, group) for _ in range(sets[G])] for G, L in ((16, 1), (32, 2), (64, 3))]
+
+
 def stage3_kernel_checks(g: torch.Generator) -> dict:
     """K4 and K5 at the flow decoder's shapes for 16 queries x 5 hypotheses
     (80 streams over 16 query maps, C = 256, bf16).  Times are summed over
     the launches of one batch (K4: one per decoder level, on wild centres;
     K5: three grids) and reported per launch, so launches x ms is the
     batch's device time."""
-    from picopose_tpu_torch.geom.grids import pixel_coords_grid
-
-    dev = torch.device("cuda")
-    B2, group, C = 16, 5, 256
+    B2, group = B2_MAIN, GROUP_MAIN
     B = B2 * group
-    sets = {16: 6, 32: 3, 64: 1}  # input sets rotated per call: > 50 MB of L2
-
-    def centres(G, level):
-        flow = torch.randn(B, G, G, 2, generator=g, device=dev) * 3
-        flow[:, ::5] += torch.sign(torch.randn(B, 1, G, 2, generator=g, device=dev)) * G * 0.9
-        return ((pixel_coords_grid(G, G, device=dev) + flow) / 2.0**level).reshape(B, G * G, 2)
-
-    def rows(n, P):
-        return torch.randn(n, P, C, generator=g, device=dev).bfloat16()
-
-    tol = dict(atol=1e-2, rtol=2**-7)  # one bf16 step where fp32 sums straddle a rounding boundary
-    res = {}
-    pyramid = lambda G, L: [(rows(B2, (G >> i) ** 2).view(B2, G >> i, G >> i, C), i) for i in range(L)]
-    args = [[(rows(B, G * G).view(B, G, G, C), pyramid(G, L), centres(G, 0).view(B, G, G, 2), 2, group)
-             for _ in range(sets[G])] for G, L in ((16, 1), (32, 2), (64, 3))]
-    res["corr_window"] = corr_timing("wild centres", args, tol)
-    del args
+    res = {"corr_window": corr_timing("wild centres", wild_corr_args(g, 2), K4_TOL)}
 
     res["warp"] = warp_timing("wild centres", [
-        [(rows(B2, G * G), centres(G, 0), G, G, group) for _ in range(sets[G])] for G in (16, 32, 64)])
+        [(rows_bf16(g, B2, G * G), wild_centres(g, B, G), G, G, group) for _ in range(SETS[G])] for G in (16, 32, 64)])
     return res
 
 
@@ -482,11 +513,12 @@ def warp_timing(what: str, calls: list) -> dict:
     )
 
 
-def corr_timing(what: str, calls: list, tol: dict) -> dict:
+def corr_timing(what: str, calls: list, tol: dict, timed: bool = True) -> dict:
     """K4 per decoder level, each a list of (f1, maps, grid, radius, group)
     argument sets rotated per call: the kernel against the plain version,
     device ms, the tile counts of the first set, the bound.  Returns the
-    row for one batch, per launch (a launch is one decoder level)."""
+    row for one batch, per launch (a launch is one decoder level).  With
+    ``timed`` False only the first set is checked (no times)."""
     from picopose_tpu_torch.ops import corr as CO
 
     tot = dict(ms=0.0, plain_ms=0.0, b=0.0, f=0.0, err=0.0)
@@ -502,21 +534,25 @@ def corr_timing(what: str, calls: list, tol: dict) -> dict:
         diff = (got.float() - ref.float()).abs()
         err = diff.max().item()
         use = (diff / (tol["atol"] + tol["rtol"] * ref.float().abs())).max().item()
-        ms = device_ms(CO.corr_windows_cuda, sets)
-        plain = device_ms(CO.corr_windows_plain, sets[:1], iters=3)
         nbytes = (f1.numel() + sum(m.numel() for m, _ in maps)) * f1.element_size() + grid.numel() * 4 \
             + got.numel() * got.element_size()
-        flops = B * G * W * L * 36 * C * 2  # the 36 cells of each window
+        flops = B * G * W * L * (2 * radius + 2) ** 2 * C * 2  # the (2r+2)^2 cells of each window
         bd = bound(nbytes, flops, H100_BF16_FLOPS)
+        # a trace below the bound lost events and is taken again
+        launches = -(-L // CO.LEVELS_PER_LAUNCH)
+        ms = device_ms(CO.corr_windows_cuda, sets, floor_ms=bd[0], or_events=True, kernels_per_call=launches) \
+            if timed else float("nan")
+        plain = device_ms(CO.corr_windows_plain, sets[:1], iters=3, floor_ms=bd[0], or_events=True) \
+            if timed else float("nan")
         tiles, mixed, pixels = stats.tolist()
-        print(f"[kernel] corr_window {what} G={G} levels={L}: max_abs_err {err!r} (largest |plain| "
+        print(f"[kernel] corr_window {what} radius={radius} G={G} levels={L}: max_abs_err {err!r} (largest |plain| "
               f"{ref.float().abs().max().item()!r}; at most {use!r} of the tolerance), kernel {ms!r} ms, "
               f"plain {plain!r} ms, bound {bd[0]!r} ms ({bd[1]}); tile-levels {tiles}, with per-pixel "
               f"pixels {mixed}, per-pixel pixel-levels {pixels} of {B * G * W * L}")
         tot.update(ms=tot["ms"] + ms, plain_ms=tot["plain_ms"] + plain, err=max(tot["err"], err),
                    b=tot["b"] + nbytes / H100_BYTES_PER_S * 1e3, f=tot["f"] + flops / H100_BF16_FLOPS * 1e3)
     n = len(calls)
-    print(f"[kernel] corr_window {what} per batch ({n} launches): kernel {tot['ms']!r} ms, "
+    print(f"[kernel] corr_window {what} radius={radius} per batch ({n} launches): kernel {tot['ms']!r} ms, "
           f"plain {tot['plain_ms']!r} ms, bound {max(tot['b'], tot['f'])!r} ms")
     return dict(
         err=tot["err"], tol="atol 1e-2 + rtol 2^-7", ms=tot["ms"] / n, plain_ms=tot["plain_ms"] / n,
@@ -543,7 +579,7 @@ def corr_on_main_path(seen: list, what: str = "main-path centres") -> dict:
         n = max({16: 6, 32: 3}.get(G, 1), -(-60 * 2**20 // nbytes))  # copies rotated per call: > 50 MB of L2
         calls.append([(feat1, maps, grid, radius, group)] + [
             (feat1.clone(), [(m.clone(), i) for m, i in maps], grid.clone(), radius, group) for _ in range(n - 1)])
-    return corr_timing(what, calls, dict(atol=1e-2, rtol=2**-7))
+    return corr_timing(what, calls, K4_TOL)
 
 
 @torch.inference_mode()
@@ -901,7 +937,7 @@ KERNEL_SYMBOLS = {
     "attention": r"\battention_(hopper|tc|f32)_kernel<",
     "match_scores": r"\bmatch_scores_(hopper_kernel<__nv_bfloat16>|f32_kernel\b)",
     "match_scores_int8": r"\bmatch_scores_hopper_kernel<signed char>",
-    "corr_window": r"\bcorr_(tile|f32)_kernel\b",
+    "corr_window": r"\bcorr_(tile|f32|any)_kernel\b",
     "warp": r"\bwarp_kernel<",
 }
 
@@ -1453,7 +1489,7 @@ def expected_rows(world: dict) -> list[tuple[str, str, str, str]]:
     return rows
 
 
-def eval_cli_phase(seed: int) -> None:
+def eval_cli_phase(seed: int, then=None) -> None:
     """Phase 7: the BOP evaluation entry point at full width.  A BOP tree
     (``bop_world``) and a seeded ViT-L checkpoint (random weights, calmed
     stage-3 heads) exported as a Lightning ``.ckpt``; then
@@ -1470,7 +1506,8 @@ def eval_cli_phase(seed: int) -> None:
     Prints PNG decode ms, template loading and bank ms per object, wall
     time, instances/s, the eval loop's device idle share (device busy in a
     profiled second run over the first run's wall) and run_batch's host
-    ms in the runner against the same call alone."""
+    ms in the runner against the same call alone.  ``then(root, world,
+    argv)``, where given, runs last on the same tree."""
     import csv
     import os
     import tempfile
@@ -1558,6 +1595,7 @@ def eval_cli_phase(seed: int) -> None:
                 t = time.perf_counter()
                 out = fns["load_template_views"](*a, **kw)
                 rec["tem_ms"].append((time.perf_counter() - t) * 1e3)
+                world.setdefault("templates", {})[a] = out  # for phase 11, which decodes none again
                 return out
 
             def bank(*a, **kw):
@@ -1694,6 +1732,189 @@ def eval_cli_phase(seed: int) -> None:
               f"captures): in the runner "
               f"{first['rb_ms']!r} (second run {second['rb_ms']!r}); alone, 5 calls after one warm-up "
               f"median {float(np.median(alone[1:]))!r} ({alone[1:]!r})")
+        del a, kw, first, second
+        if then is not None:
+            then(root, world, argv)
+
+DECODER_RADII = (1, 2, 3, 4)  # lookup radii: config radius 2, 4 (the default), 6 and 8 (RAFT's published 4)
+
+
+def decoder_phase(seed: int, root: str, world: dict, argv: list) -> None:
+    """Phase 11: the flow decoder as ``cfg.model`` sets it, at full width,
+    on phase 7's BOP tree (``root``, ``world``, its ``run_test`` argv).
+
+    1. ``run_test.main`` with ``--set model.radius=8`` (lookup radius 4)
+       and a seeded radius-8 ViT-L checkpoint (calmed stage-3 heads) under
+       a profiler, its template views as phase 7 decoded them: the model as built (radius, motion-encoder inputs), the
+       CSV rows (the targets' order, orthonormal R, finite t, time > 0),
+       the wrappers' launches (the programs' warm-ups, ``EVAL_LAUNCHES``)
+       and the trace's (``EVAL_TRACED``: 3 K4 launches per run_batch
+       execution, each a radius-4 kernel).
+    2. The graphed ``run_batch`` of that model on the run's first batch and
+       bank against the eager one from equal generator states (the
+       capturing call and a replay), then graphed ``run_batch`` ms and
+       crops/s of the radius-8 model and of a radius-4 model with the
+       same seeded trunk and heads on the same batch and bank, in turns.
+    3. K4 against its plain version at lookup radii 1, 2, 3 and 4 (K4_TOL):
+       on the decoder's inputs captured from an eager ``run_batch`` of that
+       model with a decoder of each radius (its three lookups; device ms
+       per launch, plain ms, bound), and on wild centres at the same
+       shapes (both of the tile kernel's paths; the tile counts printed).
+    4. One ``train_step`` at radius 8, batch 8 (phase 8's ``init_state``
+       and batch): the launches (96 LN, 48 attention, 3 K4, 3 K5) and
+       finite losses."""
+    import csv
+    import warnings
+
+    from picopose_tpu_torch import kernels, run_test
+    from picopose_tpu_torch.eval import pipeline as P
+    from picopose_tpu_torch.eval import runner
+    from picopose_tpu_torch.models import PicoPose
+    from picopose_tpu_torch.models.flow import FlowDecoder
+    from picopose_tpu_torch.train import step as ts
+    from picopose_tpu_torch.train.augment import draw_affine_noise
+    from picopose_tpu_torch.utils.graphs import GraphCache
+    from picopose_tpu_torch.utils.torch_export import save_torch_checkpoint
+    from picopose_tpu_torch.utils.weights import init_random_
+    import picopose_tpu_torch.models.flow as flow_module
+
+    vit = ("dinov2_vitl14", (5, 11, 17, 23), torch.bfloat16)
+    model = PicoPose(*vit, device="cuda", radius=8)
+    init_random_(model, seed)
+    calm_stage3_heads_(model)
+    ckpt = os.path.join(root, "picopose_radius8.ckpt")
+    save_torch_checkpoint(model, ckpt)
+    del model
+
+    # 1. the CLI at config radius 8
+    built, first = [], []
+    real_batch = runner.run_batch_graphed
+
+    def one_batch(graphs, model, batch, bank, **kw):
+        if not first:
+            first.append(((graphs, model, {k: v.clone() for k, v in batch.items()}, bank), kw))
+        return real_batch(graphs, model, batch, bank, **kw)
+
+    real_eval = run_test.evaluate_dataset
+
+    def evaluate(model, *a, **kw):
+        built.append(model)
+        return real_eval(model, *a, **kw)
+
+    i = argv.index("--checkpoint_path")  # phase 7's argv, its --set last
+    cli = ["--version_id", "8", *argv[: i + 1], ckpt, *argv[i + 2 :], "model.radius=8"]
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        with warnings.catch_warnings(), patched((runner, "run_batch_graphed", one_batch),
+                                                (run_test, "evaluate_dataset", evaluate),
+                                                (runner, "load_template_views", lambda *a: world["templates"][a])):
+            warnings.simplefilter("ignore")
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            (path,), traced = trace_launches(lambda: run_test.main(cli))
+            wall = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+    finally:
+        os.chdir(cwd)
+    (model,) = built
+    fd = model.flow_decoder
+    channels = [e.corr_net_0.in_channels for e in fd.encoder]
+    print(f"[decoder] run_test --set model.radius=8: flow decoder num_levels {fd.num_levels}, radius {fd.radius} "
+          f"(lookup radius {fd.radius // 2}), motion-encoder inputs {channels}; wall {wall!r} s (profiled); "
+          f"launches by the wrappers {launches}, in the trace {traced}")
+    check(fd.radius == 8 and fd.num_levels == 3 and channels == [81, 162, 243], "run_test built the radius-8 decoder")
+    check(launches == EVAL_LAUNCHES, f"radius 8: the wrappers launched the programs' warm-ups {EVAL_LAUNCHES}")
+    check(traced == EVAL_TRACED, f"radius 8: the trace holds 3 K4 launches per run_batch execution: {EVAL_TRACED}")
+    with open(os.path.join(root, path)) as f:
+        rows = list(csv.reader(f))
+    want = expected_rows(world)
+    check([tuple(r[:4]) for r in rows] == [w[:4] for w in want], "radius 8: one CSV row per instance, in order")
+    for r in rows:
+        R, t = np.array(r[4].split(), float).reshape(3, 3), np.array(r[5].split(), float)
+        check(len(r) == 7 and np.isfinite(R).all() and np.isfinite(t).all(), "radius 8: finite R and t")
+        check(np.abs(R.T @ R - np.eye(3)).max() < 1e-4 and float(r[6]) > 0, "radius 8: orthonormal R, time > 0")
+    print(f"[decoder] radius 8: {len(rows)} CSV rows well formed")
+
+    # 2. graphed against eager, and the radius's cost
+    ((_, _, batch, bank), kw), = first
+    hyp, iters = kw["hyp"], kw["pnp_iters"]
+    graphs = GraphCache("cuda")
+    gens = [torch.Generator(device="cuda").manual_seed(seed) for _ in range(2)]
+    for tag in ("capturing call", "replay"):
+        got = P._ranked_graphed(graphs, model, batch, bank, hyp, iters, None, gens[0])
+        ref = P._ranked(model, batch, bank, hyp, iters, None, gens[1], None)
+        torch.cuda.synchronize()
+        res = graph_outputs_equal(f"radius 8, {tag}", got, ref)
+        check(res["bitwise"], f"radius 8, {tag}: the graphed run_batch is bitwise the eager one")
+    model4 = PicoPose(*vit, device="cuda")
+    init_random_(model4, seed)
+    calm_stage3_heads_(model4)
+    B = batch["real_rgb"].shape[0]
+    timed_ms = {4: [], 8: []}
+    caches = {4: GraphCache("cuda"), 8: GraphCache("cuda")}
+    models = {4: model4, 8: model}
+    for r in (4, 8):  # captures
+        P.run_batch_graphed(caches[r], models[r], batch, bank, hyp=hyp, pnp_iters=iters, generator=gens[0])
+    for r in (4, 8, 8, 4) * 3:
+        timed_ms[r] += host_ms(lambda: P.run_batch_graphed(caches[r], models[r], batch, bank, hyp=hyp,
+                                                           pnp_iters=iters, generator=gens[0]), 2)
+    for r in (4, 8):
+        med = float(np.median(timed_ms[r]))
+        print(f"[decoder] graphed run_batch ({B} queries x {hyp} hypotheses, {iters} PnP iterations) at config "
+              f"radius {r}: median {med!r} ms of {len(timed_ms[r])} = {B / med * 1e3!r} crops/s ({timed_ms[r]!r})")
+    del caches, graphs, model4
+
+    # 3. K4 at lookup radii 1 to 4
+    saved = model.flow_decoder
+    g = torch.Generator(device="cuda").manual_seed(seed + 11)
+    lookup = flow_module.corr_lookup
+    try:
+        for r in DECODER_RADII:
+            dec = FlowDecoder(3, 2 * r).to("cuda")
+            init_random_(dec, seed)
+            model.flow_decoder = dec.eval()
+            calm_stage3_heads_(model)
+            seen = []
+
+            def recording_lookup(*a, **kw):
+                seen.append((*a, kw.get("group", 1)))
+                return lookup(*a, **kw)
+
+            flow_module.corr_lookup = recording_lookup
+            kernels.reset_launches()
+            P.run_batch(model, batch, bank, hyp=hyp, pnp_iters=iters, generator=gens[1])
+            flow_module.corr_lookup = lookup
+            torch.cuda.synchronize()
+            check(kernels.LAUNCHES["corr_window"] == 3 and [s_[3] for s_ in seen] == [r] * 3,
+                  f"lookup radius {r}: three K4 launches per run_batch")
+            corr_on_main_path(seen, f"decoder inputs, lookup radius {r}")
+            del seen
+            wild = wild_corr_args(g, r, {16: 1, 32: 1, 64: 1})
+            corr_timing(f"wild centres, lookup radius {r}", wild, K4_TOL, timed=False)
+            del wild
+    finally:
+        flow_module.corr_lookup = lookup
+        model.flow_decoder = saved
+    del model, batch, bank, first, built
+    torch.cuda.empty_cache()
+
+    # 4. one training step at radius 8
+    dev = torch.device("cuda")
+    tbatch = {k: torch.as_tensor(v, device=dev) for k, v in train_batch(8, seed).items()}
+    state = ts.init_state(ts.make_optimizer(), seed, vit_type=vit[0], blocks_to_take=vit[1], compute_dtype=vit[2],
+                          radius=8)
+    noise = draw_affine_noise(8, torch.Generator(device=dev).manual_seed(seed + 8))
+    kernels.reset_launches()
+    losses = ts.train_step(state, tbatch, noise)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    print(f"[decoder] train_step at config radius 8, batch 8: launches {launches}; loss terms "
+          + ", ".join(f"{k} {float(v)!r}" for k, v in losses.items()))
+    check(launches == {"layernorm": 96, "attention": 48, "corr_window": 3, "warp": 3},
+          "radius 8: a train_step launches 96 LN, 48 attention, 3 K4 and 3 K5")
+    check(all(bool(torch.isfinite(v)) for v in losses.values()), "radius 8: every loss finite")
+    del state, tbatch
 
 
 TRAIN_GROUPS = ("feature_extractor", "affine_regressor", "dpt_head", "flow_decoder")
@@ -1807,6 +2028,18 @@ def step_kernel_vs_plain(state, plain_state, batch, noise, launches: dict, tag: 
     return gk
 
 
+def index_add_forms() -> tuple:
+    """``patched`` triples that put back the gathers' former backward:
+    ``index_select`` (``index_add_``, atomic on the card) in the warp's
+    and the resize's recomputed forms and the infoNCE feature rows."""
+    from picopose_tpu_torch.ops import resize as RS
+    from picopose_tpu_torch.ops import sample as SA
+    from picopose_tpu_torch.train import losses as LS
+
+    old = lambda x, dim, index: x.index_select(dim, index)
+    return tuple((module, "index_select", old) for module in (SA, RS, LS))
+
+
 def train_phase(seed: int) -> dict:
     """Phase 8: the training step at full ViT-L width (dinov2_vitl14, taps
     5/11/17/23, bf16 compute, fp32 weights from ``seed``), batch 8 of
@@ -1819,7 +2052,9 @@ def train_phase(seed: int) -> dict:
     from picopose_tpu_torch.ops import attention as A
     from picopose_tpu_torch.ops import corr as CO
     from picopose_tpu_torch.ops import layernorm as L
+    from picopose_tpu_torch.ops import resize as RS
     from picopose_tpu_torch.ops import sample as SA
+    from picopose_tpu_torch.train import losses as losses_module
     from picopose_tpu_torch.train import step as ts
     from picopose_tpu_torch.train.augment import draw_affine_noise
     from picopose_tpu_torch.utils.weights import init_random_
@@ -1895,10 +2130,11 @@ def train_phase(seed: int) -> dict:
     l1, g1, *_ = forward_backward(False)
     rep = rel_rms_by_group(g1, g0)
     rep_abs = max(float((g1[k] - g0[k]).abs().max()) for k in g0)
-    print(f"[train] two identical steps: losses bitwise equal {all(torch.equal(l0[k], l1[k]) for k in l0)}, "
+    same_loss, same_grad = all(torch.equal(l0[k], l1[k]) for k in l0), all(torch.equal(g0[k], g1[k]) for k in g0)
+    print(f"[train] two identical steps: losses bitwise equal {same_loss}, "
           f"largest loss difference {max(abs(float(l0[k] - l1[k])) for k in l0)!r}; gradients bitwise equal "
-          f"{all(torch.equal(g0[k], g1[k]) for k in g0)}, largest difference {rep_abs!r}, relative RMS by "
-          f"group {rep!r}")
+          f"{same_grad}, largest difference {rep_abs!r}, relative RMS by group {rep!r}")
+    check(same_loss and same_grad, "two identical training steps give bitwise equal losses and gradients")
     del g1
     lr_, gr, fwd_r, bwd_r, peak_r = forward_backward(True)
     rem = rel_rms_by_group(gr, g0)
@@ -1912,20 +2148,9 @@ def train_phase(seed: int) -> dict:
     check(max(rem.values()) <= TRAIN_REMAT_REL_RMS, "remat gradients agree")
     del gr
 
-    # where the run-to-run difference comes from: two steps with PyTorch's
-    # deterministic algorithms (here only, never in the package), then the
-    # candidate backward ops, each run twice on the same inputs
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        _, gd, *_ = forward_backward(False)
-        _, gd2, *_ = forward_backward(False)
-    finally:
-        torch.use_deterministic_algorithms(False)
-    print(f"[train] two steps with torch.use_deterministic_algorithms(True, warn_only=True): gradients bitwise "
-          f"equal {all(torch.equal(gd[k], gd2[k]) for k in gd)}, largest difference "
-          f"{max(float((gd[k] - gd2[k]).abs().max()) for k in gd)!r}")
-    del gd, gd2
-
+    # the gathers' backward: each op's spread over two passes on the same
+    # inputs, in the package's fixed-order form and in the index_add_ form
+    # it replaced (atomic on the card), then the step's device time in both
     gen = torch.Generator(device=dev).manual_seed(seed + 10)
 
     def backward_spread(fn, *inputs):
@@ -1943,17 +2168,38 @@ def train_phase(seed: int) -> dict:
     ft, fw = warps[2][:2]
     x = torch.randn(B, 640, 64, 64, generator=gen, device=dev).bfloat16().contiguous(memory_format=torch.channels_last)
     w = (torch.randn(1024, 640, 3, 3, generator=gen, device=dev) * 0.02).bfloat16()
-    spreads = {
-        "corr_lookup 64^2, 3 levels (recomputed form: gather backward)":
-            backward_spread(lambda a, b, c: CO.corr_lookup(a, b, c, 2, 3, 1), f1, f2, fl),
-        "warp_by_flow 64^2 (recomputed form: index_select backward, index_add)":
-            backward_spread(lambda a, b: SA.warp_by_flow(a, b, 1), ft, fw),
-        "conv 640 -> 1024 3x3 at 64^2 bf16 (cuDNN dgrad + wgrad)":
-            backward_spread(lambda a, b: torch.nn.functional.conv2d(a, b, padding=1), x, w),
-    }
-    print(f"[train] one backward run twice on the same inputs, largest difference over the largest gradient: "
-          f"{spreads!r}")
-    del x, w
+    feat = torch.randn(B * 256, 1024, generator=gen, device=dev)
+    idx = torch.randint(0, B * 256, (B * 256,), generator=gen, device=dev)
+    for form, patches in (("fixed-order", ()), ("index_add_", index_add_forms())):
+        with patched(*patches):
+            spreads = {
+                "corr_lookup 64^2, 3 levels": backward_spread(lambda a, b, c: CO.corr_lookup(a, b, c, 2, 3, 1), f1, f2, fl),
+                "warp_by_flow 64^2": backward_spread(lambda a, b: SA.warp_by_flow(a, b, 1), ft, fw),
+                "resize_bilinear 32^2 -> 64^2": backward_spread(lambda a: RS.resize_bilinear(a, (64, 64)),
+                                                                ft[:, :32, :32].contiguous()),
+                "infoNCE feature rows": backward_spread(lambda a: losses_module.index_select(a, 0, idx), feat),
+            }
+        print(f"[train] {form} gathers: one backward run twice on the same inputs, largest difference over the "
+              f"largest gradient: {spreads!r}")
+        if form == "fixed-order":
+            check(not any(spreads.values()), "every fixed-order gather's backward is repeatable")
+    conv_spread = backward_spread(lambda a, b: torch.nn.functional.conv2d(a, b, padding=1), x, w)
+    print(f"[train] conv 640 -> 1024 3x3 at 64^2 bf16 (cuDNN dgrad + wgrad), run twice: {conv_spread!r}")
+    del x, w, feat
+
+    def step_device_ms(form: str) -> float:
+        patches = index_add_forms() if form == "index_add_" else ()
+        with patched(*patches):
+            busy, _, _ = profile_batch(lambda: forward_backward(False), top=0)
+        return busy
+
+    step_device_ms("fixed-order")  # a warm-up of the profiler
+    costs = {form: [step_device_ms(form)] for form in ("fixed-order", "index_add_")}
+    for form in ("index_add_", "fixed-order"):
+        costs[form].append(step_device_ms(form))
+    print(f"[train] forward + backward device busy ms (fixed-order, index_add_, index_add_, fixed-order): "
+          f"{costs!r}; mean fixed-order {float(np.mean(costs['fixed-order']))!r}, index_add_ "
+          f"{float(np.mean(costs['index_add_']))!r}")
 
     # 2. kernel path vs plain path: one step from the same state
     init_random_(model, seed)
@@ -2047,7 +2293,7 @@ def train_phase(seed: int) -> dict:
     print(f"[train] device busy {busy!r} ms of the {med!r} ms median step: idle share {1 - busy / med!r}; "
           f"convolutions {conv!r} ms")
     for name, match in (("K1", lambda k: "layernorm" in k), ("K2", lambda k: "attention_hopper" in k),
-                        ("K4", lambda k: "corr_tile_kernel" in k or "corr_f32_kernel" in k),
+                        ("K4", lambda k: re.search(KERNEL_SYMBOLS["corr_window"], k)),
                         ("K5", lambda k: "warp_kernel" in k)):
         ms, n = count_kernels(events, match)
         print(f"[train] {name} in the profiled step: {ms!r} ms over {n} launches")
@@ -2310,6 +2556,7 @@ def loop_timing(config: str, overrides: list, log_dir: str, seed: int) -> dict:
     (logging, waiting for the uploaded batch) and in ``train_step``."""
     from picopose_tpu_torch import kernels
     from picopose_tpu_torch.data.megapose import MegaPoseTrainingDataset, collate
+    from picopose_tpu_torch.models.picopose import model_kwargs
     from picopose_tpu_torch.train import loop
     from picopose_tpu_torch.train import step as ts
     from picopose_tpu_torch.train.augment import draw_affine_noise
@@ -2322,7 +2569,7 @@ def loop_timing(config: str, overrides: list, log_dir: str, seed: int) -> dict:
     ds = MegaPoseTrainingDataset(d.data_dir, d.img_size, d.min_visib_fract, d.min_px_count_visib, d.augment_real,
                                  d.rgb_mask_flag, seed=seed)
     batch = {k: torch.as_tensor(v, device=dev) for k, v in collate([ds.get(i) for i in range(bs)]).items()}
-    state = ts.init_state(ts.make_optimizer(), seed, **loop._model_kwargs(cfg))
+    state = ts.init_state(ts.make_optimizer(), seed, **model_kwargs(cfg), remat_vit=cfg.model.remat_vit)
     noise = draw_affine_noise(bs, torch.Generator(device=dev).manual_seed(seed))
     alone = host_ms(lambda: ts.train_step(state, batch, noise), 11)[1:]
     del state, batch
@@ -2960,8 +3207,16 @@ def main() -> int:
     gradient_phase(SEED)
     print(f"[phase] gradients {time.perf_counter() - t0!r} s")
     t0 = time.perf_counter()
-    eval_cli_phase(SEED)
-    print(f"[phase] eval CLI {time.perf_counter() - t0!r} s")
+    t_dec = []
+
+    def decoder(*a):
+        t = time.perf_counter()
+        decoder_phase(SEED, *a)
+        t_dec.append(time.perf_counter() - t)
+
+    eval_cli_phase(SEED, then=decoder)
+    print(f"[phase] eval CLI {time.perf_counter() - t0 - t_dec[0]!r} s; configurable decoder (phase 11) "
+          f"{t_dec[0]!r} s")
     t0 = time.perf_counter()
     train_launches, step_ms = train_phase(SEED)
     print(f"[phase] training step {time.perf_counter() - t0!r} s")

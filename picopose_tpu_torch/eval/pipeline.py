@@ -206,11 +206,18 @@ def stage3_correspondences(
     else:
         tem_pyr = model.dpt([_take(f, ids) for f in bank.feats])
     flows, certs = model.flow(tem_pyr, model.dpt(feats_real), init_flow, init_cert)
+    G = bank.pts3d.shape[1]
+    if flows[-1].shape[1:3] != bank.pts3d.shape[1:3]:
+        # the JAX package fails here too (picopose_tpu/eval/pipeline.py:161-197)
+        raise ValueError(
+            f"the flow decoder's finest level has {tuple(flows[-1].shape[1:3])} cells and the bank's points "
+            f"{tuple(bank.pts3d.shape[1:3])}: dense correspondences need num_levels 3, the model has "
+            f"{model.flow_decoder.num_levels}"
+        )
     tar_pts, valid = final_correspondences(flows[-1], certs[-1])
 
     # query pixels at the integer target cells, in closed form through
     # the crop affine's inverse (the patch-centre grid mapped by M^-1)
-    G = bank.pts3d.shape[1]
     patch = batch["real_rgb"].shape[1] / G
     cell = lambda v: v.clamp(-1.0, float(G)).to(torch.int32).clamp(0, G - 1).float()
     cx = (cell(tar_pts[..., 0]) + 0.5) * patch
@@ -309,7 +316,8 @@ def run_batch_graphed(
 
     Static: ``hyp``, ``pnp_iters``, ``stage3_topk`` and what Python reads
     at capture (the matching mode from the environment, the flow decoder's
-    ``quantize`` and ``fuse_xheads``).  Inputs: the batch's four arrays,
+    ``quantize`` and ``fuse_xheads``, and its ``num_levels`` and ``radius``,
+    which the parameters' addresses alone would not tell apart).  Inputs: the batch's four arrays,
     copied in per call, and the bank, by value into one static slot per
     bank shape (copied in when another bank comes in: ~0.83 GB for a
     162-view ViT-L bank).  PnP draws come from ``generator`` (the
@@ -324,7 +332,8 @@ def run_batch_graphed(
 def _ranked_graphed(graphs, model, batch, bank, hyp, pnp_iters, stage3_topk, generator):
     """``_ranked`` as the program of ``run_batch_graphed``."""
     fd = model.flow_decoder
-    static = (hyp, pnp_iters, stage3_topk, match_mode_from_env(), fd.quantize, fd.fuse_xheads)
+    static = (hyp, pnp_iters, stage3_topk, match_mode_from_env(), fd.quantize, fd.fuse_xheads,
+              fd.num_levels, fd.radius)
     program = lambda b, bk: _ranked(model, b, bk, hyp, pnp_iters, stage3_topk, generator, None)
     args = ({k: torch.as_tensor(batch[k]) for k in BATCH_KEYS},)
     return graphs.run("run_batch", program, args, static=static, slot=bank, generator=generator, module=model)

@@ -45,7 +45,7 @@ KERNELS = {
     "attention": ("attention.cu", "pp_attention", [_P, _P, _P, _P, _I, _I, _I, _I, _S, _F, _I, _P]),
     "match_scores": _MATCH,  # bf16 and fp32 operands
     "match_scores_int8": _MATCH,  # the int8 operands of the serving mode
-    "corr_window": ("corr.cu", "pp_corr_window", [_P, _P, _P, _S, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P]),
+    "corr_window": ("corr.cu", "pp_corr_window", [_P, _P, _P, _S, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P]),
     "warp": ("warp.cu", "pp_warp", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
 }
 

@@ -18,6 +18,8 @@ from torch import nn
 from picopose_tpu_torch.models.layers import BatchNorm2d, Conv2d, ConvTranspose2d
 from picopose_tpu_torch.ops.resize import resize_bilinear
 
+DPT_LEVELS = 3  # the pyramid's levels, coarse to fine: the flow decoder's at most
+
 
 class ResidualConvUnit(nn.Module):
     """relu -> conv3x3 -> bn -> relu -> conv3x3 -> bn, plus the skip."""

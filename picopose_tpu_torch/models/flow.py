@@ -1,13 +1,14 @@
 """Stage-3 flow decoder: coarse-to-fine RAFT-style refinement.
 
 Counterpart of picopose_tpu/models/flow.py (``MotionEncoder``, ``XHead``,
-``_fused_xheads`` :139, ``FlowDecoder`` :175).  Per level l in {0, 1, 2}
-at 16*2^l cells:
+``_fused_xheads`` :139, ``FlowDecoder`` :175).  ``num_levels`` decoder
+levels (3 by default, at most the DPT pyramid's 3) and the config
+``radius`` (4 by default: lookup radius 2).  Per level l at 16*2^l cells:
 
   proj: one 1x1 conv + BN applied to both feature maps (the query side at
         its own batch, B / group);
-  corr: windowed lookup, pyramid depth l+1, radius radius // 2
-        (ops/corr.py, kernel K4);
+  corr: windowed lookup, pyramid depth l+1, lookup radius radius // 2
+        (ops/corr.py, kernel K4): (l+1)*(2*(radius//2)+1)^2 channels;
   motion = MotionEncoder(corr, flow) -> 126 ch + flow = 128;
   x = [tem_feat, warp(real_feat, flow) (ops/sample.py, kernel K5), motion];
   flow += flow head(x); certainty += mask head(x) (by default the two
@@ -70,7 +71,7 @@ class MotionEncoder(nn.Module):
         self.out_net_0 = Conv2d(256, 126, 3, padding=1)
 
     def forward(self, corr: torch.Tensor, flow: torch.Tensor, quantize: bool = False) -> torch.Tensor:
-        """corr (B, H, W, L*25), flow (B, H, W, 2) -> (B, H, W, 128)."""
+        """corr (B, H, W, corr_channels), flow (B, H, W, 2) -> (B, H, W, 128)."""
         q = quantize
         c = _conv_relu(self.corr_net_1, _conv_relu(self.corr_net_0, _nchw(corr), q), q)
         f = _conv_relu(self.flow_net_1, _conv_relu(self.flow_net_0, _nchw(flow), q), q)
@@ -126,19 +127,22 @@ def fused_xheads(x: torch.Tensor, flow_head: XHead, mask_head: XHead):
 
 
 class FlowDecoder(nn.Module):
-    """``quantize``: int8 motion-encoder and XHead convs (implies the
-    unfused heads); ``fuse_xheads``: the flow and mask heads as one conv
-    stack.  Both are plain attributes over one parameter set, so a model
+    """``num_levels`` decoder levels, each looking up a window of radius
+    ``radius // 2`` (``radius`` is the config's, as in the JAX module);
+    they set the motion encoders' input channels, so the parameters' shapes.
+    ``quantize``: int8 motion-encoder and XHead convs (implies the unfused
+    heads); ``fuse_xheads``: the flow and mask heads as one conv stack.
+    Those two are plain attributes over one parameter set, so a model
     switches path without new weights."""
 
-    num_levels = 3
-    radius = 4  # the reference's config radius; each lookup uses radius // 2
-
-    def __init__(self, quantize: bool = False, fuse_xheads: bool = True):
+    def __init__(self, num_levels: int = 3, radius: int = 4, quantize: bool = False, fuse_xheads: bool = True):
         super().__init__()
+        if num_levels < 1 or radius < 0:
+            raise ValueError(f"the flow decoder needs num_levels >= 1 and radius >= 0, got {num_levels}, {radius}")
+        self.num_levels, self.radius = num_levels, radius
         self.quantize, self.fuse_xheads = quantize, fuse_xheads
-        n = 2 * (self.radius // 2) + 1
-        L = range(self.num_levels)
+        n = 2 * (radius // 2) + 1
+        L = range(num_levels)
         self.proj_conv = nn.ModuleList(Conv2d(256, 256, 1) for _ in L)
         self.proj_bn = nn.ModuleList(BatchNorm2d(256) for _ in L)
         self.encoder = nn.ModuleList(MotionEncoder((l + 1) * n * n) for l in L)
@@ -147,9 +151,15 @@ class FlowDecoder(nn.Module):
 
     def forward(self, tem_feats, real_feats, init_flow, init_certainty):
         """tem_feats: DPT levels [(B, 16, 16, 256), (B, 32, 32, 256),
-        (B, 64, 64, 256)]; real_feats the same at B / group; init flow
-        (B, 16, 16, 2) and certainty (B, 16, 16, 1).  Returns per-level
-        lists of flows (B, H, W, 2) and certainty logits (B, H, W, 1)."""
+        (B, 64, 64, 256)], of which the first ``num_levels`` are used;
+        real_feats the same at B / group; init flow (B, 16, 16, 2) and
+        certainty (B, 16, 16, 1).  Returns per-level lists of flows
+        (B, H, W, 2) and certainty logits (B, H, W, 1)."""
+        if min(len(tem_feats), len(real_feats)) < self.num_levels:
+            raise ValueError(
+                f"the flow decoder has {self.num_levels} levels but the pyramids have "
+                f"{len(tem_feats)} and {len(real_feats)}"
+            )
         bt, br = tem_feats[0].shape[0], real_feats[0].shape[0]
         if bt % br != 0:
             raise ValueError(

@@ -18,9 +18,26 @@ from torch import nn
 from picopose_tpu_torch.device import full_fp32, resolve_device
 from picopose_tpu_torch.models.affine_head import AffineRegressor
 from picopose_tpu_torch.models.dinov2 import VIT_CONFIGS, FeatureExtractor
-from picopose_tpu_torch.models.dpt import DPTHead
+from picopose_tpu_torch.models.dpt import DPT_LEVELS, DPTHead
 from picopose_tpu_torch.models.flow import FlowDecoder
 from picopose_tpu_torch.ops.matching import feature_similarity_volume
+
+COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def model_kwargs(cfg) -> dict:
+    """``PicoPose``'s arguments from ``cfg.model`` that both entry points
+    pass, as the JAX package's run_test.py:65-74 and run_train.py:51-60
+    build its model: the ViT, its taps, the compute dtype, the flow
+    decoder's ``num_levels`` and ``radius``, and ``fuse_xheads``.  The
+    eval entry point adds ``quantize_stage3``, the training one
+    ``remat_vit``."""
+    m = cfg.model
+    return dict(
+        vit_type=m.vit_type, blocks_to_take=tuple(m.blocks_to_take),
+        compute_dtype=COMPUTE_DTYPES[m.compute_dtype], num_levels=m.num_levels, radius=m.radius,
+        fuse_xheads=m.fuse_xheads,
+    )
 
 
 class PicoPose(nn.Module):
@@ -31,6 +48,9 @@ class PicoPose(nn.Module):
     under ``full_fp32``: the fp32 work in it (stage 2, the positional
     embedding's interpolation, the fp32 flows; everything when
     ``compute_dtype`` is fp32) takes no TF32, whatever the process flags.
+    ``num_levels`` and ``radius`` shape the flow decoder (its levels, at
+    most the DPT pyramid's 3, and the config radius: each lookup has radius
+    ``radius // 2``), as in picopose_tpu/models/picopose.py:34-35,55-58.
     ``quantize_stage3``
     (int8 stage-3 convs, ops/qconv.py) and ``fuse_xheads`` select the flow
     decoder's path over the same parameters (picopose_tpu/models/
@@ -49,11 +69,15 @@ class PicoPose(nn.Module):
         blocks_to_take: Sequence[int] = (5, 11, 17, 23),
         compute_dtype: torch.dtype = torch.bfloat16,
         device: str | torch.device | None = None,
+        num_levels: int = 3,
+        radius: int = 4,
         quantize_stage3: bool = False,
         fuse_xheads: bool = True,
         remat_vit: bool = False,
     ):
         super().__init__()
+        if num_levels > DPT_LEVELS:
+            raise ValueError(f"num_levels {num_levels}: the DPT head gives the flow decoder {DPT_LEVELS} levels")
         self.device = resolve_device(device)
         self.compute_dtype = compute_dtype
         cfg = VIT_CONFIGS[vit_type]
@@ -61,7 +85,7 @@ class PicoPose(nn.Module):
             self.feature_extractor = FeatureExtractor(vit_type, blocks_to_take, compute_dtype, remat_vit)
             self.affine_regressor = AffineRegressor()
             self.dpt_head = DPTHead(in_channels=cfg.embed_dim)
-            self.flow_decoder = FlowDecoder(quantize_stage3, fuse_xheads)
+            self.flow_decoder = FlowDecoder(num_levels, radius, quantize_stage3, fuse_xheads)
         self.eval()
 
     @full_fp32()

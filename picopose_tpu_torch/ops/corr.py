@@ -3,9 +3,12 @@ PyTorch on the CPU.
 
 Counterpart of picopose_tpu/ops/corr.py (``_corr_lookup_pallas_impl``,
 :202-246), which calls picopose_tpu/ops/pallas/corr.py::corr_window_pallas
-once per pyramid level; here all the levels of one lookup are one launch
-of ``kernels/csrc/corr.cu``, which reads feat1 once and writes the
-concatenated (B, H, W, L*(2r+1)^2) output.  Avg pooling and bilinear
+once per pyramid level; here up to four levels of one lookup are one
+launch of ``kernels/csrc/corr.cu`` (the flow decoder's lookups, 1 to 3
+levels, are one launch each), which reads feat1 once and writes its
+levels' channels of the concatenated (B, H, W, L*(2r+1)^2) output.  Any
+lookup radius r >= 0: the kernel is templated on r from 1 to 4 and has a
+runtime-radius form for the others.  Avg pooling and bilinear
 sampling are both linear in feat2, so level i's correlation is
 <feat1[p], avgpool_i(feat2)[q]> / sqrt(C): feat2 is pooled between levels
 outside the kernel, and only the (2r+2)^2 cells each bilinear window
@@ -102,28 +105,32 @@ def corr_windows_plain(
     return out
 
 
+LEVELS_PER_LAUNCH = 4  # kMaxLevels of kernels/csrc/corr.cu
+
+
 def corr_windows_cuda(
     f1: torch.Tensor, maps, grid: torch.Tensor, radius: int, group: int = 1,
     stats: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Launch the CUDA kernel once for all levels: f1 and the maps both bf16
-    (C a multiple of 64 up to 256) or both fp32 (C a multiple of 4), at
-    most four levels, radius 2 (the flow decoder's).  ``stats``: None, or
-    an int32 CUDA tensor of 3 that the bf16 kernel adds its counts to
-    (tile-levels, tile-levels with pixels on the per-pixel path, such
-    pixel-levels)."""
+    """Launch the CUDA kernel once per group of up to four levels (once on
+    the flow decoder's path): f1 and the maps both bf16 (C a multiple of 64
+    up to 256) or both fp32 (C a multiple of 4), any lookup radius >= 0
+    (the tile kernel's templates at 1 to 4, a runtime-radius kernel
+    otherwise).  ``stats``: None, or an int32 CUDA tensor of 3 that the
+    bf16 tile kernel adds its counts to (tile-levels, tile-levels with
+    pixels on the per-pixel path, such pixel-levels)."""
     if not (f1.is_cuda and grid.is_cuda and all(f2.is_cuda for f2, _ in maps)):
         raise ValueError("corr_windows_cuda takes CUDA tensors")
     if any(f2.dtype != f1.dtype for f2, _ in maps) or f1.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError("corr kernel takes f1 and the maps all bf16 or all fp32")
     B, H, W, C, nn = _level_windows(f1, maps, grid, radius, group)
     bf16 = f1.dtype == torch.bfloat16
-    if not 1 <= len(maps) <= 4:
-        raise ValueError(f"corr kernel takes 1 to 4 levels, got {len(maps)}")
+    if not maps:
+        raise ValueError("corr kernel takes at least one level")
     if (bf16 and (C % 64 or C > 256)) or (not bf16 and C % 4):
         raise ValueError(f"corr kernel takes C a multiple of 64 up to 256 (bf16) or of 4 (fp32), got {C}")
-    if radius != 2:
-        raise ValueError(f"corr kernel is built for radius 2, got {radius}")
+    if not 0 <= radius <= 383:
+        raise ValueError(f"corr kernel takes a lookup radius from 0 to 383, got {radius}")
     if stats is not None and (stats.dtype != torch.int32 or stats.numel() != 3 or not stats.is_cuda):
         raise ValueError("stats must be an int32 CUDA tensor of 3")
     f1 = kernels.contiguous_aligned(f1, 16)
@@ -132,15 +139,17 @@ def corr_windows_cuda(
     out = torch.empty((B, H, W, len(maps) * nn), dtype=f1.dtype, device=f1.device)
     if out.numel() == 0:
         return out
-    levels = struct.pack(
-        f"{4 * len(maps)}q", *(v for f2, shift in maps for v in (f2.data_ptr(), *f2.shape[1:3], shift))
-    )
     with kernels.on_device_of(f1):
-        kernels.launch(
-            "corr_window", f1.data_ptr(), cen.data_ptr(), out.data_ptr(), levels, len(maps),
-            B, H, W, C, radius, group, float(C) ** -0.5, int(bf16),
-            None if stats is None else stats.data_ptr(), kernels.stream_of(f1),
-        )
+        for l0 in range(0, len(maps), LEVELS_PER_LAUNCH):
+            part = maps[l0 : l0 + LEVELS_PER_LAUNCH]
+            levels = struct.pack(
+                f"{4 * len(part)}q", *(v for f2, shift in part for v in (f2.data_ptr(), *f2.shape[1:3], shift))
+            )
+            kernels.launch(
+                "corr_window", f1.data_ptr(), cen.data_ptr(), out.data_ptr(), levels, len(part), l0,
+                len(maps), B, H, W, C, radius, group, float(C) ** -0.5, int(bf16),
+                None if stats is None else stats.data_ptr(), kernels.stream_of(f1),
+            )
     return out
 
 

@@ -8,11 +8,16 @@ dtype) rather than ``F.interpolate``'s fp32 internal math:
   * bilinear, align_corners=True: src = dst * (in-1)/(out-1) (DPT fusion,
     flow and certainty upsampling);
   * 2x2 average pooling (the correlation pyramid).
+
+The gathers go through ``ops/vjp.py::index_select``, whose backward adds
+in a fixed order on the card too (the training step's repeatability).
 """
 
 from __future__ import annotations
 
 import torch
+
+from picopose_tpu_torch.ops.vjp import index_select
 
 
 def resize_nearest(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
@@ -22,7 +27,7 @@ def resize_nearest(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     f32 = dict(dtype=torch.float32, device=x.device)
     ih = torch.floor(torch.arange(oh, **f32) * (H / oh)).long()
     iw = torch.floor(torch.arange(ow, **f32) * (W / ow)).long()
-    return x.index_select(1, ih).index_select(2, iw)
+    return index_select(index_select(x, 1, ih), 2, iw)
 
 
 def _linear_weights(out_size: int, in_size: int, device):
@@ -51,8 +56,8 @@ def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
         w = w.reshape(shape).to(x.dtype)
         return a * (1 - w) + b * w
 
-    top = lerp(x.index_select(1, ylo), x.index_select(1, yhi), wy, 1)
-    return lerp(top.index_select(2, xlo), top.index_select(2, xhi), wx, 2)
+    top = lerp(index_select(x, 1, ylo), index_select(x, 1, yhi), wy, 1)
+    return lerp(index_select(top, 2, xlo), index_select(top, 2, xhi), wx, 2)
 
 
 def avg_pool2d(x: torch.Tensor, k: int = 2) -> torch.Tensor:

@@ -28,7 +28,7 @@ from torch.autograd.function import once_differentiable
 
 from picopose_tpu_torch import kernels
 from picopose_tpu_torch.geom.grids import pixel_coords_grid
-from picopose_tpu_torch.ops.vjp import needs_grad, recompute_grads
+from picopose_tpu_torch.ops.vjp import index_select, needs_grad, recompute_grads
 
 
 def _taps(cen: torch.Tensor, H: int, W: int, pad: int):
@@ -113,11 +113,10 @@ def warp_by_flow_reference(feat: torch.Tensor, flow: torch.Tensor, group: int = 
     rows = feat.reshape(B2 * H * W, C)
 
     def tap(yi, xi):
-        # index_select, whose backward (index_add) sums in a fixed order on
-        # the CPU; advanced indexing's backward adds atomically there
+        # a gather whose backward sums in a fixed order (ops/vjp.py)
         ok = (xi >= 0) & (xi <= W - 1) & (yi >= 0) & (yi <= H - 1)
         idx = (b2 * H + yi.clamp(0, H - 1).long()) * W + xi.clamp(0, W - 1).long()
-        v = rows.index_select(0, idx.reshape(-1)).reshape(*idx.shape, C)
+        v = index_select(rows, 0, idx.reshape(-1)).reshape(*idx.shape, C)
         return v * ok[..., None].to(feat.dtype)
 
     top = tap(y0, x0) * (1 - wx) + tap(y0, x0 + 1) * wx

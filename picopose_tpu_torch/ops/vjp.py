@@ -27,6 +27,20 @@ import torch
 from picopose_tpu_torch.device import full_fp32
 
 
+def index_select(x: torch.Tensor, dim: int, index: torch.Tensor) -> torch.Tensor:
+    """``x.index_select(dim, index)`` (``dim`` >= 0) with a backward whose
+    sums run in a fixed order on either device, so that two identical
+    training steps give bitwise equal gradients.  On the CPU that is
+    ``index_select`` itself: its backward, ``index_add_``, adds serially
+    there.  On CUDA ``index_add_`` adds atomically, in an order that
+    changes from run to run; advanced indexing's backward (``index_put_``
+    with accumulate) sorts the indices and sums each run of equal ones in
+    turn, with no host sync.  The forward is the same gather either way."""
+    if x.device.type == "cpu":
+        return x.index_select(dim, index)
+    return x[(slice(None),) * dim + (index,)]
+
+
 def needs_grad(*tensors: torch.Tensor) -> bool:
     """True when autograd would record an op on ``tensors``: grad mode is on
     and one of them requires grad."""

@@ -20,19 +20,15 @@ from __future__ import annotations
 import argparse
 import os
 
-import torch
-
 from picopose_tpu_torch.data.bop import BOP7, DETECTION_FILES, BOPTestDataset
 from picopose_tpu_torch.device import resolve_device
 from picopose_tpu_torch.eval.runner import evaluate_dataset
 from picopose_tpu_torch.models import PicoPose
 from picopose_tpu_torch.models.dinov2 import VIT_CONFIGS
+from picopose_tpu_torch.models.picopose import model_kwargs
 from picopose_tpu_torch.utils.checkpoint import checkpoint_dir, checkpoint_path, load_any
 from picopose_tpu_torch.utils.config import load_config
 from picopose_tpu_torch.utils.weights import init_random_, load_flax_variables
-
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-
 
 def get_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="PicoPose evaluation (PyTorch port)")
@@ -64,10 +60,7 @@ def main(argv: list[str] | None = None) -> list[str]:
     cfg = load_config(args.config, overrides)
     hyp = args.hyp if args.hyp != -1 else cfg.model.hypothesis
 
-    model = PicoPose(
-        cfg.model.vit_type, tuple(cfg.model.blocks_to_take), _DTYPES[cfg.model.compute_dtype],
-        device=device, quantize_stage3=cfg.model.quantize_stage3, fuse_xheads=cfg.model.fuse_xheads,
-    )
+    model = PicoPose(**model_kwargs(cfg), device=device, quantize_stage3=cfg.model.quantize_stage3)
 
     log_dir = os.path.join("log", args.model, f"version_{args.version_id}")
     ckpt_path = args.checkpoint_path

@@ -51,6 +51,7 @@ import torch
 
 from picopose_tpu_torch.data.megapose import MegaPoseTrainingDataset, collate
 from picopose_tpu_torch.device import resolve_device
+from picopose_tpu_torch.models.picopose import model_kwargs
 from picopose_tpu_torch.train.step import init_state, make_optimizer, train_step, warmup_cosine_schedule
 from picopose_tpu_torch.utils import checkpoint as ckpt
 from picopose_tpu_torch.utils.checkpoint import read_weights
@@ -58,7 +59,6 @@ from picopose_tpu_torch.utils.logging import TrainLogger
 from picopose_tpu_torch.utils.torch_port import port_dinov2, port_picopose, to_numpy_state_dict
 from picopose_tpu_torch.utils.weights import _dinov2, state_dict_from_flax
 
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 _PARALLEL_MODES = ("ddp", "fsdp", "tp", "fsdp_tp")
 
 
@@ -315,20 +315,6 @@ def warm_start(state, path: str, num_levels: int = 3):
     return state
 
 
-def _model_kwargs(cfg) -> dict:
-    """PicoPose's arguments from ``cfg.model``, as run_train.py:51-60 builds
-    the JAX model; the port's flow decoder has the reference's three
-    levels at radius 4 only."""
-    m = cfg.model
-    if m.num_levels != 3 or m.radius != 4:
-        raise NotImplementedError(
-            f"model.num_levels {m.num_levels}, model.radius {m.radius}: the port's flow decoder "
-            "has 3 levels at radius 4 only"
-        )
-    return dict(vit_type=m.vit_type, blocks_to_take=tuple(m.blocks_to_take),
-                compute_dtype=_DTYPES[m.compute_dtype], remat_vit=m.remat_vit, fuse_xheads=m.fuse_xheads)
-
-
 def _one_device(cfg, device: torch.device) -> None:
     """The port trains on one device (ROADMAP A.6); at one device every
     ``trainer.parallel`` mode computes the same step, as the JAX package
@@ -359,7 +345,7 @@ def run_training(
     latest checkpoint there; ``max_steps`` stops early."""
     device = resolve_device(device)
     _one_device(cfg, device)
-    model_kwargs = _model_kwargs(cfg)
+    model_kw = dict(model_kwargs(cfg), remat_vit=cfg.model.remat_vit)
     t = cfg.trainer
     tx = make_optimizer(
         base_lr=cfg.optimizer.lr,
@@ -377,7 +363,7 @@ def run_training(
     sched = warmup_cosine_schedule(
         cfg.optimizer.lr, cfg.lr_scheduler.max_iters, cfg.lr_scheduler.warmup_iters, cfg.lr_scheduler.warmup_factor,
     )
-    state = init_state(tx, t.rd_seed, device=device, **model_kwargs)
+    state = init_state(tx, t.rd_seed, device=device, **model_kw)
     resuming = resume and ckpt.latest_step(log_dir) is not None
     # weight warm start (trainer.init_checkpoint), skipped when resuming:
     # the restore below replaces everything anyway

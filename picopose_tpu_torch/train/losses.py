@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from picopose_tpu_torch.geom.grids import pixel_coords_grid
 from picopose_tpu_torch.geom.rotation import cos_sin
 from picopose_tpu_torch.ops.matching import l2_normalize
+from picopose_tpu_torch.ops.vjp import index_select
 
 
 def info_nce_loss(
@@ -41,11 +42,11 @@ def info_nce_loss(
     tp = tar_pts[:, ::stride, ::stride] * (h / G)
     m = valid[:, ::stride, ::stride].reshape(-1)
 
-    def gather(feat, pts):
+    def gather(feat, pts):  # rows whose backward sums in a fixed order (ops/vjp.py)
         xi = torch.clamp(pts[..., 0].to(torch.int64), 0, w - 1)
         yi = torch.clamp(pts[..., 1].to(torch.int64), 0, h - 1)
-        idx = (yi * w + xi).reshape(B, h * w, 1).expand(B, h * w, C)
-        return torch.gather(feat.reshape(B, h * w, C), 1, idx)
+        idx = (yi * w + xi).reshape(B, h * w) + h * w * torch.arange(B, device=feat.device)[:, None]
+        return index_select(feat.reshape(B * h * w, C), 0, idx.reshape(-1)).reshape(B, h * w, C)
 
     q = l2_normalize(gather(src_feat, sp).float()).reshape(-1, C)
     r = l2_normalize(gather(tar_feat, tp).float()).reshape(-1, C)

@@ -135,11 +135,19 @@ def state_dict_from_flax(variables: Mapping[str, Any]) -> dict[str, np.ndarray]:
 
 
 def load_flax_variables(model: nn.Module, variables: Mapping[str, Any]) -> None:
-    """Copy converted flax variables into ``model`` (every key must match)."""
+    """Copy converted flax variables into ``model`` (every key must match).
+    Raises ValueError naming both shapes where an entry's shape differs
+    (a flow decoder of another radius), before anything is copied."""
     sd = {
         k: torch.from_numpy(np.ascontiguousarray(v))
         for k, v in state_dict_from_flax(variables).items()
     }
+    state = model.state_dict()
+    for k, v in sd.items():
+        if k in state and v.shape != state[k].shape:
+            raise ValueError(
+                f"shape mismatch at {k}: checkpoint {tuple(v.shape)} vs model {tuple(state[k].shape)}"
+            )
     model.load_state_dict(sd, strict=True)
 
 

@@ -160,6 +160,20 @@ def test_cache_key_separates_what_selects_a_program(world, monkeypatch, variant)
     assert keys[0] == keys[1] and keys[2] != keys[0]
 
 
+def test_cache_key_separates_decoders_of_other_radii(world, monkeypatch):
+    """A model whose flow decoder has another radius or level count gets a
+    program of its own, even where its parameters would sit at the radius-4
+    model's addresses (the module keys made equal here)."""
+    model, _, bank, batch = world
+    graphs = GraphCache("cpu")
+    keys = _spy(monkeypatch, graphs)
+    monkeypatch.setattr(G, "module_key", lambda module: ("same addresses",))
+    for kw in ({}, {"radius": 8}, {"radius": 6, "num_levels": 3}, {"radius": 4, "num_levels": 2}):
+        other = PicoPose(**SMALL, compute_dtype=torch.float32, device="cpu", **kw) if kw else model
+        P.run_batch_graphed(graphs, other.eval(), batch, bank, hyp=HYP, pnp_iters=ITERS)
+    assert len(set(keys)) == 4
+
+
 def test_cache_key_follows_the_bank_shape_not_its_values(world, monkeypatch):
     model, arrays, bank, batch = world
     graphs = GraphCache("cpu")
@@ -249,10 +263,26 @@ def tree(tmp_path_factory):
     return write_bop_tree(str(tmp_path_factory.mktemp("bop")), n_views=VIEWS)
 
 
-def _evaluate(world, tree, path, monkeypatch, **kw):
+@pytest.fixture(scope="module")
+def template_views():
+    """``load_template_views`` decoding each object's views once for the
+    module's runs (the banks are still built in each run, through the
+    chunk programs)."""
+    real, decoded = R.load_template_views, {}
+
+    def load(*args):
+        if args not in decoded:
+            decoded[args] = real(*args)
+        return decoded[args]
+
+    return load
+
+
+def _evaluate(world, tree, template_views, path, monkeypatch, **kw):
     """The run's CSV rows and the ``GraphCache`` it made."""
     ds = BOPTestDataset(tree["data_dir"], "fakeds", tree["det_path"], n_template_view=VIEWS)
     made = []
+    monkeypatch.setattr(R, "load_template_views", template_views)
     monkeypatch.setattr(R, "GraphCache", lambda dev: made.append(GraphCache(dev)) or made[-1])
     R.evaluate_dataset(world[0], ds, tree["template_dir"], path, hyp=HYP, batch_size=2, pnp_iters=ITERS,
                        progress=False, decode_workers=2, **kw)
@@ -261,11 +291,11 @@ def _evaluate(world, tree, path, monkeypatch, **kw):
         return [row[:6] for row in csv.reader(f)], graphs
 
 
-def test_evaluate_dataset_routes_through_the_graphed_programs(world, tree, tmp_path, monkeypatch):
+def test_evaluate_dataset_routes_through_the_graphed_programs(world, tree, template_views, tmp_path, monkeypatch):
     """Every batch goes through ``run_batch_graphed`` and every bank
     through the chunk programs (their equality with the eager functions
     is shown above); the CSV holds a rotation per detection."""
-    rows, graphs = _evaluate(world, tree, str(tmp_path / "graphed.csv"), monkeypatch,
+    rows, graphs = _evaluate(world, tree, template_views, str(tmp_path / "graphed.csv"), monkeypatch,
                              generator=torch.Generator().manual_seed(2))
     assert graphs.calls["bank_chunk"] == 2 and graphs.calls["run_batch"] >= 2  # two objects, 6 views each
     assert len(rows) > 1
@@ -274,13 +304,14 @@ def test_evaluate_dataset_routes_through_the_graphed_programs(world, tree, tmp_p
         np.testing.assert_allclose(Rm @ Rm.T, np.eye(3), atol=1e-4)
 
 
-def test_runner_with_pnp_draws_takes_the_eager_route(world, tree, tmp_path, monkeypatch):
+def test_runner_with_pnp_draws_takes_the_eager_route(world, tree, template_views, tmp_path, monkeypatch):
     seen = []
 
     def draws(valid):
         seen.append(valid.shape)
         return draw_samples(valid, ITERS, SAMPLE, SCORE_SUBSET, torch.Generator().manual_seed(1))
 
-    rows, graphs = _evaluate(world, tree, str(tmp_path / "draws.csv"), monkeypatch, pnp_draws=draws)
+    rows, graphs = _evaluate(world, tree, template_views, str(tmp_path / "draws.csv"), monkeypatch,
+                             pnp_draws=draws)
     assert seen and "run_batch" not in graphs.calls and graphs.calls["bank_chunk"] == 2
     assert len(rows) > 1

@@ -38,6 +38,8 @@ from picopose_tpu_torch.ops import corr as CO
 from picopose_tpu_torch.ops import layernorm as L
 from picopose_tpu_torch.ops import matching as M
 from picopose_tpu_torch.ops import sample as S
+from picopose_tpu_torch.ops.resize import resize_bilinear
+from picopose_tpu_torch.ops.vjp import index_select
 from picopose_tpu_torch.utils.weights import init_random_
 
 TRAIN_B = 8  # configs/base.yaml train_dataloader.bs
@@ -299,6 +301,123 @@ def test_corr_lookup_kernel_is_differentiable(cuda_device, dtype, monkeypatch):
     monkeypatch.setattr(CO, "corr_windows", CO.corr_windows_plain)
     plain = CO._corr_lookup(f1, f2, flow, 2, 3, group)
     _check_grads(out, (f1, f2, flow), plain, dtype, "corr_window", 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("radius", [1, 3, 4])
+@pytest.mark.parametrize("centres", ["smooth", "wild"])
+def test_corr_kernel_at_other_radii_matches_plain(cuda_device, dtype, radius, centres):
+    """Lookup radii 1, 3 and 4 (config radius 2-9; RAFT's published 4 is
+    config 8), five pyramid levels: two launches (four levels, then one),
+    each writing its levels' channels; bf16 takes the tile kernel's path of
+    that radius, and both of its paths on wild centres."""
+    g = torch.Generator(device=cuda_device).manual_seed(40 + radius)
+    B2, group, G, C = 2, 5, 32, 256
+    n = (2 * radius + 1) ** 2
+    f1 = torch.randn(B2 * group, G, G, C, generator=g, device=cuda_device).to(dtype)
+    maps = _pyramid(g, B2, G, C, 5, dtype, cuda_device)
+    grid = (_smooth_grid if centres == "smooth" else _grid)(g, B2 * group, G, cuda_device)
+    stats = torch.zeros(3, dtype=torch.int32, device=cuda_device)
+    kernels.reset_launches()
+    got = CO.corr_windows_cuda(f1, maps, grid, radius, group, stats=stats)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (B2 * group, G, G, 5 * n)
+    assert kernels.LAUNCHES["corr_window"] == 2
+    ref = CO.corr_windows_plain(f1, maps, grid, radius, group)
+    for i in range(5):
+        torch.testing.assert_close(got[..., n * i : n * (i + 1)].float(), ref[..., n * i : n * (i + 1)].float(),
+                                   **_bf16_tol(dtype))
+    if dtype == torch.bfloat16:
+        tiles, mixed, pixels = stats.tolist()
+        assert tiles == B2 * group * (G // 8) ** 2 * 5  # tile-levels over both launches
+        assert mixed < tiles and (pixels > 0 if centres == "wild" else True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("radius", [0, 5, 8])
+def test_corr_kernel_at_any_radius_matches_plain(cuda_device, dtype, radius):
+    """Radii outside the templates (0 and 5 and up) take the runtime-radius
+    kernel, one launch for three levels."""
+    g = torch.Generator(device=cuda_device).manual_seed(50 + radius)
+    B2, group, G, C = 2, 3, 16, 64
+    f1 = torch.randn(B2 * group, G, G, C, generator=g, device=cuda_device).to(dtype)
+    maps = _pyramid(g, B2, G, C, 3, dtype, cuda_device)
+    grid = _grid(g, B2 * group, G, cuda_device)
+    kernels.reset_launches()
+    got = CO.corr_windows_cuda(f1, maps, grid, radius, group)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["corr_window"] == 1
+    torch.testing.assert_close(got.float(), CO.corr_windows_plain(f1, maps, grid, radius, group).float(),
+                               **_bf16_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_corr_lookup_kernel_is_differentiable_at_radius_4(cuda_device, dtype, monkeypatch):
+    """As ``test_corr_lookup_kernel_is_differentiable`` at lookup radius 4
+    (config radius 8)."""
+    g = torch.Generator(device=cuda_device).manual_seed(45)
+    B2, group, G, C = 2, 3, 32, 64
+    f1 = torch.randn(B2 * group, G, G, C, generator=g, device=cuda_device).to(dtype).requires_grad_()
+    f2 = torch.randn(B2, G, G, C, generator=g, device=cuda_device).to(dtype).requires_grad_()
+    flow = (_grid(g, B2 * group, G, cuda_device) - pixel_coords_grid(G, G, device=cuda_device)).requires_grad_()
+    kernels.reset_launches()
+    out = CO.corr_lookup(f1, f2, flow, 4, 3, group)
+    assert out.shape == (B2 * group, G, G, 3 * 81)
+    monkeypatch.setattr(CO, "corr_windows", CO.corr_windows_plain)
+    plain = CO._corr_lookup(f1, f2, flow, 4, 3, group)
+    _check_grads(out, (f1, f2, flow), plain, dtype, "corr_window", 1)
+
+
+def _backward_twice(fn, *inputs):
+    """Gradients of two backward passes of ``fn`` on the same inputs and
+    cotangent."""
+    outs = []
+    for _ in range(2):
+        xs = [x.detach().clone().requires_grad_() for x in inputs]
+        y = fn(*xs)
+        cot = torch.randn(y.shape, generator=torch.Generator(device=y.device).manual_seed(1), device=y.device)
+        outs.append(torch.autograd.grad(y, xs, cot.to(y.dtype)))
+    return outs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group", [1, 5])
+def test_warp_by_flow_backward_is_repeatable(cuda_device, dtype, group):
+    """Two backward passes of the warp are bitwise equal (its gathers'
+    backward sums each target's taps in a fixed order, ops/vjp.py), with
+    flows that send many pixels to the same cells; so are the corr
+    lookup's and the bilinear resize's."""
+    g = torch.Generator(device=cuda_device).manual_seed(60 + group)
+    G, C = 64, 256
+    feat = torch.randn(2, G, G, C, generator=g, device=cuda_device).to(dtype)
+    f1 = torch.randn(2 * group, G, G, C, generator=g, device=cuda_device).to(dtype)
+    flow = torch.randn(2 * group, G, G, 2, generator=g, device=cuda_device) * 3
+    flow[:, ::2] *= 0.1  # contraction: several pixels per source cell
+    for fn, xs in ((lambda f, fl: S.warp_by_flow(f, fl, group), (feat, flow)),
+                   (lambda a, b, fl: CO.corr_lookup(a, b, fl, 2, 3, group), (f1, feat, flow)),
+                   (lambda f: resize_bilinear(f, (2 * G + 1, 3 * G)), (feat,))):
+        first, second = _backward_twice(fn, *xs)
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_fixed_order_index_select_syncs_nothing(cuda_device):
+    """The fixed-order gather's forward and backward run without a host
+    synchronisation (a training step's CUDA graph needs that)."""
+    x = torch.randn(64, 256, device=cuda_device, requires_grad=True)
+    idx = torch.randint(0, 64, (1000,), device=cuda_device)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y = index_select(x, 0, idx)
+        (g,) = torch.autograd.grad(y, x, torch.ones_like(y))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.testing.assert_close(g[:, 0], torch.bincount(idx, minlength=64).float())
 
 
 @pytest.mark.cuda
@@ -714,7 +833,7 @@ KERNEL_SYMBOLS = {
     "attention": r"\battention_(hopper|tc|f32)_kernel<",
     "match_scores": r"\bmatch_scores_(hopper_kernel<__nv_bfloat16>|f32_kernel\b)",
     "match_scores_int8": r"\bmatch_scores_hopper_kernel<signed char>",
-    "corr_window": r"\bcorr_(tile|f32)_kernel\b",
+    "corr_window": r"\bcorr_(tile|f32|any)_kernel\b",
     "warp": r"\bwarp_kernel<",
 }
 

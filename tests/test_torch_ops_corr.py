@@ -168,3 +168,91 @@ def test_corr_window_channel_order_walks_x_first():
     out = C.corr_window_plain(f1, f2, torch.tensor([[[2.0, 2.0]]]), 5, 5, R)
     k = int(out[0, 0].argmax())
     assert (k // 5, k % 5) == (3, 1) and out[0, 0, k] == 4.0 * 16 * 16**-0.5
+
+
+# ---------------------------------------------------------------- any radius
+# The flow decoder's lookup radius is radius // 2 of the config's (RAFT's
+# published 4 is config radius 8).  The same inputs and tolerances as the
+# radius-2 cases above, at lookup radii 1, 3 and 4, 1 to 5 pyramid levels
+# and groups 1 and 3; maps of 16^2 cells pool down to 1^2 at the fifth.
+
+RADII = (1, 3, 4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("group", [1, 3])
+@pytest.mark.parametrize("radius", RADII)
+def test_corr_window_plain_matches_pallas_kernel_at_any_radius(dtype, group, radius):
+    G, level = 16, radius % 2  # a full-size and a pooled map
+    f1, f2, flow = _inputs(31 + radius + group, 1, group, G, 64)
+    B, B2 = f1.shape[0], f2.shape[0]
+    jdt = jnp.dtype(dtype)
+    j1 = jnp.asarray(f1, jdt).reshape(B, G * G, 64)
+    j2 = jnp.asarray(f2, jdt)
+    for _ in range(level):
+        j2 = avg_pool2d(j2, 2)
+    Hp = j2.shape[1]
+    cen = np.array(_centres(jnp.asarray(flow), level))
+    ref = corr_window_pallas(j1, j2.reshape(B2, Hp * Hp, 64), jnp.asarray(cen), Hp, Hp, radius,
+                             group=group, interpret=True, transposed=True)
+    tdt = getattr(torch, dtype)
+    got = C.corr_window_plain(
+        torch.from_numpy(np.array(j1.astype(jnp.float32))).to(tdt),
+        torch.from_numpy(np.array(j2.astype(jnp.float32))).to(tdt).reshape(B2, Hp * Hp, 64),
+        torch.from_numpy(cen), Hp, Hp, radius, group=group,
+    )
+    n = (2 * radius + 1) ** 2
+    assert got.dtype == tdt and got.shape == (B, G * G, n)
+    got, ref = got.float().numpy(), np.asarray(ref.astype(jnp.float32))
+    assert np.all(got[:, G : G + 3] == 0) and np.all(ref[:, G : G + 3] == 0)  # far-off windows
+    if dtype == "float32":
+        assert_close(got, ref, atol=2e-5, what=f"corr window fp32, radius {radius}")
+    else:
+        assert_close(got, ref, atol=1e-6, rtol=2**-7, what=f"corr window bf16, radius {radius}")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("radius,levels,group", [(1, 5, 1), (3, 4, 3), (4, 2, 1), (1, 1, 3), (3, 3, 1), (4, 5, 3)])
+def test_corr_lookup_matches_pallas_kernel_per_level_at_any_radius(dtype, radius, levels, group):
+    """As ``test_corr_lookup_matches_pallas_kernel_per_level``: one
+    interpret-mode Pallas call per level on maps pooled by the JAX
+    package, concatenated, against the port's multi-level lookup."""
+    G, Cc = 16, 64
+    f1, f2, flow = _inputs(41 + 7 * radius + levels + group, 1, group, G, Cc)
+    B, B2 = f1.shape[0], f2.shape[0]
+    n = (2 * radius + 1) ** 2
+    jdt = jnp.dtype(dtype)
+    j1, pooled = jnp.asarray(f1, jdt).reshape(B, G * G, Cc), jnp.asarray(f2, jdt)
+    refs = []
+    for i in range(levels):
+        if i > 0:
+            pooled = avg_pool2d(pooled, 2)
+        Hp = pooled.shape[1]
+        win = corr_window_pallas(j1, pooled.reshape(B2, Hp * Hp, Cc), _centres(jnp.asarray(flow), i),
+                                 Hp, Hp, radius, group=group, interpret=True, transposed=True)
+        refs.append(np.asarray(win.astype(jnp.float32)).reshape(B, G, G, n))
+    ref = np.concatenate(refs, axis=-1)
+    tdt = getattr(torch, dtype)
+    to_t = lambda a: torch.from_numpy(np.array(jnp.asarray(a, jdt).astype(jnp.float32))).to(tdt)
+    got = C.corr_lookup(to_t(f1), to_t(f2), torch.from_numpy(flow), radius, levels, group)
+    assert got.dtype == tdt and got.shape == (B, G, G, levels * n)
+    got = got.float().numpy()
+    assert np.all(got[:, 1, :3] == 0)  # far-off windows, every level
+    if dtype == "float32":
+        assert_close(got, ref, atol=2e-5, what=f"corr lookup fp32, radius {radius}")
+    else:
+        assert_close(got, ref, atol=1e-6, rtol=2**-7, what=f"corr lookup bf16, radius {radius}")
+
+
+@pytest.mark.parametrize("radius,levels,group", [(1, 3, 3), (3, 5, 1), (4, 4, 3)])
+def test_corr_lookup_matches_xla_at_any_radius(radius, levels, group):
+    """The backward's form (``corr_lookup_reference``) and the forward
+    against the JAX package's XLA lookup in fp32."""
+    G = 16
+    f1, f2, flow = _inputs(51 + radius, 2, group, G, 32)
+    ref = np.asarray(_corr_lookup_xla(jnp.asarray(f1), jnp.asarray(f2), jnp.asarray(flow), radius, levels, group))
+    args = (torch.from_numpy(f1), torch.from_numpy(f2), torch.from_numpy(flow), radius, levels, group)
+    got = C.corr_lookup(*args)
+    assert got.shape == (f1.shape[0], G, G, levels * (2 * radius + 1) ** 2)
+    assert_close(got.numpy(), ref, atol=2e-5, what=f"corr lookup, radius {radius}")
+    assert_close(C.corr_lookup_reference(*args).numpy(), ref, atol=2e-5, what=f"reference form, radius {radius}")

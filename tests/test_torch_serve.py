@@ -31,7 +31,7 @@ from picopose_tpu.ops.preprocess import preprocess_frame as jax_preprocess_frame
 from picopose_tpu.serve import PoseEstimator as JaxPoseEstimator
 from picopose_tpu_torch.data import crops
 from picopose_tpu_torch.data.rle import rle_to_mask
-from picopose_tpu_torch.eval.pipeline import TemplateBank, build_bank, run_batch
+from picopose_tpu_torch.eval.pipeline import TemplateBank, build_bank, run_batch, select_templates
 from picopose_tpu_torch.ops.preprocess import preprocess_frame
 from picopose_tpu_torch.serve import PoseEstimator
 
@@ -263,15 +263,21 @@ def test_estimate_equals_run_batch_on_the_assembled_batch(frame, estimator):
 def test_estimate_keeps_order_across_objects_and_chunks(frame, estimator):
     """Five detections over two objects with max_batch 2: object 1's three
     make two chunks (the second padded), object 2's two one.  Each result
-    carries its own detection's stage-1 score; the on-device crops give
-    the same scores within 1e-4."""
+    carries its own detection's stage-1 score: that of stage 1 alone on a
+    chunk of that detection, padded as ``estimate`` pads it; the on-device
+    crops give the same scores within 1e-4."""
     dets = _detections()
     for d, obj in zip(dets, [1, 2, 1, 2, 1]):
         d.pop("category_id", None)
         d["obj_id"] = obj
     res = estimator.estimate(frame, K, dets)
     assert [r.obj_id for r in res] == [1, 2, 1, 2, 1]
-    alone = [estimator.estimate(frame, K, [d])[0].template_score for d in dets]
+
+    def stage1_score(d):
+        batch = estimator._host_batch(frame, K, [d], estimator.max_batch - 1)
+        return select_templates(estimator.model, batch, estimator._banks[d["obj_id"]], hyp=2)[1][0, 0].item()
+
+    alone = [stage1_score(d) for d in dets]
     np.testing.assert_allclose([r.template_score for r in res], alone, atol=1e-6)
     assert len(set(np.round(alone, 6))) == len(dets)  # distinct crops: the order is visible
     for r in res:

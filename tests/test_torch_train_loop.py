@@ -270,7 +270,7 @@ def test_warm_start_is_skipped_only_when_resuming_finds_a_checkpoint(tree, tmp_p
     ("trainer.n_devices=2", NotImplementedError, "ROADMAP A.6"),
     ("trainer.n_model=2", NotImplementedError, "ROADMAP A.6"),
     ("trainer.parallel=zero9", ValueError, "zero9"),
-    ("model.radius=2", NotImplementedError, "radius 2"),
+    ("model.num_levels=4", ValueError, "DPT head"),
     ("train_dataloader.backend=gpu", ValueError, "gpu"),
 ])
 def test_settings_the_port_does_not_run_raise(tree, tmp_path, light_loop, override, error, match):

@@ -8,11 +8,31 @@ statistics are all off their init values.
 
 from __future__ import annotations
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
 
 SMALL = dict(vit_type="vit_tiny_test", blocks_to_take=(0, 1, 2, 3))
+
+
+def _share_cores_among_workers() -> None:
+    """Under pytest-xdist, give each worker's torch an equal share of the
+    cores.  By default every worker's OpenMP pool takes every core, and a
+    pool whose threads wait on each other at every barrier slows down by
+    an order of magnitude once six of them share eight cores: six
+    concurrent copies of one ``evaluate_dataset`` test took 287 s each
+    with the default pools, 30 s with one thread each.  Each worker
+    collects every test file, so each sets its share before its first
+    test."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "0"))
+    if workers > 1:
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // workers))
+
+
+_share_cores_among_workers()
 
 
 def random_flax_variables(model, seed: int = 0) -> dict:
