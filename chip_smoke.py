@@ -99,19 +99,31 @@ Phases (any failure exits non-zero before the result line):
      lr 3e-4 on the fixed batch (the loss below 0.9x its first), and the
      step's times: ms per step and samples/s, forward / backward /
      optimizer ms, the forward by layer, and a profile (device busy, idle
-     share, top kernels);
+     share, top kernels); then the compiled step (``make_train_step``,
+     ``compiled_step_phase``): three calls bitwise three eager steps from
+     equal states (losses, parameters, statistics, gradients, moments,
+     ``count``, the noise generator) for AdamW and SGD at grad_accum 1 and
+     2, one with the caller's TF32 flags on; the wrappers' launches (the
+     capturing call's warm-up, none on a replay); a replay's kernels in a
+     profiler trace without and with remat; ``ckpt.restore`` into the
+     captured state mid-accumulation, then a replay equal to the eager next
+     step; and ``train_timing`` in a fresh interpreter: eager against
+     compiled ms per step, capture s, peak memory, without and with remat,
+     device busy and idle share of a replay;
   9. the training loop at full width (``loop_phase``): a MegaPose-GSO tree
      written with the script's own encoders (48 640 x 480 JPEG frames from
      ``jpeg_bytes``, two objects x 162 RGBA + depth template views), the
      port's JPEG decoder on its frames (PSNR, ms per frame), the loader
-     alone (pool start-up, batches/s), the step alone and the loop's times
-     in a fresh interpreter (``loop_timing``: a process that has profiled
-     stays slower on the host), ``run_training`` in this process with the
-     launches of every step (96 LN, 48 attention, 3 corr-window, 3 warp), a
-     profile of ten steps and the checkpoint's bytes, save and restore, one
-     loop batch's step through the kernels against the plain path, and
-     ``python -m picopose_tpu_torch.run_train`` for 2 epochs of 10 steps
-     (checkpoints at 10 and 20) and ``--resume`` to step 30;
+     alone (pool start-up, batches/s), the compiled step alone and the
+     loop's times in a fresh interpreter (``loop_timing``: a process that
+     has profiled stays slower on the host), ``run_training`` in this
+     process through the compiled step (its first step captures, the
+     others replay) with a profile of ten steps (96 LN, 48 attention, 3
+     corr-window, 3 warp per step in the trace) and the checkpoint's bytes,
+     save and restore, one loop batch's eager step through the kernels
+     against the plain path, and ``python -m picopose_tpu_torch.run_train``
+     for 2 epochs of 10 steps (checkpoints at 10 and 20) and ``--resume``
+     to step 30, each through the compiled step;
  10. the compiled inference programs at full width (``graph_phase``, run
      right after phase 5 on its estimator, bank and frame): CUDA graphs
      (utils/graphs.py) of run_batch, the bank build's chunks and
@@ -145,9 +157,9 @@ profiler trace of it (``traced_launches``).
 Then the kernels as one JSON line (K3's int8 row with the wrappers'
 launches in the int8-matching ``estimate`` that captures its program;
 each row's executions per replayed run_batch, from the trace, as
-``replay_launches``, per training step as
-``train_launches`` and per loop step as ``loop_launches``), the card
-line, and the result line.
+``replay_launches``, per replay of the compiled training step as
+``train_launches`` and per loop step as ``loop_launches``, both from
+traces), the card line, and the result line.
 The script leaves PyTorch's TF32 flags at their defaults (cuDNN may take
 TF32 for fp32 convolutions): the package pins its fp32 work itself
 (``device.full_fp32``), and phase 5 checks that.  Inputs and weights
@@ -1983,16 +1995,16 @@ def step_kernel_vs_plain(state, plain_state, batch, noise, launches: dict, tag: 
 
     def step_with_grads(st):
         grads = {}
+        opt = st.optimizer
+        apply = opt.apply
 
-        def keep(optimizer, args, kwargs):
+        def keep():
             grads.update({n: p.grad.detach().clone() for n, p in st.model.named_parameters()})
-            lrs.append(optimizer.param_groups[0]["lr"])
+            lrs.append(float(opt.lr))
+            apply()
 
-        hook = st.optimizer.inner.register_step_pre_hook(keep)
-        try:
+        with patched((opt, "apply", keep)):
             losses = ts.train_step(st, batch, noise)
-        finally:
-            hook.remove()
         torch.cuda.synchronize()
         return losses, grads
 
@@ -2040,6 +2052,238 @@ def index_add_forms() -> tuple:
     return tuple((module, "index_select", old) for module in (SA, RS, LS))
 
 
+TRAIN_FORWARD = {"layernorm": 96, "attention": 48, "corr_window": 3, "warp": 3}  # one full-width step's kernels
+TRAIN_REMAT = {"layernorm": 192, "attention": 96, "corr_window": 3, "warp": 3}  # with the blocks recomputed
+
+
+def train_state_diff(a, b) -> list[str]:
+    """What differs between two train states, bitwise: parameters and
+    BatchNorm statistics by name, gradients, moments and ``count`` by
+    index, and the host counters."""
+    def tensors(st):
+        opt = st.optimizer
+        out = dict(st.model.state_dict())
+        out.update({f"grad {i}": g for i, g in enumerate(opt.grads)})
+        out.update({f"{k} {i}": t for k, m in opt.moments.items() for i, t in enumerate(m)})
+        out["count"] = opt.count
+        return out
+
+    ta, tb = tensors(a), tensors(b)
+    bad = [k for k in ta if not torch.equal(ta[k], tb[k])]
+    counters = lambda st: (st.step, st.optimizer.updates, st.optimizer.mini_step)
+    return bad + ([f"counters {counters(a)} vs {counters(b)}"] if counters(a) != counters(b) else [])
+
+
+def compiled_step_phase(seed: int, batch: dict, noise_seed: int, model_kw: dict) -> dict:
+    """Phase 8's compiled step (train/step.py::make_train_step) at full
+    width, against the eager ``train_step`` from equal states and noise
+    generators: AdamW and SGD at grad_accum 1 and 2, three calls each,
+    losses, parameters, statistics, gradients, moments, ``count`` and the
+    generator bitwise; the wrappers' launches (the capturing call's
+    warm-up, none on a replay); SGD at grad_accum 1 with the caller's TF32
+    flags on around the compiled calls.  After AdamW at grad_accum 2 (in
+    the middle of an accumulation) the eager state is saved, the compiled
+    state takes a fourth step, is restored from the file in place and its
+    replay equals the eager next step.  Then one replay's kernels in a
+    profiler trace, without and with ViT remat (a second program), remat's
+    compiled step against the eager one (after AdamW at grad_accum 1).
+    Returns the trace's launches per replay without remat."""
+    import shutil
+    import tempfile
+
+    from picopose_tpu_torch import kernels
+    from picopose_tpu_torch.train import step as ts
+    from picopose_tpu_torch.utils import checkpoint as ckpt
+
+    dev = torch.device("cuda")
+    eager_model = ts.init_state(ts.make_optimizer(), seed, **model_kw).model
+    graphed_model = ts.init_state(ts.make_optimizer(), seed, **model_kw).model
+    calm_scale_head_(eager_model)
+    calm_scale_head_(graphed_model)
+    start = {k: v.clone() for k, v in eager_model.state_dict().items()}
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="train_phase_", dir=here)
+    try:
+        for opt_type, accum in (("AdamW", 1), ("AdamW", 2), ("SGD", 1), ("SGD", 2)):
+            tag = f"[train] compiled {opt_type} grad_accum {accum}"
+            tx = ts.make_optimizer(opt_type=opt_type, grad_accum=accum)  # base.yaml's lr and schedule
+            states = []
+            for model in (eager_model, graphed_model):
+                model.load_state_dict(start)
+                model.zero_grad(set_to_none=True)
+                states.append(ts.TrainState(0, model, tx.init(model.parameters())))
+            eager, graphed = states
+            g_eager, g_graph = (torch.Generator(device=dev).manual_seed(noise_seed) for _ in range(2))
+            step = ts.make_train_step(graphed)
+            tf32 = opt_type == "SGD" and accum == 1
+            flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+            results = []
+            for call in range(3):
+                le = ts.train_step(eager, batch, g_eager)
+                kernels.reset_launches()
+                t0 = time.perf_counter()
+                if tf32:
+                    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+                try:
+                    lg = step(graphed, batch, g_graph)
+                    torch.cuda.synchronize()
+                    kept = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+                finally:
+                    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+                call_s = time.perf_counter() - t0
+                diff = train_state_diff(graphed, eager)
+                same_loss = all(torch.equal(lg[k], le[k]) for k in le)
+                same_gen = torch.equal(g_graph.get_state(), g_eager.get_state())
+                results.append((same_loss, diff, same_gen))
+                print(f"{tag} call {call + 1}: {call_s!r} s, the wrappers' launches {dict(kernels.LAUNCHES)}; "
+                      f"losses bitwise {same_loss} (loss {float(lg['loss'])!r} vs {float(le['loss'])!r}); "
+                      f"state tensors that differ {len(diff)} {diff[:6]}; generator state equal {same_gen}"
+                      + (f"; TF32 flags on around the call, after it {kept}" if tf32 else ""))
+                if call < (1 if accum == 1 else 2):  # grad_accum 2: the second call captures the update
+                    check(dict(kernels.LAUNCHES) == TRAIN_FORWARD, f"{tag}: the capturing call's warm-up launched "
+                          "one step's kernels")
+                else:
+                    check(not kernels.LAUNCHES, f"{tag}: a replay's wrappers count nothing")
+                if tf32:
+                    check(kept == (True, True), f"{tag}: the caller's TF32 flags stay as set")
+            check(all(a and not d and c for a, d, c in results),
+                  f"{tag}: three compiled calls bitwise three eager steps (losses, state, generator)")
+            captures = sum(step.graphs.captures.values())
+            check(captures == (1 if accum == 1 else 2) and step.graphs.replays["train_step"] == 3,
+                  f"{tag}: {captures} programs captured, 3 replays")
+            moved = sum(not torch.equal(start[k], v) for k, v in graphed.model.state_dict().items())
+            print(f"{tag}: captures {dict(step.graphs.captures)} in {dict(step.graphs.capture_s)} s; "
+                  f"{moved} of {len(start)} state-dict tensors moved")
+            if opt_type == "AdamW" and accum == 2:
+                # restore after capture, in the middle of an accumulation
+                log_dir = os.path.join(tmp, "log")
+                mini_step = eager.optimizer.mini_step
+                t0 = time.perf_counter()
+                ckpt.save(log_dir, eager.step, eager, 0)
+                save_s = time.perf_counter() - t0
+                step(graphed, batch, g_graph)  # a fourth step: the compiled state moves on
+                address = lambda st: [t.data_ptr() for t in (*st.model.parameters(), *st.model.buffers(),
+                                                             *st.optimizer.tensors())]
+                before = address(graphed)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ckpt.restore(log_dir, None, graphed)
+                torch.cuda.synchronize()
+                restore_s = time.perf_counter() - t0
+                g_graph.set_state(g_eager.get_state())
+                same_address, diff = address(graphed) == before, train_state_diff(graphed, eager)
+                le, lg = ts.train_step(eager, batch, g_eager), step(graphed, batch, g_graph)
+                torch.cuda.synchronize()
+                after = train_state_diff(graphed, eager)
+                same = all(torch.equal(lg[k], le[k]) for k in le)
+                print(f"{tag}: saved mid-accumulation (mini_step {mini_step}) in {save_s!r} s, "
+                      f"restored after capture in {restore_s!r} s, every tensor at its address {same_address}, "
+                      f"differing tensors after the restore {len(diff)}; the next replay against the next eager "
+                      f"step: losses bitwise {same}, differing tensors {len(after)} {after[:6]}")
+                check(mini_step == 1 and same_address and not diff,
+                      f"{tag}: restore after capture copies the state saved mid-accumulation in place")
+                check(same and not after, f"{tag}: the replay after the restore equals the eager next step")
+                shutil.rmtree(log_dir)
+            if opt_type == "AdamW" and accum == 1:
+                # one replay's kernels in a trace, then the remat program
+                kernels.reset_launches()
+                _, traced = trace_launches(lambda: step(graphed, batch, g_graph))
+                print(f"[train] one compiled step's replay in a profiler trace: {traced}; the wrappers counted "
+                      f"{dict(kernels.LAUNCHES)}")
+                check(traced == TRAIN_FORWARD and not kernels.LAUNCHES,
+                      "a replay ran K1 (96), K2 (48), K4 (3) and K5 (3), and no wrapper counted it")
+                train_launches = traced
+                ts.train_step(eager, batch, g_eager)
+                for model in (eager_model, graphed_model):
+                    model.feature_extractor.dinov2.remat = True
+                le, lg = ts.train_step(eager, batch, g_eager), step(graphed, batch, g_graph)
+                torch.cuda.synchronize()
+                diff = train_state_diff(graphed, eager)
+                kernels.reset_launches()
+                _, traced_r = trace_launches(lambda: step(graphed, batch, g_graph))
+                print(f"[train] remat: the compiled step (a new program, captures {dict(step.graphs.captures)}) "
+                      f"against the eager: losses bitwise {all(torch.equal(lg[k], le[k]) for k in le)}, differing "
+                      f"tensors {len(diff)}; a replay in a trace {traced_r}, the wrappers {dict(kernels.LAUNCHES)}")
+                check(all(torch.equal(lg[k], le[k]) for k in le) and not diff,
+                      "remat: the compiled step equals the eager step")
+                check(traced_r == TRAIN_REMAT and not kernels.LAUNCHES,
+                      "remat: a replay ran K1 (96 + 96) and K2 (48 + 48), K4 (3) and K5 (3)")
+                check(step.graphs.captures["train_step"] == 2, "remat: a program of its own")
+                for model in (eager_model, graphed_model):
+                    model.feature_extractor.dinov2.remat = False
+            del step, states, eager, graphed
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return train_launches
+
+
+def train_timing(seed: int) -> dict:
+    """The compiled step's host-clock times and memory, in an interpreter
+    that has never run torch.profiler (``loop_timing``'s rule): phase 8's
+    batch of 8 at full width with base.yaml's AdamW; the eager
+    ``train_step`` and the compiled step, each without and with ViT remat:
+    ms per step (median of 10 after a warm-up; the compiled step's first
+    call captures), capture seconds, peak device memory (allocated and
+    reserved; the compiled step's over its first call, whose warm-up
+    snapshots the state, and over its replays); then profiles: one replay
+    of each program and one eager step, device busy ms."""
+    import gc
+
+    from picopose_tpu_torch import kernels
+    from picopose_tpu_torch.train import step as ts
+
+    kernels.build()
+    dev = torch.device("cuda")
+    B = 8
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in train_batch(B, seed).items()}
+    model_kw = dict(vit_type="dinov2_vitl14", blocks_to_take=(5, 11, 17, 23), compute_dtype=torch.bfloat16)
+    state = ts.init_state(ts.make_optimizer(), seed, **model_kw)
+    vit = state.model.feature_extractor.dinov2
+    noise = torch.Generator(device=dev).manual_seed(seed + 8)
+    out = {"params": sum(p.numel() for p in state.model.parameters())}
+
+    def peak() -> tuple[float, float]:
+        return torch.cuda.max_memory_allocated() / 2**30, torch.cuda.max_memory_reserved() / 2**30
+
+    def reset():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    for remat in (False, True):
+        vit.remat = remat
+        name = "remat" if remat else "plain"
+        reset()
+        out[f"eager_{name}_ms"] = host_ms(lambda: ts.train_step(state, batch, noise), 11)[1:]
+        out[f"eager_{name}_peak_gib"] = peak()
+        reset()
+        step = ts.make_train_step(state)
+        first = host_ms(lambda: step(state, batch, noise), 1)[0]
+        out[f"compiled_{name}_first_ms"] = first
+        out[f"compiled_{name}_capture_s"] = step.graphs.capture_s["train_step"][0]
+        out[f"compiled_{name}_capture_peak_gib"] = peak()  # the warm-up's snapshot of the state included
+        torch.cuda.reset_peak_memory_stats()
+        out[f"compiled_{name}_ms"] = host_ms(lambda: step(state, batch, noise), 11)[1:]
+        out[f"compiled_{name}_peak_gib"] = peak()
+        del step
+    # profiles last: a process that has profiled stays slower on the host
+    for remat in (False, True):
+        vit.remat = remat
+        name = "remat" if remat else "plain"
+        reset()
+        step = ts.make_train_step(state)
+        step(state, batch, noise)
+        print(f"[profile] one replay of the compiled step ({name}):")
+        out[f"compiled_{name}_busy_ms"] = profile_batch(lambda: step(state, batch, noise), top=12)[0]
+        del step
+    vit.remat = False
+    print("[profile] one eager step:")
+    out["eager_plain_busy_ms"] = profile_batch(lambda: ts.train_step(state, batch, noise), top=0)[0]
+    return out
+
+
 def train_phase(seed: int) -> dict:
     """Phase 8: the training step at full ViT-L width (dinov2_vitl14, taps
     5/11/17/23, bf16 compute, fp32 weights from ``seed``), batch 8 of
@@ -2049,6 +2293,7 @@ def train_phase(seed: int) -> dict:
     import picopose_tpu_torch.models.dinov2 as vit_module
     import picopose_tpu_torch.models.flow as flow_module
     from picopose_tpu_torch import kernels
+    from picopose_tpu_torch.device import deterministic_cudnn
     from picopose_tpu_torch.ops import attention as A
     from picopose_tpu_torch.ops import corr as CO
     from picopose_tpu_torch.ops import layernorm as L
@@ -2077,7 +2322,8 @@ def train_phase(seed: int) -> dict:
     detach = lambda a: tuple(x.detach() if isinstance(x, torch.Tensor) else x for x in a)
 
     def forward_backward(remat: bool, record: bool = False):
-        """One forward_train + backward from the model's weights (no update):
+        """One forward_train + backward from the model's weights (no update),
+        with cuDNN's deterministic algorithms as ``train_step`` takes them:
         (losses, gradients by name, launches of the forward, of the backward,
         peak GiB)."""
         vit.remat = remat
@@ -2103,7 +2349,8 @@ def train_phase(seed: int) -> dict:
         torch.cuda.synchronize()
         fwd = dict(kernels.LAUNCHES)
         kernels.reset_launches()
-        losses["loss"].backward()
+        with deterministic_cudnn():
+            losses["loss"].backward()
         torch.cuda.synchronize()
         bwd = dict(kernels.LAUNCHES)
         peak = torch.cuda.max_memory_allocated() / 2**30
@@ -2233,7 +2480,7 @@ def train_phase(seed: int) -> dict:
     print(f"[train] 30 steps at lr 3e-4 on one batch ({fit_s!r} s): loss {history!r}")
     check(all(np.isfinite(history)), "every loss finite")
     check(history[-1] < 0.9 * history[0], "the loss falls below 0.9 x its first value within 30 steps")
-    check(fit.step == 30 and fit.optimizer.scheduler.last_epoch == 30, "step counts 30 updates")
+    check(fit.step == 30 and fit.optimizer.updates == int(fit.optimizer.count) == 30, "step counts 30 updates")
     check(not torch.equal(w0, vit.blocks[0].attn.qkv.weight) and not torch.equal(s0, model.flow_decoder.proj_bn[2]
           .running_var), "parameters and BatchNorm statistics changed")
 
@@ -2298,9 +2545,29 @@ def train_phase(seed: int) -> dict:
         ms, n = count_kernels(events, match)
         print(f"[train] {name} in the profiled step: {ms!r} ms over {n} launches")
     del fit, state, model
-    launches = {"layernorm": 96, "attention": 48, "match_scores": 0, "match_scores_int8": 0,
-                "corr_window": 3, "warp": 3}
-    return launches, med
+    torch.cuda.empty_cache()
+
+    # 8. the compiled step against the eager one, then its times in a fresh interpreter
+    t0 = time.perf_counter()
+    launches = compiled_step_phase(seed, batch, noise_seed, model_kw)
+    print(f"[train] compiled-step checks {time.perf_counter() - t0!r} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    t = in_fresh_interpreter(f"train_timing({seed})", "[train]")
+    print(f"[train] timing in a fresh interpreter {time.perf_counter() - t0!r} s; {t['params']} parameters")
+    for name in ("plain", "remat"):
+        e, c = float(np.median(t[f"eager_{name}_ms"])), float(np.median(t[f"compiled_{name}_ms"]))
+        print(f"[train] {name}: eager {e!r} ms per step = {B / e * 1e3!r} samples/s, peak GiB allocated / reserved "
+              f"{t[f'eager_{name}_peak_gib']!r}; compiled {c!r} ms = {B / c * 1e3!r} samples/s (median of 10; all "
+              f"{t[f'compiled_{name}_ms']!r}), first call {t[f'compiled_{name}_first_ms']!r} ms of which capture "
+              f"{t[f'compiled_{name}_capture_s']!r} s, peak GiB over the first call "
+              f"{t[f'compiled_{name}_capture_peak_gib']!r}, over the replays {t[f'compiled_{name}_peak_gib']!r}; "
+              f"a replay's "
+              f"device busy {t[f'compiled_{name}_busy_ms']!r} ms: idle share {1 - t[f'compiled_{name}_busy_ms'] / c!r}")
+    e = float(np.median(t["eager_plain_ms"]))
+    print(f"[train] eager step device busy {t['eager_plain_busy_ms']!r} ms: idle share "
+          f"{1 - t['eager_plain_busy_ms'] / e!r} of its fresh-interpreter median")
+    return {"match_scores": 0, "match_scores_int8": 0, **launches}, med
 
 
 # Annex K.1 quantisation tables (natural order) and K.3 Huffman tables, for
@@ -2546,14 +2813,33 @@ def loop_log(log_dir: str) -> tuple[list[str], list[float]]:
     return heads, losses
 
 
+def in_fresh_interpreter(call: str, tag: str, timeout: int = 900) -> dict:
+    """``chip_smoke.<call>`` in a new Python process (one that has never
+    run torch.profiler): its JSON result; its ``[profile]`` lines are
+    printed after ``tag``."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": here}
+    code = f"import json, chip_smoke; print('FRESH_RESULT', json.dumps(chip_smoke.{call}))"
+    r = subprocess.run([sys.executable, "-c", code], cwd=here, env=env, capture_output=True, text=True,
+                       timeout=timeout)
+    if r.returncode != 0:
+        print(r.stdout[-3000:], r.stderr[-6000:], file=sys.stderr)
+    check(r.returncode == 0, f"{call.split('(')[0]} in a fresh interpreter exits 0")
+    for line in r.stdout.split("FRESH_RESULT ", 1)[0].splitlines():
+        if line.startswith("[profile]"):
+            print(f"{tag} fresh interpreter {line}")
+    return json.loads(r.stdout.split("FRESH_RESULT ", 1)[1].splitlines()[0])
+
+
 def loop_timing(config: str, overrides: list, log_dir: str, seed: int) -> dict:
     """The loop's host-clock times, taken in an interpreter that has never
     run torch.profiler: once it has run, the host stays slower for the rest
     of the process (PERF.md §6, PR 9), so ``loop_phase`` runs this in a
-    fresh one.  One loader batch's ``train_step`` alone (median of 10 after
-    a warm-up), then ``run_training`` for LOOP_TIMED steps, each step end to
-    step end with a synchronise, split into the time between steps
-    (logging, waiting for the uploaded batch) and in ``train_step``."""
+    fresh one.  One loader batch's compiled step alone (median of 10
+    replays after the capturing call), then ``run_training`` for LOOP_TIMED
+    steps, each step end to step end with a synchronise, split into the
+    time between steps (logging, waiting for the uploaded batch) and in the
+    compiled step."""
     from picopose_tpu_torch import kernels
     from picopose_tpu_torch.data.megapose import MegaPoseTrainingDataset, collate
     from picopose_tpu_torch.models.picopose import model_kwargs
@@ -2571,26 +2857,33 @@ def loop_timing(config: str, overrides: list, log_dir: str, seed: int) -> dict:
     batch = {k: torch.as_tensor(v, device=dev) for k, v in collate([ds.get(i) for i in range(bs)]).items()}
     state = ts.init_state(ts.make_optimizer(), seed, **model_kwargs(cfg), remat_vit=cfg.model.remat_vit)
     noise = draw_affine_noise(bs, torch.Generator(device=dev).manual_seed(seed))
-    alone = host_ms(lambda: ts.train_step(state, batch, noise), 11)[1:]
-    del state, batch
+    compiled = ts.make_train_step(state)
+    alone = host_ms(lambda: compiled(state, batch, noise), 11)[1:]
+    del state, batch, compiled
     torch.cuda.empty_cache()
-    real_step = loop.train_step
     rec = {"ms": [], "wait_ms": [], "step_ms": []}
     clock = [None]
+    real_make = loop.make_train_step
 
-    def step(state, batch, noise):
-        entry = time.perf_counter()
-        losses = real_step(state, batch, noise)
-        torch.cuda.synchronize()
-        now = time.perf_counter()
-        if clock[0] is not None:
-            rec["ms"].append((now - clock[0]) * 1e3)
-            rec["wait_ms"].append((entry - clock[0]) * 1e3)
-            rec["step_ms"].append((now - entry) * 1e3)
-        clock[0] = now
-        return losses
+    def make(state):
+        real_step = real_make(state)
 
-    with patched((loop, "train_step", step), (loop.ckpt, "save", lambda *a: None)):
+        def step(state, batch, noise):
+            entry = time.perf_counter()
+            losses = real_step(state, batch, noise)
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            if clock[0] is not None:
+                rec["ms"].append((now - clock[0]) * 1e3)
+                rec["wait_ms"].append((entry - clock[0]) * 1e3)
+                rec["step_ms"].append((now - entry) * 1e3)
+            clock[0] = now
+            return losses
+
+        step.graphs = real_step.graphs
+        return step
+
+    with patched((loop, "make_train_step", make), (loop.ckpt, "save", lambda *a: None)):
         loop.run_training(cfg, log_dir, max_steps=LOOP_TIMED)
     return {"alone_ms": alone, **rec}
 
@@ -2667,49 +2960,48 @@ def loop_phase(seed: int, step_ms_alone: float) -> dict:
               f"{startup!r} s, then {rate!r} batches/s = {rate * bs!r} samples/s over {rest} batches")
 
         # the loop's times, in a fresh interpreter
-        env = {**os.environ, "PYTHONPATH": here}
-        code = ("import json, chip_smoke; print('LOOP_TIMING', json.dumps(chip_smoke.loop_timing("
-                f"{config!r}, {overrides!r}, {os.path.join(tmp, 'log_timing')!r}, {seed})))")
-        r = subprocess.run([sys.executable, "-c", code], cwd=here, env=env, capture_output=True, text=True,
-                           timeout=900)
-        if r.returncode != 0:
-            print(r.stdout[-3000:], r.stderr[-6000:], file=sys.stderr)
-        check(r.returncode == 0, "the loop's timing run exits 0")
-        timing = json.loads(r.stdout.split("LOOP_TIMING ", 1)[1].splitlines()[0])
+        timing = in_fresh_interpreter(f"loop_timing({config!r}, {overrides!r}, "
+                                      f"{os.path.join(tmp, 'log_timing')!r}, {seed})", "[loop]")
         alone = float(np.median(timing["alone_ms"]))
         steady = slice(LOOP_TIMED - 31, None)  # the last 30 steps: past the pool's first wave of batches
         med = float(np.median(timing["ms"][steady]))
-        print(f"[loop] in a fresh interpreter: train_step alone on a loader batch {alone!r} ms = "
+        print(f"[loop] in a fresh interpreter: the compiled step alone on a loader batch {alone!r} ms = "
               f"{bs / alone * 1e3!r} samples/s (median of 10; all {timing['alone_ms']!r}); ms per step inside "
               f"run_training (step end to step end, synchronised; median of the last 30 of {LOOP_TIMED}) {med!r} = "
               f"{bs / med * 1e3!r} samples/s; of which between steps (logging, waiting for the uploaded batch) "
-              f"{float(np.median(timing['wait_ms'][steady]))!r} ms, in train_step "
+              f"{float(np.median(timing['wait_ms'][steady]))!r} ms, in the compiled step "
               f"{float(np.median(timing['step_ms'][steady]))!r} ms; all {[round(x, 1) for x in timing['ms']]!r}")
-        print(f"[loop] phase 8's step alone in this process, after it has profiled: {step_ms_alone!r} ms = "
+        print(f"[loop] phase 8's eager step alone in this process, after it has profiled: {step_ms_alone!r} ms = "
               f"{bs / step_ms_alone * 1e3!r} samples/s")
 
         # run_training in this process, each step instrumented
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
-        real_step, real_save = loop.train_step, ckpt.save
-        rec = {"launches": [], "saves": [], "state": None, "batch": None}
+        real_make, real_save = loop.make_train_step, ckpt.save
+        rec = {"launches": [], "saves": [], "state": None, "batch": None, "graphs": None}
         prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
 
-        def step(state, batch, noise):
-            i = len(rec["launches"])
-            if i == LOOP_PROFILED.start:
-                prof.start()
-            kernels.reset_launches()
-            losses = real_step(state, batch, noise)
-            rec["launches"].append(dict(kernels.LAUNCHES))
-            if i == LOOP_PROFILED.stop - 1:
-                torch.cuda.synchronize()
-                prof.stop()
-            if i == 3:
-                rec["batch"] = {k: torch.as_tensor(v).clone() for k, v in batch.items()}
-            rec["state"] = state
-            return losses
+        def make(state):
+            real_step = real_make(state)
+
+            def step(state, batch, noise):
+                i = len(rec["launches"])
+                if i == LOOP_PROFILED.start:
+                    prof.start()
+                kernels.reset_launches()
+                losses = real_step(state, batch, noise)
+                rec["launches"].append(dict(kernels.LAUNCHES))
+                if i == LOOP_PROFILED.stop - 1:
+                    torch.cuda.synchronize()
+                    prof.stop()
+                if i == 3:
+                    rec["batch"] = {k: torch.as_tensor(v).clone() for k, v in batch.items()}
+                rec["state"] = state
+                return losses
+
+            step.graphs = rec["graphs"] = real_step.graphs
+            return step
 
         def save(log_dir, step_, state, epoch):
             torch.cuda.synchronize()
@@ -2720,14 +3012,22 @@ def loop_phase(seed: int, step_ms_alone: float) -> dict:
 
         log_dir = os.path.join(tmp, "log_in_process")
         t0 = time.perf_counter()
-        with patched((loop, "train_step", step), (loop.ckpt, "save", save)):
+        with patched((loop, "make_train_step", make), (loop.ckpt, "save", save)):
             loop.run_training(cfg, log_dir, max_steps=LOOP_STEPS)
         run_s = time.perf_counter() - t0
-        want = {"layernorm": 96, "attention": 48, "corr_window": 3, "warp": 3}
-        print(f"[loop] launches per loop step: {rec['launches'][0]} (the same in all {len(rec['launches'])}: "
-              f"{all(x == rec['launches'][0] for x in rec['launches'])})")
-        check(len(rec["launches"]) == LOOP_STEPS and all(x == want for x in rec["launches"]),
-              "every loop step went through K1 (96), K2 (48), K4 (3) and K5 (3)")
+        want = TRAIN_FORWARD
+        graphs = rec["graphs"]
+        traced = traced_launches(prof.key_averages())
+        per_step = {k: v / len(LOOP_PROFILED) for k, v in traced.items()}
+        print(f"[loop] the compiled step: {dict(graphs.captures)} programs captured in {dict(graphs.capture_s)} s, "
+              f"{dict(graphs.replays)} replays; the wrappers' launches of the first step (its warm-up) "
+              f"{rec['launches'][0]}, of the others {rec['launches'][1:]}; the profiled steps' trace "
+              f"{traced} = {per_step} per step")
+        check(len(rec["launches"]) == LOOP_STEPS and rec["launches"][0] == want and not any(rec["launches"][1:]),
+              "run_training's first step captured the step (its warm-up counted), the others replayed")
+        check(graphs.captures["train_step"] == 1 and graphs.replays["train_step"] == LOOP_STEPS,
+              "run_training replayed one compiled program at every step")
+        check(per_step == want, "every profiled loop step ran K1 (96), K2 (48), K4 (3) and K5 (3)")
         heads, losses = loop_log(log_dir)
         check(heads == [f"iter {k}" for k in range(6, LOOP_STEPS + 1, 6)] + [f"epoch 0 done at iter {LOOP_STEPS}"]
               and all(np.isfinite(losses)), "the in-process run's log: iteration lines, the epoch line, finite losses")
@@ -2777,6 +3077,10 @@ def loop_phase(seed: int, step_ms_alone: float) -> dict:
             if r.returncode != 0:
                 print(r.stdout[-3000:], r.stderr[-6000:], file=sys.stderr)
             check(r.returncode == 0, f"run_train ({name} run) exits 0")
+            compiled = [line for line in r.stdout.splitlines() if line.startswith("compiled train step:")]
+            print(f"[loop] run_train ({name} run): {compiled}")
+            check(len(compiled) == 1 and " of 1 captured programs" in compiled[0],
+                  f"run_train ({name} run) went through the compiled step")
             if name == "first":
                 saved = sorted(os.listdir(os.path.join(log_dir, "checkpoints")))
                 check(saved == ["10.pt", "20.pt"], f"checkpoints at steps 10 and 20 ({saved})")
@@ -2794,8 +3098,7 @@ def loop_phase(seed: int, step_ms_alone: float) -> dict:
         check(len(losses) > 0 and all(np.isfinite(losses)), "every logged loss finite")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    return {"layernorm": 96, "attention": 48, "match_scores": 0, "match_scores_int8": 0,
-            "corr_window": 3, "warp": 3}
+    return {"match_scores": 0, "match_scores_int8": 0, **{k: int(v) for k, v in per_step.items()}}
 
 
 def graph_outputs_equal(tag: str, got, ref) -> dict:
@@ -2924,17 +3227,7 @@ def graph_phase(seed: int, world: dict) -> dict:
     del bank2, graphs
 
     # the times, in a fresh interpreter
-    here = os.path.dirname(os.path.abspath(__file__))
-    code = f"import json, chip_smoke; print('GRAPH_TIMING', json.dumps(chip_smoke.graph_timing({seed})))"
-    r = subprocess.run([sys.executable, "-c", code], cwd=here, env={**os.environ, "PYTHONPATH": here},
-                       capture_output=True, text=True, timeout=600)
-    if r.returncode != 0:
-        print(r.stdout[-3000:], r.stderr[-6000:], file=sys.stderr)
-    check(r.returncode == 0, "the compiled programs' timing run exits 0")
-    for line in r.stdout.splitlines():
-        if line.startswith("[profile]"):
-            print(f"[graphs] fresh interpreter {line}")
-    t = json.loads(r.stdout.split("GRAPH_TIMING ", 1)[1].splitlines()[0])
+    t = in_fresh_interpreter(f"graph_timing({seed})", "[graphs]", timeout=600)
     med = lambda k: float(np.median(t[k]))
     for what, key in (("run_batch (16 x 5, 150 PnP iterations)", "run_batch"), ("bank build (162 views)", "bank"),
                       ("estimate, host crops (18 detections)", "estimate_host"),

@@ -1,5 +1,6 @@
 """Device selection: CUDA unless the caller names the CPU, never a silent
-fallback; and the fp32 precision the port's fp32 stages need."""
+fallback; the fp32 precision the port's fp32 stages need; and cuDNN's
+deterministic algorithms for the training step."""
 
 from __future__ import annotations
 
@@ -47,3 +48,22 @@ def full_fp32():
     finally:
         torch.backends.cuda.matmul.allow_tf32 = matmul
         torch.backends.cudnn.allow_tf32 = cudnn
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """Let cuDNN take only deterministic algorithms; restore the caller's
+    ``torch.backends.cudnn.deterministic`` on every exit.
+
+    cuDNN's own choice for some weight gradients is its algorithm 0, which
+    sums with atomics in no fixed order: at ViT-L, batch 8, the stage-2
+    head's fp32 1x1 conv (256 -> 256 on channels-last 16^2 maps) gave two
+    runs of one gradient a few ulps apart, eagerly and under a CUDA graph
+    capture alike.  Process-global, as ``full_fp32``; usable as a decorator.
+    """
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved

@@ -26,7 +26,7 @@ def unproject_points(points2d: torch.Tensor, K: torch.Tensor, depth: torch.Tenso
     yi = torch.clamp(points2d[..., 1], 0, H - 1).to(torch.int64)
     d = torch.gather(depth.reshape(*depth.shape[:-2], H * W), -1, yi * W + xi)
     ph = torch.cat([points2d, torch.ones_like(points2d[..., :1])], dim=-1)
-    rays = torch.matmul(ph, torch.linalg.inv(K).transpose(-1, -2))
+    rays = torch.matmul(ph, torch.linalg.inv_ex(K).inverse.transpose(-1, -2))  # inv checks on the host
     return rays * d[..., None]
 
 

@@ -11,7 +11,9 @@ stripped, NHWC, with no final LayerNorm.
 Parameters stay fp32 and are cast to the compute dtype at each op; the LN
 scale and bias enter the kernel in fp32.  ``remat`` recomputes each
 block's activations in the backward (``torch.utils.checkpoint``, as the JAX
-package's ``nn.remat``): the recompute launches K1 and K2 again.
+package's ``nn.remat``): the recompute launches K1 and K2 again.  The
+blocks draw no random numbers, so the checkpoint does not stash the RNG
+state, which a CUDA graph capture refuses to read.
 """
 
 from __future__ import annotations
@@ -216,7 +218,7 @@ class DinoViT(nn.Module):
         outputs = []
         remat = self.remat and torch.is_grad_enabled()
         for blk in self.blocks[: c.depth if depth is None else depth]:
-            x = checkpoint(blk, x, use_reentrant=False) if remat else blk(x)
+            x = checkpoint(blk, x, use_reentrant=False, preserve_rng_state=False) if remat else blk(x)
             outputs.append(x)
         return outputs
 

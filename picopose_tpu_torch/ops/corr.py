@@ -174,7 +174,7 @@ def corr_lookup_reference(
     B2, dt, n = feat2.shape[0], feat1.dtype, 2 * radius + 1
     grid = (pixel_coords_grid(H, W, device=flow.device) + flow.float()).reshape(B, H * W, 2)
     f1 = feat1.reshape(B2, group * H * W, C)
-    scale = torch.tensor(1.0 / math.sqrt(C), dtype=dt, device=feat1.device)
+    scale = torch.tensor(1.0 / math.sqrt(C), dtype=dt).item()  # rounded to the feature dtype, on the host
     d = torch.arange(n + 1, device=feat1.device)
     outs, pooled = [], feat2
     for i in range(num_levels):

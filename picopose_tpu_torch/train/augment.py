@@ -14,6 +14,7 @@ the parity tests inject the JAX package's ``jax.random`` draws.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -42,6 +43,14 @@ def draw_affine_noise(batch: int, generator: torch.Generator) -> AffineNoise:
     )
 
 
+@functools.lru_cache(maxsize=None)
+def _ladders(device: torch.device) -> torch.Tensor:
+    """(3, 5) fp32: STD_SCALES, STD_ROTS and STD_TRANS on ``device``,
+    uploaded once (a CUDA graph cannot hold a host copy)."""
+    with torch.inference_mode(False):
+        return torch.tensor((STD_SCALES, STD_ROTS, STD_TRANS), dtype=torch.float32, device=device)
+
+
 @torch.no_grad()
 def perturb_affine(
     gt_Ms: torch.Tensor,
@@ -56,10 +65,8 @@ def perturb_affine(
     translation gt + clip(N(0, s_px), +-56 px)."""
     if isinstance(noise, torch.Generator):
         noise = draw_affine_noise(gt_Ms.shape[0], noise)
-    f32 = dict(dtype=torch.float32, device=gt_Ms.device)
     idx = noise.ladder.to(gt_Ms.device)
-    s_scale, s_rot, s_trans = (torch.tensor(ladder, **f32)[idx[i]]
-                               for i, ladder in enumerate((STD_SCALES, STD_ROTS, STD_TRANS)))
+    s_scale, s_rot, s_trans = _ladders(gt_Ms.device).gather(1, idx[:, None])[:, 0]
     gt_scale = torch.linalg.vector_norm(gt_Ms[:, 0, :2], dim=-1)
     gt_rot = torch.atan2(gt_Ms[:, 1, 0], gt_Ms[:, 0, 0])
     f_scale = torch.clamp(1.0 + s_scale * noise.scale, -min_scale, max_scale)

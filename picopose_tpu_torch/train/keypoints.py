@@ -96,7 +96,7 @@ def sample_keypoints(
     if tar_depth is not None:
         tar_valid, _, tar_img = _roundtrip(
             pts_crop, pts_trunc, tar_mask, tar_M, tar_K, tar_depth, src_mask, src_M, src_K,
-            torch.linalg.inv(T_src2tar),
+            torch.linalg.inv_ex(T_src2tar).inverse,  # inv checks its result on the host
         )
         # min over the valid tar points of |reprojected src (crop) - tar (original image)|^2
         d2 = (

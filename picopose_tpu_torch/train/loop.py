@@ -14,9 +14,10 @@ checkpoint per epoch with every one kept, resume):
     initialise CUDA;
   * ``device_prefetch``: uploads ``depth`` batches ahead (:77-111).  On the
     card a thread pins each batch in host memory and copies it on a side
-    stream; the consumer's stream waits on the copy's event and each
-    tensor is recorded on that stream.  On the CPU batches pass as they
-    are;
+    stream, holding the compiled step's lock around those CUDA calls (a
+    capture refuses another thread's); the consumer's stream waits on the
+    copy's event and each tensor is recorded on that stream.  On the CPU
+    batches pass as they are;
   * ``warm_start``: model weights from a checkpoint file (:195-298): a full
     PicoPose checkpoint (the reference's Lightning ``.ckpt``, a raw ``Net``
     state dict ``.pth`` or a train state of utils/checkpoint.py) fills
@@ -24,7 +25,9 @@ checkpoint per epoch with every one kept, resume):
     weights (``.pth``), the reference's ``pretrained: True``, fill the ViT
     only.  The step counter and the optimizer stay as they are; a layout
     or shape mismatch raises;
-  * ``run_training`` (:301-420).
+  * ``run_training`` (:301-420): every step through the compiled step
+    (train/step.py::make_train_step), made once, as the JAX loop jits its
+    step once (:350).
 
 A producer's exception (a loader thread, a worker process, the uploader)
 is raised in the training loop.  The JAX loop's quirks are kept: on
@@ -52,7 +55,7 @@ import torch
 from picopose_tpu_torch.data.megapose import MegaPoseTrainingDataset, collate
 from picopose_tpu_torch.device import resolve_device
 from picopose_tpu_torch.models.picopose import model_kwargs
-from picopose_tpu_torch.train.step import init_state, make_optimizer, train_step, warmup_cosine_schedule
+from picopose_tpu_torch.train.step import init_state, make_optimizer, make_train_step, warmup_cosine_schedule
 from picopose_tpu_torch.utils import checkpoint as ckpt
 from picopose_tpu_torch.utils.checkpoint import read_weights
 from picopose_tpu_torch.utils.logging import TrainLogger
@@ -218,10 +221,12 @@ def mp_prefetch_batches(
 
 
 def device_prefetch(
-    batches: Iterator[Mapping[str, np.ndarray]], device: str | torch.device, depth: int = 2
+    batches: Iterator[Mapping[str, np.ndarray]], device: str | torch.device, depth: int = 2,
+    lock: threading.Lock | None = None,
 ) -> Iterator[Mapping]:
     """Upload ``batches`` to ``device`` up to ``depth`` ahead of the
-    consumer (module docstring); on the CPU they pass as they are."""
+    consumer (module docstring), holding ``lock`` (when given) around each
+    batch's CUDA calls; on the CPU they pass as they are."""
     device = torch.device(device)
     if device.type != "cuda":
         yield from batches
@@ -234,7 +239,7 @@ def device_prefetch(
             with torch.cuda.device(device):
                 stream = torch.cuda.Stream()
                 for b in batches:
-                    with torch.cuda.stream(stream):
+                    with lock or contextlib.nullcontext(), torch.cuda.stream(stream):
                         # a fresh pinned buffer per batch: the caching host
                         # allocator reuses it only after its copy has run
                         host = {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory() for k, v in b.items()}
@@ -316,7 +321,7 @@ def warm_start(state, path: str, num_levels: int = 3):
 
 
 def _one_device(cfg, device: torch.device) -> None:
-    """The port trains on one device (ROADMAP A.6); at one device every
+    """The port trains on one device (ROADMAP A.8); at one device every
     ``trainer.parallel`` mode computes the same step, as the JAX package
     shards nothing on a mesh of one."""
     t = cfg.trainer
@@ -326,7 +331,7 @@ def _one_device(cfg, device: torch.device) -> None:
     if n_dev != 1 or t.n_model != 1:
         raise NotImplementedError(
             f"trainer.n_devices {t.n_devices} (resolves to {n_dev}) and trainer.n_model {t.n_model}: "
-            "the port trains on one device; multi-GPU training is ROADMAP A.6"
+            "the port trains on one device; multi-GPU training is ROADMAP A.8"
         )
     if t.parallel not in _PARALLEL_MODES:
         raise ValueError(f"unknown trainer.parallel {t.parallel!r}; one of {_PARALLEL_MODES}")
@@ -370,6 +375,7 @@ def run_training(
     if t.init_checkpoint and not resuming:
         warm_start(state, str(t.init_checkpoint), num_levels=cfg.model.num_levels)
         print(f"warm-started model weights from {t.init_checkpoint}")
+    train_step = make_train_step(state)
     if resuming:
         ckpt.restore(log_dir, None, state)
         print(f"resumed from step {state.step}")
@@ -390,7 +396,7 @@ def run_training(
     bs = loader.bs
     iters_per_epoch = cfg.lr_scheduler.max_iters // t.training_epoch
     logger = TrainLogger(log_dir, every=t.iters_to_print)
-    noise = torch.Generator(device=device).manual_seed(t.rd_seed + 1)
+    noise = torch.Generator(device=device).manual_seed(t.rd_seed + 1)  # registered with the step's graphs
 
     step = state.step
     total = max_steps or cfg.lr_scheduler.max_iters
@@ -404,7 +410,7 @@ def run_training(
                                           seed=t.rd_seed, epoch=epoch)
         else:
             batches = prefetch_batches(dataset, bs, steps=n_steps, workers=loader.num_workers)
-        for batch in device_prefetch(batches, device):
+        for batch in device_prefetch(batches, device, lock=train_step.graphs.lock):
             losses = train_step(state, batch, noise)
             step += 1
             # no host sync until the print boundary; with grad_accum the
@@ -415,3 +421,7 @@ def run_training(
         logger.epoch(epoch, step)
         if (epoch + 1) % max(t.ckpt_every_epochs, 1) == 0 or step >= total or epoch == t.training_epoch - 1:
             ckpt.save(log_dir, step, state, epoch)
+    graphs = train_step.graphs
+    if graphs.captures:
+        print(f"compiled train step: {sum(graphs.replays.values())} replays of {sum(graphs.captures.values())} "
+              f"captured programs (capture {sum(map(sum, graphs.capture_s.values())):.2f} s)")

@@ -2,24 +2,25 @@
 
 Counterpart of picopose_tpu/train/step.py:40-283 on one device.  The JAX
 package compiles forward, losses, gradients and the optax update into one
-program; here they run eagerly on the module:
+program; so does ``make_train_step`` here, as a CUDA graph:
 
   * ``TrainState``: the step count, the model (its parameters and the
     BatchNorm running statistics) and the ``Optimizer``;
-  * ``make_optimizer``: AdamW, Adam or SGD (``torch.optim``) with a
-    WarmupCosineLR, PolyLR or StepLR schedule (``LambdaLR``), and
-    ``grad_accum`` with ``optax.MultiSteps`` semantics;
+  * ``make_optimizer``: AdamW, Adam or SGD with a WarmupCosineLR, PolyLR
+    or StepLR schedule, and ``grad_accum`` with ``optax.MultiSteps``
+    semantics;
   * ``forward_train``: GT keypoints, stages 1-3 in train mode and the losses;
-  * ``train_step``: one step, gradients by autograd through the kernels'
-    Functions (ops/vjp.py).
+  * ``train_step``: one step, eagerly, gradients by autograd through the
+    kernels' Functions (ops/vjp.py);
+  * ``make_train_step``: the same step as captured programs.
 
-The update is optax's, which ``torch.optim`` computes once set up as
-optax is: ``optax.adamw`` decays every parameter (biases, norms,
-``pos_embed`` and ``cls_token`` too), decoupled, p -= lr (m^ / (sqrt(v^) +
-eps) + wd p) with eps outside the square root, and the schedule is read at
-the update count before the update, so the first update uses lr(0).
-Parameters stay fp32 and are cast per op to the compute dtype; gradients
-come back in fp32.
+The update is optax's, written out on device tensors (``Optimizer``):
+``optax.adamw`` decays every parameter (biases, norms, ``pos_embed`` and
+``cls_token`` too), decoupled, p -= lr (m^ / (sqrt(v^) + eps) + wd p) with
+eps outside the square root and the bias correction at the device
+``count``; the schedule is read at the update count before the update, so
+the first update uses lr(0).  Parameters stay fp32 and are cast per op to
+the compute dtype; gradients come back in fp32.
 """
 
 from __future__ import annotations
@@ -30,13 +31,14 @@ from typing import Callable
 
 import torch
 
-from picopose_tpu_torch.device import full_fp32
+from picopose_tpu_torch.device import deterministic_cudnn, full_fp32
 from picopose_tpu_torch.geom.affine import gt_translation_scale_inplane, mmul, relative_affine
 from picopose_tpu_torch.models.correspondence import init_correspondences
 from picopose_tpu_torch.models.picopose import PicoPose
 from picopose_tpu_torch.train.augment import AffineNoise, perturb_affine
 from picopose_tpu_torch.train.keypoints import sample_keypoints
 from picopose_tpu_torch.train.losses import flow_level_loss, info_nce_loss, stage2_loss, total_loss
+from picopose_tpu_torch.utils.graphs import GraphCache
 from picopose_tpu_torch.utils.weights import init_random_
 
 Schedule = Callable[[int], float]
@@ -92,43 +94,164 @@ class OptimizerSpec:
 
 
 class Optimizer:
-    """A ``torch.optim`` optimizer, its ``LambdaLR`` schedule and gradient
-    accumulation.  ``step`` consumes the gradients summed in each
-    parameter's ``.grad`` since the last update: on every ``grad_accum``-th
-    call it applies one update on their mean and advances the schedule once
-    (``optax.MultiSteps``); on the others the parameters do not move."""
+    """optax's AdamW, Adam or SGD written out in ``torch._foreach_*`` ops on
+    tensors that live on the parameters' device, with the schedule and
+    gradient accumulation (``optax.MultiSteps``).
+
+    Device state, the only state an update reads or writes, so that a CUDA
+    graph can hold it (``make_train_step``):
+      * ``grads``: one static gradient per parameter, attached as its
+        ``.grad``; backward sums into it in place, an update zeroes it;
+      * ``moments``: optax's ``mu`` and ``nu`` (Adam, AdamW) or ``trace``
+        (SGD), one tensor per parameter each, named as ``torch.optim``
+        names them (``exp_avg``, ``exp_avg_sq``, ``momentum_buffer``);
+      * ``count``: int32, the updates applied (optax's ``count``);
+      * ``lr``: fp32, the next update's learning rate.
+    Host state: ``mini_step``, the steps summed into ``grads`` since the
+    last update, and ``updates``, the host's copy of ``count``, from which
+    it reads the schedule without a sync.
+
+    A step is ``prepare`` (host: does this step update? if so, fill ``lr``
+    with ``schedule(updates)``), the backward, ``apply`` on an updating
+    step (device: the mean of the summed gradients, the update, zeroed
+    gradients) and ``advance`` (host counters).  ``step`` runs the three
+    after a backward.
+    """
 
     def __init__(self, spec: OptimizerSpec, params):
+        if spec.opt_type not in ("AdamW", "Adam", "SGD"):
+            raise ValueError(f"unknown optimizer type {spec.opt_type}")
+        self.spec = spec
         self.params = [p for p in params if p.requires_grad]
-        s = spec
-        if s.opt_type == "AdamW":
-            self.inner = torch.optim.AdamW(self.params, s.base_lr, s.betas, s.eps, s.weight_decay)
-        elif s.opt_type == "Adam":
-            self.inner = torch.optim.Adam(self.params, s.base_lr, s.betas, s.eps, weight_decay=0.0)
-        elif s.opt_type == "SGD":
-            self.inner = torch.optim.SGD(self.params, s.base_lr, momentum=s.betas[0])
-        else:
-            raise ValueError(f"unknown optimizer type {s.opt_type}")
-        self.scheduler = torch.optim.lr_scheduler.LambdaLR(self.inner, lambda i: s.schedule(i) / s.base_lr)
-        self.grad_accum = s.grad_accum
+        device = self.params[0].device
+        zeros = lambda: [torch.zeros_like(p, memory_format=torch.preserve_format) for p in self.params]
+        self.grads = zeros()
+        self.moments = {"momentum_buffer": zeros()} if spec.opt_type == "SGD" else {
+            "exp_avg": zeros(), "exp_avg_sq": zeros()}
+        self.count = torch.zeros((), dtype=torch.int32, device=device)
+        self.lr = torch.zeros((), dtype=torch.float32, device=device)
+        self.grad_accum = spec.grad_accum
         self.mini_step = 0
+        self.updates = 0
+        self.adopt_grads()
+
+    def tensors(self) -> list[torch.Tensor]:
+        """Every device tensor of the optimizer."""
+        return [*self.grads, *(t for m in self.moments.values() for t in m), self.count, self.lr]
 
     @torch.no_grad()
-    def step(self) -> bool:
-        """Returns whether the parameters moved."""
-        for p in self.params:
-            if p.grad is None:  # optax gives an unused parameter a zero gradient (and decays it)
-                p.grad = torch.zeros_like(p)
-        self.mini_step += 1
-        if self.mini_step < self.grad_accum:
-            return False
+    def adopt_grads(self) -> None:
+        """Attach the static gradients.  A ``.grad`` set outside the
+        optimizer (or a ``zero_grad(set_to_none=True)``) is copied in
+        first; None is optax's zero gradient, which AdamW still decays."""
+        for p, g in zip(self.params, self.grads):
+            if p.grad is not g:
+                if p.grad is None:
+                    g.zero_()
+                else:
+                    g.copy_(p.grad)
+                p.grad = g
+
+    def prepare(self) -> bool:
+        """Whether this step updates; if it does, ``lr`` is set from the
+        schedule at the update count before the update."""
+        update = self.mini_step + 1 >= self.grad_accum
+        if update:
+            self.lr.fill_(self.spec.schedule(self.updates))
+        return update
+
+    @torch.no_grad()
+    def apply(self) -> None:
+        """One update from the gradients summed in ``grads`` (device ops
+        only, no host sync): their mean, optax's update, ``count`` + 1, the
+        gradients zeroed."""
+        s, g, p = self.spec, self.grads, self.params
         if self.grad_accum > 1:
-            torch._foreach_div_([p.grad for p in self.params], float(self.grad_accum))
-        self.inner.step()
-        self.scheduler.step()
-        self.inner.zero_grad(set_to_none=True)
-        self.mini_step = 0
-        return True
+            torch._foreach_div_(g, float(self.grad_accum))
+        self.count.add_(1)
+        if s.opt_type == "SGD":  # optax.trace: t = g + b1 t
+            (t,) = self.moments.values()
+            torch._foreach_mul_(t, s.betas[0])
+            torch._foreach_add_(t, g)
+            u = torch._foreach_mul(t, self.lr)
+        else:  # optax.scale_by_adam, then AdamW's decayed weights
+            mu, nu = self.moments.values()
+            b1, b2 = s.betas
+            torch._foreach_mul_(mu, b1)
+            torch._foreach_add_(mu, g, alpha=1.0 - b1)
+            torch._foreach_mul_(nu, b2)
+            torch._foreach_addcmul_(nu, g, g, value=1.0 - b2)
+            c = self.count.float()
+            u = torch._foreach_div(mu, 1.0 - torch.pow(b1, c))
+            den = torch._foreach_div(nu, 1.0 - torch.pow(b2, c))
+            torch._foreach_sqrt_(den)
+            torch._foreach_add_(den, s.eps)
+            torch._foreach_div_(u, den)
+            del den
+            if s.opt_type == "AdamW":
+                torch._foreach_add_(u, p, alpha=s.weight_decay)
+            torch._foreach_mul_(u, self.lr)
+        torch._foreach_sub_(p, u)
+        torch._foreach_zero_(g)
+
+    def advance(self, updated: bool) -> None:
+        self.mini_step = 0 if updated else self.mini_step + 1
+        self.updates += updated
+
+    def step(self) -> bool:
+        """Consume the gradients summed in each parameter's ``.grad`` since
+        the last update: on every ``grad_accum``-th call one update on their
+        mean, which advances the schedule once; on the others the parameters
+        do not move.  Returns whether they moved."""
+        self.adopt_grads()
+        update = self.prepare()
+        if update:
+            self.apply()
+        self.advance(update)
+        return update
+
+    def state_dict(self) -> dict:
+        """The optimizer's part of a train state, in the layout of the
+        ``torch.optim`` and ``LambdaLR`` state dicts the port saved before
+        the update was written out: moments by parameter index under
+        ``optimizer``, the update count as ``scheduler``'s ``last_epoch``,
+        ``mini_step`` and, in the middle of an accumulation, the summed
+        gradients."""
+        n = len(self.params)
+        return {
+            "optimizer": {"state": {i: {k: m[i] for k, m in self.moments.items()} for i in range(n)}},
+            "scheduler": {"last_epoch": self.updates},
+            "mini_step": self.mini_step,
+            "grads": list(self.grads) if self.mini_step else None,
+        }
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Copy ``state`` (``state_dict``'s layout) into the optimizer's
+        tensors in place: each keeps its address, so a captured program
+        reads what was loaded.  A parameter with no saved moment (a save
+        before the first update) gets zeros."""
+        n = len(self.params)
+        moments, grads = state["optimizer"]["state"], state["grads"] or [None] * n
+        if len(grads) != n or any(int(i) >= n for i in moments):
+            raise ValueError(f"optimizer state for {max(len(grads), len(moments))} parameters, not {n}")
+        for i in range(n):
+            for k, m in self.moments.items():
+                _copy_or_zero(m[i], moments.get(i, {}).get(k), f"{k} of parameter {i}")
+            _copy_or_zero(self.grads[i], grads[i], f"gradient of parameter {i}")
+        self.updates = int(state["scheduler"]["last_epoch"])
+        self.count.fill_(self.updates)
+        self.mini_step = int(state["mini_step"])
+        self.adopt_grads()
+
+
+def _copy_or_zero(dst: torch.Tensor, src: torch.Tensor | None, what: str) -> None:
+    if src is None:
+        dst.zero_()
+    elif src.shape != dst.shape:
+        raise ValueError(f"{what}: saved shape {tuple(src.shape)}, expected {tuple(dst.shape)}")
+    else:
+        dst.copy_(src)
 
 
 def make_optimizer(
@@ -194,7 +317,7 @@ def forward_train(model: PicoPose, batch: dict, noise: AffineNoise | torch.Gener
     # GT correspondences: src = template, tar = query
     kp = sample_keypoints(
         b["tem_mask"], b["tem_M"], b["tem_K"], b["tem_full_depth"],
-        b["real_mask"], b["real_M"], b["real_K"], mmul(b["real_pose"], torch.linalg.inv(b["tem_pose"])),
+        b["real_mask"], b["real_M"], b["real_K"], mmul(b["real_pose"], torch.linalg.inv_ex(b["tem_pose"]).inverse),
         tar_depth=b["real_full_depth"], crop=b["tem_mask"].shape[1],
     )
     feats_real = model.features(b["real_rgb"])
@@ -216,12 +339,28 @@ def forward_train(model: PicoPose, batch: dict, noise: AffineNoise | torch.Gener
     return losses
 
 
-def train_step(state: TrainState, batch: dict, noise: AffineNoise | torch.Generator) -> dict:
-    """One step: ``forward_train`` in train mode, the gradient of the total
-    loss, and ``state.optimizer.step()`` (an update on every
-    ``grad_accum``-th step).  Updates ``state`` in place and returns the
-    loss dict, detached."""
-    model = state.model
+@full_fp32()
+@deterministic_cudnn()
+def _step_program(model: PicoPose, optimizer: Optimizer, batch: dict, noise, update: bool) -> dict:
+    """The device work of one step: ``forward_train``, the backward into the
+    static gradients and, when ``update``, ``optimizer.apply()``.  Returns
+    the loss dict, detached.  The backward and the update run under
+    ``full_fp32`` too, so a program captured under the caller's TF32 flags
+    computes what the eager step does; cuDNN takes deterministic
+    algorithms, so two identical steps, and a captured step and its eager
+    step, are bitwise equal."""
+    losses = forward_train(model, batch, noise)
+    losses["loss"].backward()
+    if update:
+        optimizer.apply()
+    return {k: v.detach() for k, v in losses.items()}
+
+
+def _host_step(state: TrainState, device_work: Callable[[bool], dict]) -> dict:
+    """A step's host part around ``device_work(update)``: the checks, train
+    mode, the static gradients attached, ``lr`` filled before an update,
+    then the counters."""
+    model, opt = state.model, state.optimizer
     stored = {p.dtype for p in model.parameters()}
     if stored != {torch.float32}:
         raise ValueError(
@@ -229,16 +368,60 @@ def train_step(state: TrainState, batch: dict, noise: AffineNoise | torch.Genera
             "utils/precast.py stores bf16 weights for serving only"
         )
     model.train()
-    losses = forward_train(model, batch, noise)
-    losses["loss"].backward()
-    state.optimizer.step()
+    opt.adopt_grads()
+    update = opt.prepare()
+    losses = device_work(update)
+    opt.advance(update)
     state.step += 1
-    return {k: v.detach() for k, v in losses.items()}
+    return losses
 
 
-def make_train_step(state_shardings=None, mesh=None):
-    """The step function for one device, ``train_step``.  The sharded form
-    (``state_shardings``, ``mesh``) is not ported."""
+def train_step(state: TrainState, batch: dict, noise: AffineNoise | torch.Generator) -> dict:
+    """One step, eagerly: ``forward_train`` in train mode, the gradient of
+    the total loss, and an update on every ``grad_accum``-th step.  Updates
+    ``state`` in place and returns the loss dict, detached.  The CPU's form
+    of ``make_train_step``'s program, and its oracle on the card."""
+    return _host_step(state, lambda update: _step_program(state.model, state.optimizer, batch, noise, update))
+
+
+def make_train_step(state: TrainState, state_shardings=None, mesh=None):
+    """The compiled step for one device, as the JAX ``make_train_step``
+    returns the jitted ``_step``: ``step(state, batch, noise) -> losses``,
+    exactly one ``train_step``.
+
+    On CUDA the device work of a step (``_step_program``) is a CUDA graph
+    (utils/graphs.py): two programs, the step that only accumulates and the
+    step that updates, each captured at its first call (a warm-up, whose
+    changes to the state are undone, then the capture) and replayed after,
+    with the batch copied into static buffers and a ``noise`` generator
+    registered with the graph (an ``AffineNoise`` is an input like the
+    batch); the ViT's ``remat`` switch selects a program too.  The host
+    keeps the counters and fills ``lr`` before an update.  A state whose
+    tensors were replaced (not copied into) is captured anew;
+    ``utils/checkpoint.py::restore`` copies in place.  On the CPU
+    ``GraphCache`` calls the program: the step is ``train_step``.
+
+    ``step.graphs`` is the ``GraphCache``; the loop holds its ``lock``
+    around its uploader's CUDA calls.  The sharded form (``state_shardings``,
+    ``mesh``) is not ported."""
     if state_shardings is not None or mesh is not None:
         raise NotImplementedError("the sharded train step is not ported; it runs on one device")
-    return train_step
+    graphs = GraphCache(state.model.device)
+
+    def step(state: TrainState, batch: dict, noise: AffineNoise | torch.Generator) -> dict:
+        model, opt = state.model, state.optimizer
+
+        def device_work(update: bool) -> dict:
+            b = {k: torch.as_tensor(v, device=model.device) for k, v in batch.items()}
+            gen = noise if isinstance(noise, torch.Generator) else None
+            program = lambda b, n=noise: _step_program(model, opt, b, n, update)
+            return graphs.run(
+                "train_step", program, (b,) if gen is not None else (b, noise),
+                static=(update, model.feature_extractor.dinov2.remat), generator=gen, module=model,
+                writes=[*model.parameters(), *model.buffers(), *opt.tensors()],
+            )
+
+        return _host_step(state, device_work)
+
+    step.graphs = graphs
+    return step

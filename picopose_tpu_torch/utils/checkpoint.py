@@ -7,9 +7,14 @@ one (the reference's ``save_top_k=-1``, run_train.py:99-102).  Here a save
 is one file, ``<log_dir>/checkpoints/<step>.pt``, written with
 ``torch.save`` (to a temporary name, then renamed, so a file that exists is
 whole) and read with ``weights_only=True``.  It holds the model's state
-dict (parameters and BatchNorm statistics), the ``torch.optim`` and
-``LambdaLR`` state dicts, ``Optimizer.mini_step`` and, in the middle of a
-gradient accumulation, the summed ``.grad``s, the step and the epoch.
+dict (parameters and BatchNorm statistics), the optimizer's moments in the
+``torch.optim`` layout and its update count as ``LambdaLR``'s
+``last_epoch`` (train/step.py::Optimizer.state_dict: the layout the port
+wrote when its update was ``torch.optim``'s, so files of either read
+back), ``mini_step`` and, in the middle of a gradient accumulation, the
+summed gradients, the step and the epoch.  ``restore`` copies all of it
+into the state's tensors in place, so a step captured before the restore
+(train/step.py::make_train_step) replays on the restored state.
 
 ``load_any`` reads model weights from such a file or from a reference
 PyTorch checkpoint (``.ckpt`` in the Lightning layout, or a raw ``Net``
@@ -43,14 +48,9 @@ def checkpoint_path(log_dir: str, step: int) -> str:
 def save(log_dir: str, step: int, state, epoch: int) -> str:
     """Write ``state`` (train/step.py::TrainState) as
     ``<log_dir>/checkpoints/<step>.pt``; returns the path."""
-    opt = state.optimizer
     payload = {
         "model": state.model.state_dict(),
-        "optimizer": opt.inner.state_dict(),
-        "scheduler": opt.scheduler.state_dict(),
-        "mini_step": opt.mini_step,
-        # gradients summed over an unfinished accumulation
-        "grads": [p.grad for p in opt.params] if opt.mini_step else None,
+        **state.optimizer.state_dict(),
         "step": int(step),
         "epoch": int(epoch),
     }
@@ -70,21 +70,16 @@ def latest_step(log_dir: str) -> int | None:
 
 def restore(log_dir: str, step: int | None, state):
     """Load the save at ``step`` (the latest when None) into ``state`` in
-    place and return it."""
+    place (every tensor keeps its address) and return it."""
     step = latest_step(log_dir) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {checkpoint_dir(log_dir)}")
     payload = torch.load(checkpoint_path(log_dir, step), map_location=state.model.device, weights_only=True)
-    state.model.load_state_dict(payload["model"])
-    opt = state.optimizer
-    opt.inner.load_state_dict(payload["optimizer"])
-    opt.scheduler.load_state_dict(payload["scheduler"])
-    opt.mini_step = payload["mini_step"]
-    grads = payload["grads"] or [None] * len(opt.params)
-    if len(grads) != len(opt.params):
-        raise ValueError(f"checkpoint at step {step}: {len(grads)} gradients for {len(opt.params)} parameters")
-    for p, g in zip(opt.params, grads):
-        p.grad = g
+    state.model.load_state_dict(payload["model"])  # copies into the parameters and buffers
+    try:
+        state.optimizer.load_state_dict(payload)
+    except ValueError as e:
+        raise ValueError(f"checkpoint at step {step}: {e}") from None
     state.step = payload["step"]
     return state
 

@@ -34,6 +34,13 @@ is seen by every replay.  Python-level switches that change what a
 program computes (the matching mode, ``quantize_stage3``) are the
 caller's static arguments.
 
+State: a program that changes tensors in place (a training step: its
+parameters, BatchNorm statistics, gradients and optimizer state) names
+them as ``writes``.  The warm-up would change them by one eager call, so
+they are cloned before it and copied back after it, in place; their
+addresses are in the key, so state swapped under a program (not copied
+into) is captured anew.
+
 Random draws: the generator a program draws from is registered with its
 graph, so each replay draws from the generator's current state and
 advances it, as an eager call does.  The warm-up and the capture leave
@@ -69,14 +76,16 @@ def _signature(leaves: list) -> tuple:
     )
 
 
-def _key(name, static, flat_args, flat_slot, generator, module) -> tuple:
+def _key(name, static, flat_args, flat_slot, generator, module, writes=()) -> tuple:
     """What selects a program: its name, the static arguments, the
     structure, shapes and dtypes of the flattened ``args`` and ``slot``,
-    the generator it draws from and the parameters of ``module``."""
+    the generator it draws from, the parameters of ``module`` and the
+    addresses of ``writes``."""
     return (
         name, static, flat_args[1], _signature(flat_args[0]), _slot_key(flat_slot),
         None if generator is None else id(generator),
         None if module is None else module_key(module),
+        tuple(t.data_ptr() for t in writes),
     )
 
 
@@ -155,22 +164,24 @@ class GraphCache:
         slot: Any = None,
         generator: torch.Generator | None = None,
         module: torch.nn.Module | None = None,
+        writes: list[torch.Tensor] = (),
     ):
         """``fn(*args)``, or ``fn(*args, slot)`` with a slot: captured at
         the first call of its key, replayed after.  ``args`` and ``slot``
         are pytrees of tensors (and static values); ``static`` holds what
         else selects the program; ``generator`` is the one ``fn`` draws
         from (None: the device's default); ``module`` the one whose
-        parameters ``fn`` reads."""
+        parameters ``fn`` reads; ``writes`` the tensors it changes in
+        place."""
         self.calls[name] += 1
         if self.device.type != "cuda":
             return fn(*args) if slot is None else fn(*args, slot)
         flat_args = pytree.tree_flatten(args)
         flat_slot = None if slot is None else pytree.tree_flatten(slot)
-        key = _key(name, static, flat_args, flat_slot, generator, module)
+        key = _key(name, static, flat_args, flat_slot, generator, module, writes)
         prog = self._programs.get(key)
         if prog is None:
-            prog = self._programs[key] = self._capture(name, fn, flat_args, flat_slot, generator)
+            prog = self._programs[key] = self._capture(name, fn, flat_args, flat_slot, generator, writes)
         else:
             prog.args.load(flat_args[0])
             if prog.slot is not None:
@@ -179,7 +190,7 @@ class GraphCache:
         self.replays[name] += 1
         return pytree.tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor) else t, prog.outputs)
 
-    def _capture(self, name, fn, flat_args, flat_slot, generator) -> _Program:
+    def _capture(self, name, fn, flat_args, flat_slot, generator, writes) -> _Program:
         t0 = time.perf_counter()
         args = _Buffers(*flat_args, self.device)
         args.load(flat_args[0])
@@ -199,12 +210,21 @@ class GraphCache:
             self._pool = torch.cuda.graph_pool_handle()
         current = torch.cuda.current_stream(self.device)
 
-        # warm-up: eager, on the side stream; its launches are real
+        # warm-up: eager, on the side stream; its launches are real, its
+        # changes to ``writes`` are undone
+        with torch.no_grad():
+            before = [t.clone() for t in writes]
         self._stream.wait_stream(current)
-        with torch.cuda.stream(self._stream):
-            call()
-        current.wait_stream(self._stream)
-        gen.set_state(state)
+        try:
+            with torch.cuda.stream(self._stream):
+                call()
+        finally:
+            current.wait_stream(self._stream)
+            gen.set_state(state)
+            with torch.no_grad():
+                for t, b in zip(writes, before):
+                    t.copy_(b)
+            del before
 
         graph = torch.cuda.CUDAGraph()
         if generator is not None:

@@ -104,7 +104,8 @@ def test_training_needs_a_card_unless_cpu_is_asked(monkeypatch):
             step.init_state(tx, device=device, **small)
     state = step.init_state(tx, device="cpu", **small)
     assert state.step == 0 and state.model.training and state.model.device.type == "cpu"
-    assert all(p.device.type == "cpu" for group in state.optimizer.inner.param_groups for p in group["params"])
+    opt = state.optimizer
+    assert all(t.device.type == "cpu" for t in (*opt.params, *opt.tensors()))
 
 
 def test_the_training_loop_needs_a_card_unless_cpu_is_asked(monkeypatch):

@@ -780,6 +780,115 @@ def test_device_prefetch_uploads_every_batch_intact(cuda_device):
     assert seen == len(batches)
 
 
+# ---- the compiled training step (train/step.py::make_train_step): replays against eager steps
+
+
+def _train_world(device, grad_accum=1, opt_type="AdamW", seed=0):
+    """A vit_tiny_test state (bf16 compute, fp32 weights from ``seed``), its
+    batch of 2 synthetic sphere pairs on the card and a noise generator."""
+    from picopose_tpu_torch.data.synthetic import make_pose, make_view
+    from picopose_tpu_torch.train import step as ts
+
+    views = {"tem": [make_view(make_pose(0.3 * i, 0.4, 0.45)) for i in range(2)],
+             "real": [make_view(make_pose(0.3 * i + 0.15, 0.5, 0.6)) for i in range(2)]}
+    batch = {f"{side}_{key}": torch.as_tensor(np.stack([getattr(v, key) for v in vs]), device=device)
+             for side, vs in views.items() for key in ("rgb", "mask", "M", "K", "pose", "full_depth")}
+    tx = ts.make_optimizer(base_lr=1e-3, max_iters=100, warmup_iters=2, opt_type=opt_type, grad_accum=grad_accum)
+    state = ts.init_state(tx, seed, vit_type="vit_tiny_test", blocks_to_take=(0, 1, 2, 3))
+    return state, batch, torch.Generator(device=device).manual_seed(seed + 1)
+
+
+def _train_tensors(state) -> dict:
+    """Parameters, BatchNorm statistics, gradients, moments and ``count``."""
+    opt = state.optimizer
+    out = dict(state.model.state_dict())
+    out.update({f"grad {i}": g for i, g in enumerate(opt.grads)})
+    out.update({f"{k} {i}": t for k, m in opt.moments.items() for i, t in enumerate(m)})
+    out["count"] = opt.count
+    return out
+
+
+def _assert_train_states_equal(a, b, what):
+    ta, tb = _train_tensors(a), _train_tensors(b)
+    bad = [k for k in ta if not torch.equal(ta[k], tb[k])]
+    assert not bad, (what, bad[:5])
+    oa, ob = a.optimizer, b.optimizer
+    assert (a.step, oa.updates, oa.mini_step) == (b.step, ob.updates, ob.mini_step), what
+
+
+@pytest.mark.cuda
+def test_train_step_makes_no_host_sync(cuda_device):
+    """One eager step (its second: the first builds the kernels and uploads
+    the cached constants) under ``set_sync_debug_mode("error")``: no op of
+    the forward, the backward or the update waits on the card."""
+    from picopose_tpu_torch.train import step as ts
+
+    state, batch, noise = _train_world(cuda_device)
+    ts.train_step(state, batch, noise)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        losses = ts.train_step(state, batch, noise)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(bool(torch.isfinite(v)) for v in losses.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt_type", ["AdamW", "SGD"])
+@pytest.mark.parametrize("grad_accum", [1, 2])
+def test_compiled_step_equals_eager_steps(cuda_device, grad_accum, opt_type):
+    """Three calls of ``make_train_step``'s step bitwise three eager steps
+    from an equal state and noise generator: losses, parameters, running
+    statistics, gradients, moments, ``count`` and the generator's state.
+    With ``grad_accum`` 2 the calls replay two programs (accumulate,
+    update)."""
+    from picopose_tpu_torch.train import step as ts
+
+    eager, batch, g_eager = _train_world(cuda_device, grad_accum, opt_type)
+    graphed, _, g_graph = _train_world(cuda_device, grad_accum, opt_type)
+    step = ts.make_train_step(graphed)
+    for call in range(3):
+        ref = ts.train_step(eager, batch, g_eager)
+        got = step(graphed, batch, g_graph)
+        torch.cuda.synchronize()
+        assert all(torch.equal(got[k], ref[k]) for k in ref), call
+        _assert_train_states_equal(graphed, eager, call)
+        assert torch.equal(g_graph.get_state(), g_eager.get_state()), call
+    programs = 1 if grad_accum == 1 else 2
+    assert sum(step.graphs.captures.values()) == programs and step.graphs.replays["train_step"] == 3
+
+
+@pytest.mark.cuda
+def test_first_compiled_call_is_one_step(cuda_device):
+    """The capturing call (warm-up, capture, replay) leaves the state as one
+    eager step does: the warm-up's update is undone.  The wrappers count
+    the warm-up's launches (one step's forward), a replay's none; a replay's
+    trace holds one step's kernels.  A swapped optimizer is captured anew."""
+    from picopose_tpu_torch.train import step as ts
+
+    eager, batch, g_eager = _train_world(cuda_device)
+    graphed, _, g_graph = _train_world(cuda_device)
+    step = ts.make_train_step(graphed)
+    kernels.reset_launches()
+    ts.train_step(eager, batch, g_eager)
+    torch.cuda.synchronize()
+    one_step = dict(kernels.LAUNCHES)
+    assert one_step == {"layernorm": 16, "attention": 8, "corr_window": 3, "warp": 3}
+    kernels.reset_launches()
+    step(graphed, batch, g_graph)
+    torch.cuda.synchronize()
+    assert dict(kernels.LAUNCHES) == one_step
+    _assert_train_states_equal(graphed, eager, "first call")
+    assert step.graphs.captures["train_step"] == 1 and step.graphs.replays["train_step"] == 1
+    kernels.reset_launches()
+    traced = _traced_launches(lambda: step(graphed, batch, g_graph))
+    assert not kernels.LAUNCHES and traced == one_step
+    graphed.optimizer = graphed.optimizer.spec.init(graphed.model.parameters())
+    step(graphed, batch, g_graph)
+    assert step.graphs.captures["train_step"] == 2
+
+
 # ---- compiled inference programs (utils/graphs.py): replays against eager calls
 
 GRAPH_HYP, GRAPH_ITERS, GRAPH_VIEWS = 3, 16, 6

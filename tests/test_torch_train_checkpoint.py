@@ -4,9 +4,9 @@ tree (tests/torch_bop_tree.py::write_megapose_tree); the training CLI is
 tests/test_torch_run_train.py.
 
 Tolerance: bitwise.  A restored state has the saved parameters, BatchNorm
-statistics, optimizer moments, schedule position, ``mini_step``,
-accumulated gradients and step, and its next step equals the next step of
-the state it was saved from.  ``load_any``, ``warm_start`` and
+statistics, optimizer moments, update count (the schedule's position),
+``mini_step``, accumulated gradients and step, and its next step equals
+the next step of the state it was saved from.  ``load_any``, ``warm_start`` and
 ``PoseEstimator(checkpoint=)`` read a saved file's weights.  A train state
 of this model is ~850 MB: every test removes the files it wrote.
 """
@@ -62,16 +62,14 @@ def _assert_states_equal(a, b):
         assert torch.equal(sa[k], sb[k]), k
     oa, ob = a.optimizer, b.optimizer
     assert oa.mini_step == ob.mini_step and a.step == b.step
-    assert oa.scheduler.state_dict() == ob.scheduler.state_dict()
-    assert [g["lr"] for g in oa.inner.param_groups] == [g["lr"] for g in ob.inner.param_groups]
-    for pa, pb in zip(oa.params, ob.params):
-        assert (pa.grad is None) == (pb.grad is None)
-        if pa.grad is not None:
-            assert torch.equal(pa.grad, pb.grad)
-        ma, mb = oa.inner.state[pa], ob.inner.state[pb]
-        assert ma.keys() == mb.keys()
-        for k in ma:
-            assert torch.equal(ma[k], mb[k]), k
+    assert oa.updates == ob.updates and torch.equal(oa.count, ob.count)  # the schedule's position
+    for pa, pb, ga, gb in zip(oa.params, ob.params, oa.grads, ob.grads):
+        assert pa.grad is ga and pb.grad is gb
+        assert torch.equal(ga, gb)
+    assert oa.moments.keys() == ob.moments.keys()
+    for k in oa.moments:
+        for ma, mb in zip(oa.moments[k], ob.moments[k]):
+            assert torch.equal(ma, mb), k
 
 
 @pytest.mark.parametrize("grad_accum", [1, 2])

@@ -28,6 +28,7 @@ from picopose_tpu_torch.data.megapose import MegaPoseTrainingDataset
 from picopose_tpu_torch.train import loop as T
 from picopose_tpu_torch.utils import logging as TL
 from picopose_tpu_torch.utils.config import load_config
+from picopose_tpu_torch.utils.graphs import GraphCache
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -183,11 +184,12 @@ def _cfg(tree, *overrides):
 
 
 class _Steps:
-    """Stands in for train_step: counts, records the noise generator's
-    seed and the batch size, and returns fixed losses."""
+    """Stands in for the compiled step: counts, records the noise
+    generator's seed and the batch size, and returns fixed losses."""
 
     def __init__(self):
         self.seeds, self.sizes = [], []
+        self.graphs = GraphCache("cpu")
 
     def __call__(self, state, batch, noise):
         self.seeds.append(noise.initial_seed())
@@ -213,7 +215,7 @@ def light_loop(monkeypatch):
         state.step = torch.load(T.ckpt.checkpoint_path(log_dir, T.ckpt.latest_step(log_dir)))["step"]
         return state
 
-    monkeypatch.setattr(T, "train_step", steps)
+    monkeypatch.setattr(T, "make_train_step", lambda state: steps)
     monkeypatch.setattr(T.ckpt, "save", save)
     monkeypatch.setattr(T.ckpt, "restore", restore)
     return steps, saves
@@ -267,8 +269,8 @@ def test_warm_start_is_skipped_only_when_resuming_finds_a_checkpoint(tree, tmp_p
 
 
 @pytest.mark.parametrize("override, error, match", [
-    ("trainer.n_devices=2", NotImplementedError, "ROADMAP A.6"),
-    ("trainer.n_model=2", NotImplementedError, "ROADMAP A.6"),
+    ("trainer.n_devices=2", NotImplementedError, "ROADMAP A.8"),
+    ("trainer.n_model=2", NotImplementedError, "ROADMAP A.8"),
     ("trainer.parallel=zero9", ValueError, "zero9"),
     ("model.num_levels=4", ValueError, "DPT head"),
     ("train_dataloader.backend=gpu", ValueError, "gpu"),

@@ -68,7 +68,9 @@ def test_warm_start_loads_as_jax_does(trees, files, name):
     for k in ref:  # the backbone file fills the ViT only
         src = loaded if name == "full.ckpt" or k.startswith(VIT) else fresh
         np.testing.assert_array_equal(got[k].numpy(), src[k], err_msg=k)
-    assert tstate.step == 0 and not tstate.optimizer.inner.state and tstate.model.training
+    opt = tstate.optimizer
+    assert tstate.step == 0 and opt.updates == int(opt.count) == 0 and tstate.model.training
+    assert not any(bool(t.any()) for t in opt.tensors())
 
 
 @pytest.mark.parametrize("name,match", [("dinov2_depth3.pth", "transformer blocks"),
