@@ -16,9 +16,9 @@ layout:
 Images are decoded by data/png.py and data/jpeg.py instead of PIL, and
 the template points' INTER_NEAREST resize is data/crops.py::nearest_index
 instead of cv2's; the arrays are the same.  Frames are looked for as
-``.jpg``, ``.png`` and ``.tif``, in that order, as the JAX package does; a
-``.tif`` frame raises NotImplementedError: the port has no TIFF decoder
-yet.
+``.jpg``, ``.png`` and ``.tif``, in that order, as the JAX package does;
+a ``.tif`` frame (ITODD's grey frames) is read by data/tiff.py and
+stacked to three channels.
 """
 
 from __future__ import annotations
@@ -174,8 +174,8 @@ class BOPTestDataset:
         return ImageRecord(raw.scene_id, raw.img_id, raw.seg_time)
 
     def load_raw(self, index: int) -> tuple[np.ndarray, np.ndarray]:
-        """Decode one image's full RGB (uint8) + camera K.  PNG or JPEG: a
-        TIFF frame raises NotImplementedError."""
+        """Decode one image's full RGB (uint8) + camera K: a PNG, JPEG or
+        uncompressed TIFF frame, grey frames stacked to three channels."""
         raw = self.images[self.keys[index]]
         cam = self._scene_camera(raw.scene_id)
         K = np.array(cam[str(raw.img_id)]["cam_K"], np.float64).reshape(3, 3)

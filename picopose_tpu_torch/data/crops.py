@@ -3,8 +3,11 @@
 The port's own copy of picopose_tpu/data/crops.py without cv2, which the
 GPU machine lacks: ``mask_square_bbox`` (:26), ``square_bbox`` /
 ``_squareize`` (:37-61), ``crop_matrix`` (:64), ``crop_and_normalize_rgb``
-(:76-107), ``crop_mask`` (:110), ``depth_to_points`` (:116) and
-``grid_pts2d`` (:130).  The resizes are
+(:76-93) and ``crop_and_normalize_rgb_py`` (:96-107), ``crop_mask``
+(:110), ``depth_to_points`` (:116) and ``grid_pts2d`` (:130).  As in the
+JAX package, the rgb crop of a uint8 frame runs in C++
+(native/fastpath.py, within 5e-4 of the numpy path) unless
+``PICOPOSE_NO_FASTPATH=1``.  The numpy resizes are
 written out with cv2's semantics as separable row matrices:
 
   * rgb, cv2.INTER_LINEAR: centre-aligned taps src = (dst + 0.5) * scale
@@ -20,6 +23,8 @@ network consumes it.
 from __future__ import annotations
 
 import numpy as np
+
+from picopose_tpu_torch.native import fastpath
 
 CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
 CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
@@ -94,8 +99,19 @@ def nearest_index(size: int, out: int) -> np.ndarray:
 def crop_and_normalize_rgb(
     rgb: np.ndarray, bbox, out: int, mask: np.ndarray | None = None, mask_rgb: bool = False
 ) -> np.ndarray:
-    """(H, W, 3) uint8 RGB frame -> (out, out, 3) float32 BGR crop,
-    CLIP-normalised."""
+    """(H, W, 3) RGB frame -> (out, out, 3) float32 BGR crop,
+    CLIP-normalised: in C++ for a uint8 frame (native/fastpath.py) unless
+    ``PICOPOSE_NO_FASTPATH=1``, else ``crop_and_normalize_rgb_py``."""
+    if rgb.dtype == np.uint8 and fastpath.accelerated():
+        return fastpath.crop_resize_normalize(rgb[..., :3], bbox, out, mask=mask, mask_rgb=mask_rgb)
+    return crop_and_normalize_rgb_py(rgb, bbox, out, mask, mask_rgb)
+
+
+def crop_and_normalize_rgb_py(
+    rgb: np.ndarray, bbox, out: int, mask: np.ndarray | None = None, mask_rgb: bool = False
+) -> np.ndarray:
+    """The numpy crop with cv2.INTER_LINEAR's semantics (the C++ path's
+    oracle)."""
     y1, y2, x1, x2 = bbox
     patch = rgb[y1:y2, x1:x2, 2::-1] / 255.0
     if mask_rgb and mask is not None:

@@ -45,7 +45,8 @@ import struct
 import numpy as np
 
 from picopose_tpu_torch.data.png import SIGNATURE as PNG_SIGNATURE
-from picopose_tpu_torch.data.png import read_png
+from picopose_tpu_torch.data.png import decode_png
+from picopose_tpu_torch.data.tiff import decode_tiff
 
 SIGNATURE = b"\xff\xd8\xff"
 # zigzag index -> natural (row-major) index (jutils.c jpeg_natural_order)
@@ -478,17 +479,21 @@ def read_jpeg(path: str) -> np.ndarray:
     return _Decoder(buf, str(path)).decode()
 
 
+def decode_image(buf: bytes, path: str = "<bytes>") -> np.ndarray:
+    """PNG, JPEG or uncompressed TIFF bytes, told apart by their signature,
+    decoded as ``np.asarray(PIL.Image.open(...))`` gives them; anything
+    else raises ValueError, naming ``path``."""
+    if buf[:8] == PNG_SIGNATURE:
+        return decode_png(buf, path)
+    if buf[:3] == SIGNATURE:
+        return _Decoder(buf, path).decode()
+    if buf[:2] in (b"II", b"MM"):
+        return decode_tiff(buf, path)
+    raise ValueError(f"{path}: neither a PNG, a JPEG nor a TIFF file")
+
+
 def read_image(path: str) -> np.ndarray:
-    """The port's ``_load_im``: a PNG or JPEG file, told apart by its
-    signature, decoded as ``np.asarray(PIL.Image.open(path))`` gives it.
-    TIFF raises NotImplementedError (not ported yet); anything else
-    ValueError, naming the file."""
+    """The port's ``_load_im``: a PNG, JPEG or TIFF file (data/tiff.py:
+    baseline uncompressed), decoded by ``decode_image``."""
     with open(path, "rb") as f:
-        head = f.read(8)
-    if head == PNG_SIGNATURE:
-        return read_png(path)
-    if head[:3] == SIGNATURE:
-        return read_jpeg(path)
-    if head[:4] in (b"II*\x00", b"MM\x00*"):
-        raise NotImplementedError(f"{path}: TIFF images are not supported by the port (PNG and JPEG only)")
-    raise ValueError(f"{path}: neither a PNG nor a JPEG file")
+        return decode_image(f.read(), str(path))

@@ -1,4 +1,4 @@
-"""PNG decoding on the standard library's zlib and numpy.
+"""PNG decoding and encoding on the standard library's zlib and numpy.
 
 The port's counterpart of picopose_tpu/data/bop.py::_load_im (:56), which
 decodes through PIL; the port does not depend on PIL.  Read: 8-bit grey,
@@ -9,6 +9,10 @@ grey, (H, W, 3|4) for colour.  Interlaced, palette, grey+alpha, 16-bit
 colour and sub-byte files raise ``NotImplementedError`` naming the file, and
 so do JPEG and TIFF paths; a bad CRC or a truncated stream raises
 ``ValueError``.
+
+Write (``encode_png``, ``write_png``): the same four formats, every row
+with filter 0 (None) in one zlib stream, in the port's stead of the JAX
+package's ``imageio.imwrite`` (picopose_tpu/native/renderer.py:484-485).
 
 Scanline filters (PNG spec 9.2, per byte, ``a`` the byte one pixel to the
 left, ``b`` the byte above, ``c`` the byte above ``a``): None, Sub (+a),
@@ -160,3 +164,32 @@ def read_png(path: str) -> np.ndarray:
         raise NotImplementedError(f"{path}: {ext} images are not supported (PNG only)")
     with open(path, "rb") as fh:
         return decode_png(fh.read(), path)
+
+
+def _chunk(kind: bytes, data: bytes) -> bytes:
+    return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", zlib.crc32(kind + data))
+
+
+def encode_png(arr: np.ndarray) -> bytes:
+    """(H, W) uint8 / uint16 grey, (H, W, 3) RGB or (H, W, 4) RGBA uint8 ->
+    PNG bytes: filter 0 on every row, one IDAT chunk at zlib's default
+    level (6, PIL's and so imageio's)."""
+    arr = np.asarray(arr)
+    if arr.ndim == 2 and arr.dtype in (np.uint8, np.uint16):
+        colour, depth = 0, arr.dtype.itemsize * 8
+    elif arr.ndim == 3 and arr.dtype == np.uint8 and arr.shape[2] in (3, 4):
+        colour, depth = (2 if arr.shape[2] == 3 else 6), 8
+    else:
+        raise ValueError(f"cannot write a {arr.dtype} array of shape {arr.shape} as PNG")
+    H, W = arr.shape[:2]
+    rows = np.ascontiguousarray(arr, ">u2" if depth == 16 else np.uint8).view(np.uint8).reshape(H, -1)
+    raw = np.concatenate([np.zeros((H, 1), np.uint8), rows], axis=1)
+    header = struct.pack(">IIBBBBB", W, H, depth, colour, 0, 0, 0)
+    return (SIGNATURE + _chunk(b"IHDR", header) + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+            + _chunk(b"IEND", b""))
+
+
+def write_png(path: str, arr: np.ndarray) -> None:
+    """Write ``arr`` to ``path`` as ``encode_png`` encodes it."""
+    with open(path, "wb") as fh:
+        fh.write(encode_png(arr))

@@ -1,8 +1,10 @@
-"""COCO RLE mask decoding, numpy only.
+"""COCO RLE mask decoding.
 
-The port's own copy of picopose_tpu/data/rle.py
-(``decode_compressed_counts`` :16, ``rle_to_mask_py`` :53), without the
-native fastpath.  Both encodings of CNOS detection files are read:
+The port's own copy of picopose_tpu/data/rle.py (``decode_compressed_counts``
+:16, ``rle_to_mask`` :38, ``rle_to_mask_py`` :53).  ``rle_to_mask`` decodes
+in C++ (native/fastpath.py); under ``PICOPOSE_NO_FASTPATH=1`` it takes the
+numpy path ``rle_to_mask_py``, its oracle.  Both encodings of CNOS
+detection files are read:
 compressed (counts as COCO's LEB128-style ascii string) and uncompressed
 (counts as a list of run lengths).  Masks are column-major, per the COCO
 spec.
@@ -11,6 +13,8 @@ spec.
 from __future__ import annotations
 
 import numpy as np
+
+from picopose_tpu_torch.native import fastpath
 
 
 def decode_compressed_counts(s: str | bytes) -> list[int]:
@@ -37,7 +41,15 @@ def decode_compressed_counts(s: str | bytes) -> list[int]:
 
 
 def rle_to_mask(rle: dict) -> np.ndarray:
-    """{'size': [h, w], 'counts': str | list} -> (h, w) uint8 mask."""
+    """{'size': [h, w], 'counts': str | list} -> (h, w) uint8 mask, in C++
+    unless ``PICOPOSE_NO_FASTPATH=1``."""
+    if fastpath.accelerated():
+        return fastpath.rle_to_mask(rle)
+    return rle_to_mask_py(rle)
+
+
+def rle_to_mask_py(rle: dict) -> np.ndarray:
+    """The numpy decode (the C++ path's oracle)."""
     h, w = rle["size"]
     counts = rle["counts"]
     if isinstance(counts, (str, bytes)):

@@ -95,8 +95,10 @@ def test_template_views_match(tree, obj):
 
 def test_jpeg_and_tiff_frames_raise(tree, tmp_path):
     """A ``.jpg`` frame (found before the ``.png``) decodes as PIL decodes
-    it, and a truncated one raises naming the file; a ``.tif`` frame raises
-    (no TIFF decoder yet)."""
+    it, and a truncated one raises naming the file; a truncated ``.tif``
+    frame raises ValueError and an LZW-compressed one NotImplementedError,
+    each naming the file, while an uncompressed one loads as the JAX
+    loader loads it (tests/test_torch_tiff.py holds the decoder to PIL)."""
     root = tmp_path / "bop"
     shutil.copytree(tree["data_dir"], root)
     ds = bop.BOPTestDataset(str(root), "fakeds", tree["det_path"])
@@ -113,8 +115,18 @@ def test_jpeg_and_tiff_frames_raise(tree, tmp_path):
     os.remove(scene / "rgb" / "000002.png")
     os.makedirs(scene / "gray")
     (scene / "gray" / "000002.tif").write_bytes(b"II*\x00")
+    with pytest.raises(ValueError, match="000002.tif"):
+        ds.load_raw(1)
+    grey = np.asarray(Image.fromarray(rgb).convert("L"))
+    Image.fromarray(grey).save(scene / "gray" / "000002.tif", compression="tiff_lzw")
     with pytest.raises(NotImplementedError, match="000002.tif"):
         ds.load_raw(1)
+    Image.fromarray(grey).save(scene / "gray" / "000002.tif")
+    rgb, K = ds.load_raw(1)
+    assert rgb.shape == grey.shape + (3,)
+    np.testing.assert_array_equal(rgb, np.stack([grey] * 3, axis=-1))
+    np.testing.assert_array_equal(rgb, jds.load_raw(1)[0])
+    np.testing.assert_array_equal(K, jds.load_raw(1)[1])
 
 
 def test_csv_rows_are_byte_identical(tmp_path):

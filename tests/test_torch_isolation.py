@@ -65,7 +65,11 @@ def test_import_leaves_jax_out_of_sys_modules():
         "picopose_tpu_torch.data.jpeg, picopose_tpu_torch.data.color_augment, "
         "picopose_tpu_torch.data.megapose, picopose_tpu_torch.geom.templates, "
         "picopose_tpu_torch.utils.logging, picopose_tpu_torch.run_train, "
-        "picopose_tpu_torch.utils.graphs; "
+        "picopose_tpu_torch.utils.graphs, picopose_tpu_torch.native.fastpath, "
+        "picopose_tpu_torch.native.renderer, picopose_tpu_torch.render_templates, "
+        "picopose_tpu_torch.score_csv, picopose_tpu_torch.eval.bop_scoring, "
+        "picopose_tpu_torch.eval.metrics, picopose_tpu_torch.utils.profiling, "
+        "picopose_tpu_torch.data.tiff; "
         "print(sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN + HOST_LIBRARIES!r}))"
     )
@@ -148,3 +152,70 @@ def test_pose_estimator_needs_a_card_unless_cpu_is_asked(monkeypatch):
         est = PoseEstimator(**small, device="cpu")
     assert est.device.type == "cpu" and est.generator.device.type == "cpu"
     assert next(est.model.parameters()).device.type == "cpu"
+
+
+def _code_strings(path):
+    """String constants of a file's code, its docstrings left out."""
+    tree = ast.parse(open(path).read(), filename=path)
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)):
+            body = node.body
+            if body and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant):
+                docs.add(id(body[0].value))
+    return [n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str) and id(n) not in docs]
+
+
+def test_port_files_name_neither_the_jax_native_directory_nor_its_library():
+    """The port builds its own copies of the C++ sources (picopose_tpu_torch/
+    native/csrc); its code names neither the top-level ``native/`` nor
+    ``libpicopose_native.so``."""
+    bad = set()
+    for f in _port_files():
+        for s in _code_strings(f):
+            if "libpicopose_native" in s or s.rstrip("/") == "native" or s.startswith("native/"):
+                bad.add((os.path.relpath(f, ROOT), s))
+    assert not bad, bad
+    sources = os.listdir(os.path.join(PACKAGE, "native", "csrc"))
+    assert sorted(sources) == ["fastpath.cpp", "rasterizer.cpp"]
+
+
+def test_the_port_loads_its_own_host_library():
+    """After a crop, an RLE decode and a render, the process maps the
+    port's library and not the JAX package's, and has started no CUDA."""
+    code = (
+        "import numpy as np\n"
+        "from picopose_tpu_torch.data import crops, rle\n"
+        "from picopose_tpu_torch.native import renderer, CALLS\n"
+        "crops.crop_and_normalize_rgb(np.zeros((8, 8, 3), np.uint8), (0, 8, 0, 8), 4)\n"
+        "rle.rle_to_mask({'size': [2, 2], 'counts': [1, 2, 1]})\n"
+        "renderer.render_views(np.eye(3, dtype=np.float32), None, np.array([[0, 1, 2]]), "
+        "np.eye(4)[None], hw=(4, 4), n_threads=1)\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "import torch\n"
+        "print(sorted(CALLS), 'libpicopose_host-' in maps, 'libpicopose_native' in maps, "
+        "torch.cuda.is_initialized())"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PICOPOSE_NO_FASTPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=300, check=True)
+    assert out.stdout.strip() == ("['crop_resize_normalize', 'render_templates_tex', 'rle_counts_to_mask'] "
+                                  "True False False"), out.stdout + out.stderr
+
+
+def test_importing_the_host_entry_points_starts_no_cuda():
+    """render_templates, score_csv and the renderer run on the host: their
+    import does not even import torch, starts no CUDA context and builds
+    nothing."""
+    code = (
+        "import sys, picopose_tpu_torch.render_templates, picopose_tpu_torch.score_csv, "
+        "picopose_tpu_torch.native.renderer, picopose_tpu_torch.eval.bop_scoring, "
+        "picopose_tpu_torch.eval.metrics, picopose_tpu_torch.utils.profiling, picopose_tpu_torch.data.tiff; "
+        "no_torch = 'torch' not in sys.modules; "
+        "import torch; from picopose_tpu_torch import kernels, native; "
+        "print(no_torch, torch.cuda.is_initialized(), len(kernels._libs), native._lib)"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=120, check=True)
+    assert out.stdout.strip() == "True False 0 None", out.stdout

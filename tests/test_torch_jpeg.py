@@ -131,8 +131,10 @@ def test_read_image_dispatches_on_the_signature(tmp_path):
     np.testing.assert_array_equal(read_image(str(tmp_path / "a.png")), rgb)
     np.testing.assert_array_equal(read_image(str(tmp_path / "b.png")), np.asarray(Image.open(tmp_path / "b.png")))
     Image.fromarray(rgb[..., 0]).save(tmp_path / "c.tif")
-    with pytest.raises(NotImplementedError, match="c.tif"):
-        read_image(str(tmp_path / "c.tif"))
+    np.testing.assert_array_equal(read_image(str(tmp_path / "c.tif")), rgb[..., 0])
+    Image.fromarray(rgb[..., 0]).save(tmp_path / "e.tif", compression="tiff_lzw")
+    with pytest.raises(NotImplementedError, match="e.tif"):
+        read_image(str(tmp_path / "e.tif"))
     (tmp_path / "d.bin").write_bytes(b"GIF89a......")
     with pytest.raises(ValueError, match="d.bin"):
         read_image(str(tmp_path / "d.bin"))

@@ -6,11 +6,12 @@ frames of textured spheres, two of them invalid (below the visibility
 threshold; no depth file), and a 162-view level-1 template bank.
 
 Tolerances: the pose tables, every sample key, the generators' states and
-``collate`` bitwise.  The JAX package crops through its C++ fastpath when
-it is built (picopose_tpu/data/crops.py:86-93, documented within 1.3e-4 of
-its cv2 path); the port follows the cv2 path.  So the sample tests patch
-``picopose_tpu.native.fastpath.accelerated`` to False on the JAX side and
-hold the samples bitwise; one test keeps the fastpath and holds the
+``collate`` bitwise.  Both packages crop through their C++ fast path by
+default (picopose_tpu/data/crops.py:86-93, picopose_tpu_torch/data/
+crops.py); ``PICOPOSE_NO_FASTPATH=1`` sends both to their numpy (cv2)
+path.  The sample tests pin both numpy paths (``cv2_crops``) and hold the
+samples bitwise; one test holds the C++ crops of both packages bitwise,
+and the port's numpy crops against the JAX package's C++ ones with the
 ``*_rgb`` crops within 2e-4 (the rest bitwise).
 """
 
@@ -25,6 +26,7 @@ from picopose_tpu.geom import templates as JT
 from picopose_tpu.native import fastpath
 from picopose_tpu_torch.data import megapose as T
 from picopose_tpu_torch.geom import templates as TT
+from picopose_tpu_torch.native import fastpath as port_fastpath
 
 KW = dict(min_px_count_visib=100)
 
@@ -36,7 +38,8 @@ def tree(tmp_path_factory):
 
 @pytest.fixture
 def cv2_crops(monkeypatch):
-    monkeypatch.setattr(fastpath, "accelerated", lambda: False)
+    monkeypatch.setenv("PICOPOSE_NO_FASTPATH", "1")
+    assert not fastpath.accelerated() and not port_fastpath.accelerated()
 
 
 def _assert_samples_equal(got, ref, rgb_atol=0.0, what=""):
@@ -81,11 +84,19 @@ def test_an_epoch_of_samples_is_the_jax_one(tree, cv2_crops, augment_real):
         assert port.rng.bit_generator.state == jax.rng.bit_generator.state
 
 
-def test_samples_with_the_native_crops(tree):
+@pytest.mark.parametrize("port_crops", ["cpp", "numpy"])
+def test_samples_with_the_native_crops(tree, monkeypatch, port_crops):
+    """The JAX package's C++ crops against the port's: its C++ crops
+    bitwise, its numpy crops with ``*_rgb`` within 2e-4."""
+    monkeypatch.delenv("PICOPOSE_NO_FASTPATH", raising=False)
+    if port_crops == "numpy":
+        monkeypatch.setattr(port_fastpath, "accelerated", lambda: False)
+    assert fastpath.accelerated()
     port = T.MegaPoseTrainingDataset(tree, seed=5, augment_real=True, **KW)
     jax = J.MegaPoseTrainingDataset(tree, seed=5, augment_real=True, **KW)
     for i in range(6):
-        _assert_samples_equal(port.get(i), jax.get(i), rgb_atol=2e-4, what=f"sample {i}")
+        _assert_samples_equal(port.get(i), jax.get(i), rgb_atol=2e-4 if port_crops == "numpy" else 0.0,
+                              what=f"sample {i}")
 
 
 def test_reset_resamples_as_jax(tree):

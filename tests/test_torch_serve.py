@@ -8,9 +8,11 @@ test_torch_run_batch.py holds against the JAX package).
 
 Tolerances (measured max errors in brackets): boxes and masks exact;
 crop matrices within 1e-6 relative [0]; pts2d within 1e-5 [0]; the rgb
-crop within 2e-4 normalised units of cv2's INTER_LINEAR
-(``crop_and_normalize_rgb_py``) [1.4e-14] and of the JAX estimator's
-crop, which takes the native fastpath [2.7e-5]; ``preprocess_frame``
+crop: the port's numpy path (``PICOPOSE_NO_FASTPATH=1``) within 2e-4
+normalised units of cv2's INTER_LINEAR (``crop_and_normalize_rgb_py``)
+[1.4e-14] and of the JAX estimator's crop, which takes the native
+fastpath [2.7e-5]; the port's C++ path (its default) bitwise the JAX
+package's C++ crop, in both tests; ``preprocess_frame``
 within 1e-5 of the JAX one at 64^2 [7.2e-7] and within 1e-3 of the
 port's host crops [4.2e-7]; at 224^2 within 1e-4 of the JAX one [4.5e-5:
 the same bilinear weights, but JAX's CPU einsum sits 4.4e-5 from their
@@ -26,12 +28,14 @@ import torch
 
 from picopose_tpu.data import crops as jcrops
 from picopose_tpu.data.rle import rle_to_mask_py
+from picopose_tpu.native import fastpath as jfastpath
 from picopose_tpu.eval.pipeline import TemplateBank as JaxTemplateBank
 from picopose_tpu.ops.preprocess import preprocess_frame as jax_preprocess_frame
 from picopose_tpu.serve import PoseEstimator as JaxPoseEstimator
 from picopose_tpu_torch.data import crops
 from picopose_tpu_torch.data.rle import rle_to_mask
 from picopose_tpu_torch.eval.pipeline import TemplateBank, build_bank, run_batch, select_templates
+from picopose_tpu_torch.native import fastpath as port_fastpath
 from picopose_tpu_torch.ops.preprocess import preprocess_frame
 from picopose_tpu_torch.serve import PoseEstimator
 
@@ -81,11 +85,17 @@ def test_rle_decodes_as_the_jax_package(encode):
         np.testing.assert_array_equal(rle_to_mask(rle), mask)
 
 
+@pytest.mark.parametrize("path", ["numpy", "cpp"])
 @pytest.mark.parametrize("out", [64, 224])
-def test_host_crops_match_the_jax_package(frame, out):
+def test_host_crops_match_the_jax_package(frame, out, path, monkeypatch):
     """Boxes, M and pts2d as the JAX package's; rgb within 2e-4 of cv2's
-    INTER_LINEAR, the mask equal to cv2's INTER_NEAREST, down- and
-    upscaled crops alike."""
+    INTER_LINEAR (and, on the C++ path, bitwise the JAX package's C++
+    crop), the mask equal to cv2's INTER_NEAREST, down- and upscaled crops
+    alike."""
+    if path == "numpy":
+        monkeypatch.setenv("PICOPOSE_NO_FASTPATH", "1")
+    else:
+        monkeypatch.delenv("PICOPOSE_NO_FASTPATH", raising=False)
     for b in BLOBS:
         mask = blob(*b)
         bbox = crops.mask_square_bbox(mask)
@@ -100,6 +110,11 @@ def test_host_crops_match_the_jax_package(frame, out):
             ref = jcrops.crop_and_normalize_rgb_py(frame, bbox, out, mask, mask_rgb)
             assert got.dtype == np.float32 and got.shape == (out, out, 3)
             np.testing.assert_allclose(got, ref, atol=2e-4)
+            if path == "cpp":
+                np.testing.assert_array_equal(got, jfastpath.crop_resize_normalize(
+                    frame, bbox, out, mask=mask, mask_rgb=mask_rgb))
+            else:
+                np.testing.assert_array_equal(got, crops.crop_and_normalize_rgb_py(frame, bbox, out, mask, mask_rgb))
         np.testing.assert_array_equal(crops.crop_mask(mask, bbox, out), jcrops.crop_mask(mask, bbox, out))
 
 
@@ -176,12 +191,21 @@ def _detections():
     ]
 
 
-def test_decode_and_device_batch_match_the_jax_estimator(frame, estimator):
+@pytest.mark.parametrize("port_crops", ["numpy", "cpp"])
+def test_decode_and_device_batch_match_the_jax_estimator(frame, estimator, port_crops, monkeypatch):
+    """The JAX estimator crops in C++; the port's rgb crops within 2e-4 on
+    its numpy path, bitwise on its C++ path."""
+    monkeypatch.delenv("PICOPOSE_NO_FASTPATH", raising=False)
+    if port_crops == "numpy":
+        monkeypatch.setattr(port_fastpath, "accelerated", lambda: False)
     jest = _jax_estimator()
     dets = _detections()
     for det in dets:
         got, ref = estimator._decode(frame, K, det), jest._decode(frame, K, det)
-        np.testing.assert_allclose(got["rgb"], ref["rgb"], atol=2e-4)
+        if port_crops == "numpy":
+            np.testing.assert_allclose(got["rgb"], ref["rgb"], atol=2e-4)
+        else:
+            np.testing.assert_array_equal(got["rgb"], ref["rgb"])
         np.testing.assert_array_equal(got["mask"], ref["mask"])
         np.testing.assert_allclose(got["M"], ref["M"], rtol=1e-6)
         np.testing.assert_allclose(got["pts2d"], ref["pts2d"], atol=1e-5)
