@@ -134,8 +134,10 @@ Phases (any failure exits non-zero before the result line):
      corr-window, 3 warp per step in the trace) and the checkpoint's bytes,
      save and restore, one loop batch's eager step through the kernels
      against the plain path, and ``python -m picopose_tpu_torch.run_train``
-     for 2 epochs of 10 steps (checkpoints at 10 and 20) and ``--resume``
-     to step 30, each through the compiled step; the loader's crops take
+     for 2 epochs of 4 steps (checkpoints at 4 and 8; two loader workers)
+     and ``--resume`` to step 12, each through the compiled step (cut from
+     2 x 10 + 10 steps with ten workers, for phase 13's time);
+     the loader's crops take
      the C++ fast path (the host library's calls of 8 samples in this
      process printed: the workers count in their own);
  10. the compiled inference programs at full width (``graph_phase``, run
@@ -173,7 +175,24 @@ Phases (any failure exits non-zero before the result line):
      ViT-L, the bank from disk, C++ crops, K1-K5: its launches and host
      library calls), and ``python -m picopose_tpu_torch.score_csv --vsd
      --bootstrap 100`` on its CSV (every AR finite, in [0, 1]) and on the
-     ground truth's (AR 1.0).
+     ground truth's (AR 1.0);
+ 13. ranks and devices on the one card (``ranks_phase``, last, and
+     ``devices_phase``, run after phase 11 on phase 7's tree): ViT-L bf16,
+     base.yaml's AdamW at a constant lr 1e-4, a global batch of 8 sphere
+     pairs.  (a) A one-rank NCCL group: the sharded step in ddp and fsdp
+     (``make_train_step(state, shardings, mesh)``) captured and replayed,
+     bitwise the eager sharded step and the one-device step, the
+     collectives the capturing call issued, one replay's trace (NCCL and
+     copy entries, K1/K2/K4/K5), ms and bytes held.  (b) Two gloo ranks
+     sharing cuda:0, 4 rows each, ddp and fsdp, two steps: losses within
+     1e-4 of the one-process step at the global batch, the change of the
+     parameters within 1e-2 relative RMS per group and each parameter
+     within 2 lr per step, replicated tensors bitwise across the ranks,
+     fsdp's bytes per rank at most 0.6 of ddp's, ms per step per rank.
+     (c) ``PoseEstimator(devices=[cuda:0, cuda:0])`` with both objects
+     registered, bitwise the one-device estimator, and
+     ``evaluate_dataset(use_mesh=True, devices=[cuda:0, cuda:0])`` at batch
+     16 against the one-device run with the same PnP draws.
 Launch counts are the wrappers' (``kernels.LAUNCHES``), which count a
 kernel where they launch it: an eager call and a program's warm-up, not
 a capture or a replay.  What a replay ran is counted by kernel name in a
@@ -1201,7 +1220,7 @@ def serve_phase(seed: int) -> dict:
     with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as d:
         est.save_banks(d)
         other = SV.PoseEstimator.__new__(SV.PoseEstimator)
-        other.device, other._banks = est.device, {}
+        other.device, other.devices, other._banks, other._bank_device = est.device, None, {}, {}
         check(other.load_banks(d) == [1], "bank file found")
         a, b = est._banks[1], other._banks[1]
         for x, y in zip(a.feats + a.dpt + a[1:6], b.feats + b.dpt + b[1:6]):
@@ -2650,7 +2669,7 @@ def train_timing(seed: int) -> dict:
     that has never run torch.profiler (``loop_timing``'s rule): phase 8's
     batch of 8 at full width with base.yaml's AdamW; the eager
     ``train_step`` and the compiled step, each without and with ViT remat:
-    ms per step (median of 10 after a warm-up; the compiled step's first
+    ms per step (median of 5 after a warm-up; the compiled step's first
     call captures), capture seconds, peak device memory (allocated and
     reserved; the compiled step's over its first call, whose warm-up
     snapshots the state, and over its replays); then profiles: one replay
@@ -2683,7 +2702,7 @@ def train_timing(seed: int) -> dict:
         vit.remat = remat
         name = "remat" if remat else "plain"
         reset()
-        out[f"eager_{name}_ms"] = host_ms(lambda: ts.train_step(state, batch, noise), 11)[1:]
+        out[f"eager_{name}_ms"] = host_ms(lambda: ts.train_step(state, batch, noise), 6)[1:]
         out[f"eager_{name}_peak_gib"] = peak()
         reset()
         step = ts.make_train_step(state)
@@ -2692,7 +2711,7 @@ def train_timing(seed: int) -> dict:
         out[f"compiled_{name}_capture_s"] = step.graphs.capture_s["train_step"][0]
         out[f"compiled_{name}_capture_peak_gib"] = peak()  # the warm-up's snapshot of the state included
         torch.cuda.reset_peak_memory_stats()
-        out[f"compiled_{name}_ms"] = host_ms(lambda: step(state, batch, noise), 11)[1:]
+        out[f"compiled_{name}_ms"] = host_ms(lambda: step(state, batch, noise), 6)[1:]
         out[f"compiled_{name}_peak_gib"] = peak()
         del step
     # profiles last: a process that has profiled stays slower on the host
@@ -2985,7 +3004,7 @@ def train_phase(seed: int) -> dict:
     for name in ("plain", "remat"):
         e, c = float(np.median(t[f"eager_{name}_ms"])), float(np.median(t[f"compiled_{name}_ms"]))
         print(f"[train] {name}: eager {e!r} ms per step = {B / e * 1e3!r} samples/s, peak GiB allocated / reserved "
-              f"{t[f'eager_{name}_peak_gib']!r}; compiled {c!r} ms = {B / c * 1e3!r} samples/s (median of 10; all "
+              f"{t[f'eager_{name}_peak_gib']!r}; compiled {c!r} ms = {B / c * 1e3!r} samples/s (median of 5; all "
               f"{t[f'compiled_{name}_ms']!r}), first call {t[f'compiled_{name}_first_ms']!r} ms of which capture "
               f"{t[f'compiled_{name}_capture_s']!r} s, peak GiB over the first call "
               f"{t[f'compiled_{name}_capture_peak_gib']!r}, over the replays {t[f'compiled_{name}_peak_gib']!r}; "
@@ -3133,7 +3152,7 @@ MP_K = np.array([[600.0, 0.0, 320.0], [0.0, 600.0, 240.0], [0.0, 0.0, 1.0]])
 SPHERE_RADIUS = 0.1  # meters
 LOOP_STEPS = 12  # the in-process loop: 1 warm-up step, 10 profiled, 1 more
 LOOP_PROFILED = range(1, 11)
-LOOP_TIMED = 40  # the loop timed in a fresh interpreter; the median over its last 30 steps
+LOOP_TIMED = 25  # the loop timed in a fresh interpreter; the median over its last 15 steps (once 40 and 30)
 
 
 def megapose_world(root: str, seed: int) -> dict:
@@ -3324,7 +3343,7 @@ def loop_phase(seed: int, step_ms_alone: float) -> dict:
     steps with each step's launches and a profile of ten steps, the
     checkpoint's save and restore; one loop batch's step through the
     kernels against the plain path; then
-    ``python -m picopose_tpu_torch.run_train`` for 2 epochs of 10 steps and
+    ``python -m picopose_tpu_torch.run_train`` for 2 epochs of 4 steps and
     ``--resume`` for one more.  Everything is written to a temporary
     directory in the checkout, removed at the end (at most two train-state
     files, ~4.5 GB each, exist at a time).  Returns the kernels' launches
@@ -3402,11 +3421,11 @@ def loop_phase(seed: int, step_ms_alone: float) -> dict:
         timing = in_fresh_interpreter(f"loop_timing({config!r}, {overrides!r}, "
                                       f"{os.path.join(tmp, 'log_timing')!r}, {seed})", "[loop]")
         alone = float(np.median(timing["alone_ms"]))
-        steady = slice(LOOP_TIMED - 31, None)  # the last 30 steps: past the pool's first wave of batches
+        steady = slice(LOOP_TIMED - 16, None)  # the last 15 steps: past the pool's first wave of batches
         med = float(np.median(timing["ms"][steady]))
         print(f"[loop] in a fresh interpreter: the compiled step alone on a loader batch {alone!r} ms = "
               f"{bs / alone * 1e3!r} samples/s (median of 10; all {timing['alone_ms']!r}); ms per step inside "
-              f"run_training (step end to step end, synchronised; median of the last 30 of {LOOP_TIMED}) {med!r} = "
+              f"run_training (step end to step end, synchronised; median of the last 15 of {LOOP_TIMED}) {med!r} = "
               f"{bs / med * 1e3!r} samples/s; of which between steps (logging, waiting for the uploaded batch) "
               f"{float(np.median(timing['wait_ms'][steady]))!r} ms, in the compiled step "
               f"{float(np.median(timing['step_ms'][steady]))!r} ms; all {[round(x, 1) for x in timing['ms']]!r}")
@@ -3502,13 +3521,15 @@ def loop_phase(seed: int, step_ms_alone: float) -> dict:
         del batch
         torch.cuda.empty_cache()
 
-        # the CLI: 2 epochs of 10 steps, then --resume for one more
+        # the CLI: 2 epochs of 4 steps, then --resume for one more (two loader
+        # workers: the CLI runs check checkpoints and resume, the loader's
+        # rate is timed above)
         env = {**os.environ, "PYTHONPATH": here}
-        args = ["--config", config, "--version_id", "9", "--set", *overrides, "trainer.training_epoch=3", "lr_scheduler.max_iters=30",
-                "trainer.iters_to_print=5", "trainer.ckpt_every_epochs=1"]
+        args = ["--config", config, "--version_id", "9", "--set", *overrides, "trainer.training_epoch=3", "lr_scheduler.max_iters=12",
+                "trainer.iters_to_print=2", "trainer.ckpt_every_epochs=1", "train_dataloader.num_workers=2"]
         log_dir = os.path.join(tmp, "log", "picopose", "version_9")
         runs = {}
-        for name, extra in (("first", ["--max_steps", "20"]), ("resumed", ["--max_steps", "30", "--resume"])):
+        for name, extra in (("first", ["--max_steps", "8"]), ("resumed", ["--max_steps", "12", "--resume"])):
             t0 = time.perf_counter()
             r = subprocess.run([sys.executable, "-m", "picopose_tpu_torch.run_train", *extra, *args], cwd=tmp, env=env,
                                capture_output=True, text=True, timeout=600)
@@ -3522,17 +3543,17 @@ def loop_phase(seed: int, step_ms_alone: float) -> dict:
                   f"run_train ({name} run) went through the compiled step")
             if name == "first":
                 saved = sorted(os.listdir(os.path.join(log_dir, "checkpoints")))
-                check(saved == ["10.pt", "20.pt"], f"checkpoints at steps 10 and 20 ({saved})")
-                os.remove(os.path.join(log_dir, "checkpoints", "10.pt"))  # at most two train states at a time
+                check(saved == ["4.pt", "8.pt"], f"checkpoints at steps 4 and 8 ({saved})")
+                os.remove(os.path.join(log_dir, "checkpoints", "4.pt"))  # at most two train states at a time
             else:
-                check("resumed from step 20" in r.stdout, "the resumed run starts at step 20")
-                saved = sorted(os.listdir(os.path.join(log_dir, "checkpoints")))
-                check(saved == ["20.pt", "30.pt"], f"the resumed run saved at step 30 ({saved})")
+                check("resumed from step 8" in r.stdout, "the resumed run starts at step 8")
+                saved = sorted(os.listdir(os.path.join(log_dir, "checkpoints")), key=lambda n: int(n[:-3]))
+                check(saved == ["8.pt", "12.pt"], f"the resumed run saved at step 12 ({saved})")
         heads, losses = loop_log(log_dir)
-        print(f"[loop] run_train: 2 epochs of 10 steps in {runs['first']!r} s, --resume to step 30 in "
+        print(f"[loop] run_train: 2 epochs of 4 steps in {runs['first']!r} s, --resume to step 12 in "
               f"{runs['resumed']!r} s; log {heads!r}; losses finite {bool(np.isfinite(losses).all())}")
-        check(heads == ["iter 5", "iter 10", "epoch 0 done at iter 10", "iter 15", "iter 20",
-                        "epoch 1 done at iter 20", "iter 25", "iter 30", "epoch 0 done at iter 30"],
+        check(heads == ["iter 2", "iter 4", "epoch 0 done at iter 4", "iter 6", "iter 8",
+                        "epoch 1 done at iter 8", "iter 10", "iter 12", "epoch 0 done at iter 12"],
               "the log's iteration and epoch lines (the resumed run's epoch counter restarts at 0)")
         check(len(losses) > 0 and all(np.isfinite(losses)), "every logged loss finite")
     finally:
@@ -3897,6 +3918,452 @@ def small_reference(seed: int) -> None:
     check(d["ratio"] <= 1e-3 and d["R"] <= 1e-3 and d["t"] <= 1e-3, "small: PnP on the card agrees with the CPU")
 
 
+# ---------------------------------------------------------------- phase 13: ranks and devices
+
+RANKS_B = 8  # the global batch of phase 13's training steps
+RANKS_STEPS = 2
+RANKS_LR = 1e-4  # base.yaml's AdamW at a constant lr (no warm-up), so that two steps move the parameters
+RANKS_MODES = ("ddp", "fsdp")  # phase 13a, one rank
+# phase 13b over two ranks: (compute dtype, mode, n_data, n_model)
+RANKS_RUNS = ((torch.float32, "ddp", 2, 1), (torch.float32, "fsdp", 2, 1), (torch.float32, "tp", 1, 2),
+              (torch.bfloat16, "ddp", 2, 1))
+# Limits of phase 13b's runs against the one-process step at the global batch, by compute dtype: each
+# step's losses (relative; the first step's come before any update), the first step's gradient (as
+# AdamW's first moment after it, relative RMS), the change of the parameters after the two updates
+# (relative RMS per group) and each parameter (in lr: an update moves a parameter by about lr whatever its
+# gradient, so this bound catches a misplaced or missed shard, the RMS bounds a wrong gradient).  fp32:
+# only the order of the fp32 sums differs; the gradient is held to the CPU tests' 1e-3.  bf16: the
+# forward matches as in fp32 (the ViT's rows come out bitwise at 4 rows and at 8, ``shape_witness``), but
+# each rank rounds its weight gradients to bf16 before the ranks' fp32 sum, where one process rounds the
+# whole batch's once; AdamW's first update, about lr times the gradient's sign, turns each element whose
+# sign that flips into 2 lr, and the second step computes from those parameters.  Past the first step's
+# losses the bf16 limits are set from the readings on an NVIDIA H100 80GB HBM3, 700 W (gradient 4.2e-3
+# with 0.40% of its elements of the other sign; step 2 losses 6.4e-3; the ViT's change 6.1e-2; 4.03 lr;
+# fp32: 5.6e-5 to 1.2e-4, 2.0e-5 to 3.4e-5, 2.2e-3 to 3.5e-3, 2.05 to 2.29 lr; PERF.md).
+RANKS_LIMITS = {torch.float32: dict(loss=(1e-4, 1e-4), grad_rms=1e-3, state_rms=1e-2, param_lr=2.5),
+                torch.bfloat16: dict(loss=(1e-4, 1e-2), grad_rms=1e-2, state_rms=0.1, param_lr=4.5)}
+
+
+def _ranks_inputs(seed: int, dtype: torch.dtype = torch.bfloat16):
+    """Phase 13's global batch of 8 sphere pairs on the card, the affine
+    noise of each step (the global batch's draws), the model's arguments
+    (ViT-L at ``dtype``) and base.yaml's AdamW at RANKS_LR."""
+    from picopose_tpu_torch.train import step as ts
+    from picopose_tpu_torch.train.augment import draw_affine_noise
+
+    dev = torch.device("cuda", 0)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in train_batch(RANKS_B, seed).items()}
+    g = torch.Generator(device=dev).manual_seed(seed + 13)
+    noises = [draw_affine_noise(RANKS_B, g) for _ in range(RANKS_STEPS)]
+    model_kw = dict(vit_type="dinov2_vitl14", blocks_to_take=(5, 11, 17, 23), compute_dtype=dtype)
+    return batch, noises, model_kw, ts.make_optimizer(base_lr=RANKS_LR, warmup_factor=1.0)
+
+
+def _ranks_state(seed: int, model_kw: dict, tx):
+    from picopose_tpu_torch.train import step as ts
+
+    state = ts.init_state(tx, seed, device="cuda:0", **model_kw)
+    calm_scale_head_(state.model)
+    return state
+
+
+def _whole_state(state) -> dict:
+    """Parameters, BatchNorm statistics and AdamW moments of a state
+    (sharded or not), whole, as copies (a collective when sharded)."""
+    from picopose_tpu_torch.parallel.shardings import full_optimizer_state, full_state_dict
+
+    out = {f"model.{k}": v.detach().clone() for k, v in full_state_dict(state).items()}
+    for i, m in full_optimizer_state(state)["optimizer"]["state"].items():
+        out.update({f"{k}.{i}": v.detach().clone() for k, v in m.items()})
+    return out
+
+
+def shape_witness(model, batch: dict) -> dict:
+    """What the row count of two data ranks changes in the forward, on one
+    device and with no collective: the ViT's four taps of rows 0-3 run as
+    a batch of 4 against the same rows of the batch of 8 (relative RMS,
+    and the share of elements that differ)."""
+    with torch.no_grad():
+        whole = model.features(batch["real_rgb"])
+        half = model.features(batch["real_rgb"][:4])
+    d = [(h.double() - w[:4].double()) for h, w in zip(half, whole)]
+    rms = (sum(float((x * x).sum()) for x in d) / sum(float((w[:4].double() ** 2).sum()) for w in whole)) ** 0.5
+    share = sum(int((x != 0).sum()) for x in d) / sum(x.numel() for x in d)
+    return {"vit_rows_rel_rms": rms, "vit_rows_share_differing": share}
+
+
+def first_moments(state) -> dict:
+    """AdamW's first moments of a state (sharded or not), whole: after the
+    first update, (1 - b1) times the first step's gradient."""
+    from picopose_tpu_torch.parallel.shardings import full_optimizer_state
+
+    return {i: m["exp_avg"] for i, m in full_optimizer_state(state)["optimizer"]["state"].items()}
+
+
+def nccl_one_rank(seed: int, port: int, out: str) -> dict:
+    """Phase 13a, in its own process: a one-rank NCCL group on cuda:0.  For
+    ddp and fsdp, ``make_train_step(state, shardings, mesh)`` captured at
+    its first call and replayed at its second, against the eager sharded
+    step (its program called directly) and against the one-device eager
+    ``train_step``, from equal states, on the same batch and noise: losses,
+    parameters, statistics and moments bitwise after each step; the
+    collectives the capturing call issued (warm-up and capture) and none
+    on the replay; the kernels of one replay in a profiler trace (NCCL's
+    and copies by name, the wrappers' by kernel); ms per replay; the bytes
+    the rank holds.  Writes the one-device references at fp32 and bf16
+    (losses, the first moments after the first step, parameters and
+    statistics after the last) to ``out`` for phase 13b, and measures
+    ``shape_witness`` on their fresh models."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from picopose_tpu_torch import kernels
+    from picopose_tpu_torch.parallel import collectives as C
+    from picopose_tpu_torch.parallel import distributed as pd
+    from picopose_tpu_torch.parallel import make_mesh, shard_state, state_shardings
+    from picopose_tpu_torch.train import step as ts
+
+    kernels.build()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    pd.initialize(backend="nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0, device_id=dev)
+    res: dict = {"modes": {}, "witness": {}}
+    try:
+        mesh = make_mesh(device=dev)
+        for dtype in (torch.float32, torch.bfloat16):  # phase 13b's one-device references, then 13a's
+            batch, noises, model_kw, tx = _ranks_inputs(seed, dtype)
+            one = _ranks_state(seed, model_kw, tx)
+            res["witness"][str(dtype)[6:]] = shape_witness(one.model, batch)
+            ref_losses, ref_states, m1 = [], [], None
+            for n in noises:
+                ref_losses.append(ts.train_step(one, batch, n))
+                ref_states.append(_whole_state(one))
+                if m1 is None:
+                    m1 = {i: m.cpu() for i, m in first_moments(one).items()}
+            torch.save({"losses": [{k: float(v) for k, v in l.items()} for l in ref_losses], "m1": m1,
+                        "state": {k[6:]: v.cpu() for k, v in ref_states[-1].items() if k.startswith("model.")}},
+                       os.path.join(out, f"one_device_{str(dtype)[6:]}.pt"))
+            del m1
+            if dtype == torch.float32:
+                del one, ref_states
+        del one
+        torch.cuda.empty_cache()
+        for mode in RANKS_MODES:
+            graphed = shard_state(_ranks_state(seed, model_kw, tx), mesh, mode)
+            eager = shard_state(_ranks_state(seed, model_kw, tx), mesh, mode)
+            step = ts.make_train_step(graphed, state_shardings(mesh, graphed, mode), mesh)
+            forward = ts._Forward(eager.model)
+            eager_step = lambda b, n: ts._host_step(eager, lambda update: ts._sharded_program(
+                forward, eager.optimizer, eager.layout, b, n, update))
+            r: dict = {"issued": []}
+            for i, n in enumerate(noises):
+                before = dict(C.ISSUED)
+                lg = step(graphed, batch, n)
+                r["issued"].append({k: v - before.get(k, 0) for k, v in C.ISSUED.items() if v != before.get(k, 0)})
+                le = eager_step(batch, n)
+                torch.cuda.synchronize()
+                wg, we = _whole_state(graphed), _whole_state(eager)
+                r[f"step{i + 1}_replay_vs_eager"] = all(torch.equal(lg[k], le[k]) for k in le) and \
+                    all(torch.equal(wg[k], we[k]) for k in we)
+                r[f"step{i + 1}_vs_one_device"] = all(torch.equal(lg[k], ref_losses[i][k]) for k in le) and \
+                    sorted(wg) == sorted(ref_states[i]) and all(torch.equal(wg[k], ref_states[i][k]) for k in wg)
+                del wg, we
+            r["captures"], r["replays"] = dict(step.graphs.captures), dict(step.graphs.replays)
+            r["buckets"] = len(graphed.layout.buckets)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                step(graphed, batch, noises[0])
+                torch.cuda.synchronize()
+            names: dict = {}
+            for e in prof.key_averages():
+                if any(s in e.key.lower() for s in ("nccl", "memcpy", "onerank")):
+                    names[e.key[:80]] = e.count
+            r["replay_trace_collectives"] = names
+            r["replay_trace_kernels"] = traced_launches(prof.key_averages())
+            r["replay_ms"] = host_ms(lambda: step(graphed, batch, noises[0]), 4)[1:]
+            r["held_bytes"] = graphed.layout.held_bytes(graphed.optimizer)
+            res["modes"][mode] = r
+            del graphed, eager, step, forward
+            torch.cuda.empty_cache()
+    finally:
+        pd.shutdown()
+    return res
+
+
+def gloo_rank(seed: int, rank: int, port: int, out: str) -> dict:
+    """Phase 13b, one of two processes on cuda:0 in a gloo group: for each
+    of RANKS_RUNS (ddp and fsdp over two data ranks, 4 rows each, and tp
+    over two model ranks, all 8 rows, the ViT's and the affine head's
+    layers Megatron-split, K2 on 8 of the 16 heads, at fp32 compute; ddp
+    at bf16), the sharded step (eager: gloo) for RANKS_STEPS steps; rank
+    0 holds the losses and the gathered state against phase 13a's
+    one-device reference at the run's dtype.  Returns per run each step's
+    losses' largest relative error, the change of the
+    parameters per group (relative RMS) and the largest parameter
+    difference in lr, digests of the replicated parameters and
+    statistics, the bytes held and ms per step."""
+    import hashlib
+
+    from picopose_tpu_torch import kernels
+    from picopose_tpu_torch.parallel import distributed as pd
+    from picopose_tpu_torch.parallel import full_state_dict, make_mesh, shard_batch, shard_state, state_shardings
+    from picopose_tpu_torch.train import step as ts
+
+    kernels.build()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    pd.initialize(backend="gloo", init_method=f"tcp://localhost:{port}", world_size=2, rank=rank)
+    res: dict = {}
+    try:
+        for dtype, mode, n_data, n_model in RANKS_RUNS:
+            batch, noises, model_kw, tx = _ranks_inputs(seed, dtype)
+            name = f"one_device_{str(dtype)[6:]}.pt"
+            ref = torch.load(os.path.join(out, name), map_location=dev, weights_only=True) if rank == 0 else None
+            mesh = make_mesh(n_data, n_model, dev)
+            rows = shard_batch(batch, mesh)
+            state = _ranks_state(seed, model_kw, tx)
+            before = {k: v.clone() for k, v in state.model.state_dict().items()} if rank == 0 else None
+            shard_state(state, mesh, mode)
+            step = ts.make_train_step(state, state_shardings(mesh, state, mode), mesh)
+            kernels.reset_launches()
+            losses, ms = [], []
+            for i, n in enumerate(noises):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append({k: float(v) for k, v in step(state, rows, n).items()})
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                if i == 0:  # the first step's gradient (a collective when sharded), against one process's
+                    m1 = first_moments(state)
+                    if rank == 0:
+                        num = sum(float(((m1[j].double() - g.to(dev).double()) ** 2).sum()) for j, g in ref["m1"].items())
+                        den = sum(float((g.double() ** 2).sum()) for g in ref["m1"].values())
+                        flips = sum(int((torch.sign(m1[j]) != torch.sign(g.to(dev))).sum()) for j, g in ref["m1"].items())
+                        grad = {"rel_rms": (num / den) ** 0.5,
+                                "sign_flips": flips / sum(g.numel() for g in ref["m1"].values())}
+                    del m1
+            r = {"ms": ms, "launches": dict(kernels.LAUNCHES), "held_bytes": state.layout.held_bytes(state.optimizer),
+                 "rows": len(rows["real_rgb"])}
+            layout = state.layout
+            digest = lambda t: hashlib.sha256(t.detach().float().cpu().numpy().tobytes()).hexdigest()
+            r["replicated"] = hashlib.sha256("".join(
+                [digest(t) for s, t in zip(layout.specs, layout.local) if not s.split]
+                + [digest(b) for b in state.model.buffers()]).encode()).hexdigest()
+            r["split"] = sum(s.split for s in layout.specs)
+            whole = full_state_dict(state)
+            if rank == 0:
+                r["loss_rel"] = [max(abs(l[k] - ref["losses"][i][k]) / max(abs(ref["losses"][i][k]), 1e-12)
+                                     for k in l) for i, l in enumerate(losses)]
+                delta = lambda sd: {k: sd[k].float() - before[k].float() for k in before}
+                r["state_rel_rms"] = rel_rms_by_group(delta(whole), delta(ref["state"]))
+                params = {n for n, _ in state.model.named_parameters()}
+                r["param_max_lr"] = max(float((whole[k] - ref["state"][k]).abs().max()) for k in params) / RANKS_LR
+                r["loss"] = losses[-1]["loss"]
+                r["grad"] = grad
+            res[f"{mode} {str(dtype)[6:]}"] = r
+            del state, step, whole, ref
+            torch.cuda.empty_cache()
+    finally:
+        pd.shutdown()
+    return res
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def ranks_phase(seed: int) -> None:
+    """Phase 13: the multi-device layer on the one card.  (a) a one-rank
+    NCCL group (``nccl_one_rank``); (b) two gloo ranks sharing the card
+    (``gloo_rank``), each step held against the one-process step at the
+    global batch; each in fresh processes."""
+    import shutil
+    import tempfile
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="ranks_phase_", dir=here)
+    try:
+        t0 = time.perf_counter()
+        a = in_fresh_interpreter(f"nccl_one_rank({seed}, {_free_port()}, {tmp!r})", "[ranks]")
+        print(f"[ranks] (a) one-rank NCCL group, ViT-L bf16, global batch {RANKS_B}, AdamW lr {RANKS_LR}: "
+              f"{time.perf_counter() - t0!r} s")
+        for dtype, w in a["witness"].items():
+            print(f"[ranks] (a) what 4 rows instead of 8 change in the forward, one device, {dtype}: the ViT's taps "
+                  f"of rows 0-3 relative RMS {w['vit_rows_rel_rms']!r}, share of elements that differ "
+                  f"{w['vit_rows_share_differing']!r}")
+        for mode, r in a["modes"].items():
+            print(f"[ranks] (a) {mode}: {r['buckets']} gradient buckets; collectives issued by each call "
+                  f"{r['issued']}; captures {r['captures']}, replays {r['replays']}; replay bitwise the eager "
+                  f"sharded step: {[r[f'step{i + 1}_replay_vs_eager'] for i in range(RANKS_STEPS)]}; bitwise the "
+                  f"one-device step: {[r[f'step{i + 1}_vs_one_device'] for i in range(RANKS_STEPS)]}")
+            print(f"[ranks] (a) {mode}: one replay's trace: NCCL and copy entries {r['replay_trace_collectives']}; "
+                  f"the wrappers' kernels {r['replay_trace_kernels']}; replay ms {r['replay_ms']!r}; bytes held "
+                  f"{r['held_bytes']}")
+            for i in range(RANKS_STEPS):
+                check(r[f"step{i + 1}_replay_vs_eager"], f"(a) {mode} step {i + 1}: the replay equals the eager step")
+                check(r[f"step{i + 1}_vs_one_device"], f"(a) {mode} step {i + 1}: equals the one-device step")
+            check(r["issued"][0].get("all_reduce") == 2 * r["buckets"] and not r["issued"][1],
+                  f"(a) {mode}: the capturing call all-reduced each bucket (warm-up and capture), the replay "
+                  "issued nothing from the host")
+            check(r["replay_trace_kernels"] == TRAIN_FORWARD, f"(a) {mode}: a replay ran K1, K2, K4, K5")
+        t0 = time.perf_counter()
+        port = _free_port()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", f"import json, chip_smoke; print('FRESH_RESULT', json.dumps("
+                                   f"chip_smoke.gloo_rank({seed}, {r}, {port}, {tmp!r})))"],
+            cwd=here, env={**os.environ, "PYTHONPATH": here}, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for r in range(2)]
+        outs = [p.communicate(timeout=900) for p in procs]
+        for p, (o, e) in zip(procs, outs):
+            if p.returncode != 0:
+                print(o[-3000:], e[-6000:], file=sys.stderr)
+        check(all(p.returncode == 0 for p in procs), "(b) both gloo ranks exit 0")
+        b = [json.loads(o.split("FRESH_RESULT ", 1)[1].splitlines()[0]) for o, _ in outs]
+        print(f"[ranks] (b) two gloo ranks on cuda:0: {time.perf_counter() - t0!r} s")
+        for dtype, mode, n_data, n_model in RANKS_RUNS:
+            r0, r1 = b[0][f"{mode} {str(dtype)[6:]}"], b[1][f"{mode} {str(dtype)[6:]}"]
+            mode = f"{mode} {str(dtype)[6:]}"
+            print(f"[ranks] (b) {mode} ({n_data} x {n_model}, {r0['rows']} rows per rank): losses' largest "
+                  f"relative error against the one-process step, by step "
+                  f"{r0['loss_rel']!r} (loss {r0['loss']!r}); change of the parameters, relative RMS by group "
+                  f"{r0['state_rel_rms']}; largest parameter difference {r0['param_max_lr']!r} lr; the first "
+                  f"step's gradient (AdamW's first moment) relative RMS {r0['grad']['rel_rms']!r}, share of elements "
+                  f"of the other sign {r0['grad']['sign_flips']!r}; replicated "
+                  f"tensors equal across ranks {r0['replicated'] == r1['replicated']}; split leaves {r0['split']}; "
+                  f"bytes held rank 0 {r0['held_bytes']}, rank 1 {r1['held_bytes']}; ms per step rank 0 "
+                  f"{r0['ms']!r}, rank 1 {r1['ms']!r}; the wrappers' launches per rank {r0['launches']}")
+            lim = RANKS_LIMITS[dtype]
+            check(all(e <= l for e, l in zip(r0["loss_rel"], lim["loss"])),
+                  f"(b) {mode}: the steps' losses within {lim['loss']} relative")
+            check(r0["grad"]["rel_rms"] <= lim["grad_rms"],
+                  f"(b) {mode}: the first step's gradient within {lim['grad_rms']} relative RMS")
+            check(max(r0["state_rel_rms"].values()) <= lim["state_rms"],
+                  f"(b) {mode}: the change of the parameters within {lim['state_rms']} relative RMS per group")
+            check(r0["param_max_lr"] <= lim["param_lr"], f"(b) {mode}: each parameter within {lim['param_lr']} lr")
+            check(r0["replicated"] == r1["replicated"], f"(b) {mode}: replicated tensors bitwise across ranks")
+            want = {k: v * RANKS_STEPS for k, v in TRAIN_FORWARD.items()}
+            check(r0["launches"] == r1["launches"] == want, f"(b) {mode}: each rank launched K1, K2, K4, K5 each step")
+        ddp, fsdp = (sum(b[0][m]["held_bytes"].values()) for m in ("ddp float32", "fsdp float32"))
+        print(f"[ranks] (b) fsdp holds {fsdp / ddp!r} of ddp's bytes per rank")
+        check(b[0]["fsdp float32"]["split"] > 0 and fsdp <= 0.6 * ddp,
+              "(b) fsdp: each rank holds about half of ddp's bytes")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def devices_phase(seed: int, root: str, world: dict, argv: list) -> None:
+    """Phase 13c, on phase 7's BOP tree and checkpoint: ``PoseEstimator(
+    devices=[cuda:0, cuda:0])`` with both objects' banks placed round-robin
+    against the one-device estimator (placement; ``estimate`` on the first
+    frame's 20 detections bitwise), then ``evaluate_dataset`` of the model
+    on ``cuda`` through its compiled programs, from a caller's generator:
+    the one-device run at batch 10 against ``use_mesh=True`` over
+    ``[cuda:0]`` at batch 10 and over ``[cuda:0, cuda:0]`` at batch 20
+    (two parts of 10; the rounding leaves 20 as it is, and each object's
+    20 instances make the same calls, in the same order, as at batch 10):
+    the CSV's rows and order, scene, image, object, score, R and t equal,
+    and no replica of the model made on the card it sits on.  The
+    reference runs at the parts' batch: a bf16 run at 16 rows came out
+    otherwise than two parts of 8 (PERF.md).  The template views are
+    decoded once for the phase."""
+    import csv
+    import warnings
+
+    from picopose_tpu_torch.data.bop import BOPTestDataset
+    from picopose_tpu_torch.eval import runner
+    from picopose_tpu_torch.models import PicoPose
+    from picopose_tpu_torch import serve as serve_module
+    from picopose_tpu_torch.serve import PoseEstimator
+    from picopose_tpu_torch.utils.checkpoint import load_any
+    from picopose_tpu_torch.utils.config import load_config
+    from picopose_tpu_torch.utils.weights import load_flax_variables
+
+    ckpt = argv[argv.index("--checkpoint_path") + 1]
+    cfg = load_config(argv[argv.index("--config") + 1], argv[argv.index("--set") + 1:])
+    t = cfg.test_dataset
+    dataset = lambda: BOPTestDataset(t.data_dir, "smoke", os.path.join(t.detection_dir, "smoke.json"),
+                                     n_template_view=t.n_template_view)
+    tem_dir = os.path.join(t.template_dir, "smoke")
+    ds = dataset()
+    rgb, K = ds.load_raw(0)
+    dets = ds.dets(0)
+    two = ["cuda:0", "cuda:0"]
+    views, load = {}, runner.load_template_views
+
+    def cached(*a):  # each object's 162 views decoded once for the phase
+        if a not in views:
+            views[a] = load(*a)
+        return views[a]
+
+    t0 = time.perf_counter()
+    variables = load_any(ckpt, depth=24)
+    one = PoseEstimator(variables=variables)
+    with patched((serve_module, "load_template_views", cached)):
+        for obj in EVAL_OBJECTS:
+            one.register_object(obj, tem_dir)
+    est = PoseEstimator(variables=variables, devices=two)
+    for obj in EVAL_OBJECTS:  # the same banks, placed round-robin
+        est.register_bank(obj, one._banks[obj])
+    results = [one.estimate(rgb, K, dets), est.estimate(rgb, K, dets)]
+    placed, replicas = dict(est._bank_device), len(est._replicas)
+    del one, est
+    torch.cuda.empty_cache()
+    same = all(np.array_equal(a.R, b.R) and np.array_equal(a.t, b.t) and a.score == b.score
+               for a, b in zip(*results))
+    print(f"[devices] PoseEstimator(devices={two}): banks placed {placed}, replicas beside the home model "
+          f"{replicas}; estimate on {len(dets)} detections bitwise the one-device estimator's: {same} "
+          f"({time.perf_counter() - t0!r} s with both estimators' bank builds)")
+    check(placed == {obj: torch.device("cuda", 0) for obj in EVAL_OBJECTS} and replicas == 0,
+          "(c) both banks on cuda:0, no second replica of the model on one card")
+    check(same and len(results[0]) == len(dets), "(c) estimate over devices equals the one-device estimate")
+
+    model = PicoPose("dinov2_vitl14", (5, 11, 17, 23), torch.bfloat16, device="cuda")
+    load_flax_variables(model, variables)
+    del variables
+    hyp = cfg.model.hypothesis
+
+    made, replica_on = [], runner.replica_on
+
+    def counted(home, device, seed):
+        rep = replica_on(home, device, seed)
+        made.append(rep is not home)
+        return rep
+
+    counts = {}
+    for det in ds.dets(0) + ds.dets(1):
+        counts[det["category_id"]] = counts.get(det["category_id"], 0) + 1
+    check(all(-(-n // 10) == 2 * -(-n // 20) for n in counts.values()),
+          f"(c) each object's instances {counts} make the same calls at batch 10 and in parts of 10")
+    one_card = [torch.device("cuda", 0)]
+    rows, times = {}, {}
+    for tag, bs, kw in (("one device, batch 10", 10, {}),
+                        ("mesh of one card, batch 10", 10, dict(use_mesh=True, devices=one_card)),
+                        ("mesh of two, batch 20", 20, dict(use_mesh=True, devices=two))):
+        path = os.path.join(root, "devices_" + re.sub(r"\W+", "_", tag) + ".csv")
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(), patched((runner, "load_template_views", cached),
+                                                (runner, "replica_on", counted)):
+            warnings.simplefilter("ignore")
+            runner.evaluate_dataset(model, dataset(), tem_dir, path, hyp=hyp, batch_size=bs, progress=False,
+                                    generator=torch.Generator(device="cuda").manual_seed(7), **kw)
+        times[tag] = time.perf_counter() - t0
+        with open(path) as f:
+            rows[tag] = [r[:6] for r in csv.reader(f)]
+    pose = lambda r: (np.array(r[4].split(), float).reshape(3, 3), np.array(r[5].split(), float) / 1000.0)
+    a, b, c = rows.values()
+    print(f"[devices] evaluate_dataset of the model on 'cuda', compiled, generator seeded 7: one device at batch 10 "
+          f"against use_mesh over [cuda:0] at batch 10: the first six columns (scene, image, object, score, R, t) "
+          f"equal {a == b}; over [cuda:0, cuda:0] at batch 20 (parts of 10, instances per object {counts}) equal "
+          f"{a == c}; replicas of the model made {sum(made)} of {len(made)} parts' devices; wall s {times}")
+    check(not any(made) and len(made) == 3, "(c) no replica of the model on the card it sits on")
+    check(len(a) == world["n_instances"] and a == b == c and all(
+        np.abs(pose(r)[0].T @ pose(r)[0] - np.eye(3)).max() < 1e-3 and np.isfinite(pose(r)[1]).all() for r in a),
+        "(c) from one generator, the mesh runs' rows, poses included, are the one-device run's")
+    del model
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU", file=sys.stderr)
@@ -3963,10 +4430,13 @@ def main() -> int:
         t = time.perf_counter()
         decoder_phase(SEED, *a)
         t_dec.append(time.perf_counter() - t)
+        t = time.perf_counter()
+        devices_phase(SEED, *a)
+        t_dec.append(time.perf_counter() - t)
 
     eval_cli_phase(SEED, then=decoder)
-    print(f"[phase] eval CLI {time.perf_counter() - t0 - t_dec[0]!r} s; configurable decoder (phase 11) "
-          f"{t_dec[0]!r} s")
+    print(f"[phase] eval CLI {time.perf_counter() - t0 - sum(t_dec)!r} s; configurable decoder (phase 11) "
+          f"{t_dec[0]!r} s; devices (phase 13c) {t_dec[1]!r} s")
     t0 = time.perf_counter()
     train_launches, step_ms = train_phase(SEED)
     print(f"[phase] training step {time.perf_counter() - t0!r} s")
@@ -3976,6 +4446,9 @@ def main() -> int:
     t0 = time.perf_counter()
     cad_to_ar_phase(SEED)
     print(f"[phase] CAD to AR (phase 12) {time.perf_counter() - t0!r} s")
+    t0 = time.perf_counter()
+    ranks_phase(SEED)
+    print(f"[phase] ranks (phase 13a, 13b) {time.perf_counter() - t0!r} s")
 
     src = "picopose_tpu_torch/kernels/csrc/"
     replaces = {

@@ -1,10 +1,12 @@
 """Device selection: CUDA unless the caller names the CPU, never a silent
-fallback; the fp32 precision the port's fp32 stages need; and cuDNN's
-deterministic algorithms for the training step."""
+fallback, and a rank's own card under ``torchrun``; the fp32 precision the
+port's fp32 stages need; and cuDNN's deterministic algorithms for the
+training step."""
 
 from __future__ import annotations
 
 import contextlib
+import os
 
 import torch
 
@@ -14,6 +16,9 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
 
     ``None`` means CUDA.  A CUDA device with no card present raises: the
     port never moves to the CPU on its own; pass ``device="cpu"`` for that.
+    In a process that ``torchrun`` started, CUDA without an index is the
+    rank's card, ``cuda:LOCAL_RANK``.  A card index beyond the cards
+    present raises.
     """
     dev = torch.device("cuda" if device is None else device)
     if dev.type not in ("cuda", "cpu"):
@@ -22,7 +27,19 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
         raise RuntimeError(
             "no CUDA device is present; pass device='cpu' to run on the CPU"
         )
+    if dev.type == "cuda" and dev.index is None and "LOCAL_RANK" in os.environ:
+        dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+    if dev.type == "cuda" and dev.index is not None and dev.index >= torch.cuda.device_count():
+        raise RuntimeError(f"{dev} requested but {torch.cuda.device_count()} CUDA device(s) are present")
     return dev
+
+
+def indexed(device: torch.device) -> torch.device:
+    """``cuda`` as ``cuda:<current>``, so that one card compares equal
+    however it was named."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 @contextlib.contextmanager

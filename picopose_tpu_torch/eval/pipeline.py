@@ -9,7 +9,9 @@ fallback where PnP fails and the ranking by inlier ratio.
 ``run_batch_graphed`` and ``build_bank_graphed`` are the compiled
 programs (utils/graphs.py): CUDA graphs captured at fixed shapes and
 replayed, as the JAX package jit-compiles ``run_batch_jit`` (:235-243)
-and the bank build's ``feat_fn`` / ``dpt_fn`` (:262-263).
+and the bank build's ``feat_fn`` / ``dpt_fn`` (:262-263).  ``replica_on``
+gives the model, its programs and its PnP generator on another device,
+for the entry points that run over several (serve.py, eval/runner.py).
 
 Shapes: B = instance batch, N = template views, HYP = hypotheses; the
 hypothesis axis is folded into the batch axis for stage 2.  Inputs may be
@@ -22,11 +24,12 @@ BatchNorm statistics); a model left in ``.train()`` is refused.
 
 from __future__ import annotations
 
+import copy
 from typing import NamedTuple
 
 import torch
 
-from picopose_tpu_torch.device import full_fp32
+from picopose_tpu_torch.device import full_fp32, indexed
 from picopose_tpu_torch.geom.affine import affine_from_prediction
 from picopose_tpu_torch.geom.pose2d import pose_from_affine_2d
 from picopose_tpu_torch.models.correspondence import final_correspondences, init_correspondences
@@ -47,6 +50,38 @@ class TemplateBank(NamedTuple):
     K: torch.Tensor                  # (N, 3, 3)
     M: torch.Tensor                  # (N, 3, 3) crop affines
     dpt: tuple[torch.Tensor, ...] | None = None  # 3 x (N, g_l, g_l, 256)
+
+    def to(self, device: torch.device) -> "TemplateBank":
+        """The bank's arrays or tensors as tensors on ``device``."""
+        move = lambda x: None if x is None else torch.as_tensor(x, device=device)
+        return TemplateBank(
+            feats=tuple(move(f) for f in self.feats), mask=move(self.mask), pts3d=move(self.pts3d),
+            pose=move(self.pose), K=move(self.K), M=move(self.M),
+            dpt=None if self.dpt is None else tuple(move(d) for d in self.dpt),
+        )
+
+
+class Replica(NamedTuple):
+    """The model, its compiled programs and its PnP generator on one device."""
+
+    model: object
+    graphs: GraphCache
+    generator: torch.Generator
+
+
+def replica_on(home: Replica, device: torch.device, seed: int) -> Replica:
+    """``home`` on its model's own device (a card compares equal however it
+    is named); on another device a copy of its (precast) model, a
+    ``GraphCache`` of its own (a CUDA graph belongs to one device) that
+    shares ``home``'s capture lock, and a generator seeded with ``seed``."""
+    device = indexed(torch.device(device))
+    if device == indexed(home.model.device):
+        return home
+    model = copy.deepcopy(home.model).to(device)
+    model.device = device
+    graphs = GraphCache(device)
+    graphs.lock = home.graphs.lock
+    return Replica(model, graphs, torch.Generator(device=device).manual_seed(seed))
 
 
 class EvalOutput(NamedTuple):

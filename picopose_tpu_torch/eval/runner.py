@@ -1,7 +1,7 @@
 """BOP evaluation loop: dataset sweep -> poses -> bop19 CSV.
 
 Counterpart of picopose_tpu/eval/runner.py (``RawImageCache`` :41,
-``_stream_batches`` :76, ``evaluate_dataset`` :130) on one device:
+``_stream_batches`` :76, ``evaluate_dataset`` :130):
 
   * instances are grouped by object across the whole dataset from
     metadata alone (no decode), and run in batches of ``batch_size``, the
@@ -29,8 +29,16 @@ parity tests' shared draws) runs on the host, which no graph holds: with
 it every batch runs the eager ``run_batch``.
 
 With a bf16 model the bf16-consumed weights are stored in bf16 first
-(utils/precast.py, in place; outputs bitwise unchanged).  Sharding over
-several devices (the JAX package's mesh branch, :159-171) is not ported.
+(utils/precast.py, in place; outputs bitwise unchanged).
+
+Several devices (``use_mesh``, the JAX package's mesh branch, :159-172,
+208-209), data-parallel in one process: ``batch_size`` is rounded up to a
+multiple of the device count, each batch's rows are split into equal
+parts in device order, and each part runs on its device with that
+device's replica of the model, copy of the bank, ``GraphCache`` and PnP
+generator (one of each per distinct device; the model's own device keeps
+the model, its bank and ``generator``); the results are gathered in row
+order.  A ``pnp_draws`` callback is called once per part, in row order.
 """
 
 from __future__ import annotations
@@ -46,8 +54,9 @@ import numpy as np
 import torch
 
 from picopose_tpu_torch.data.bop import BOPTestDataset, load_template_views
+from picopose_tpu_torch.device import indexed, resolve_device
 from picopose_tpu_torch.eval.bop_csv import format_row, write_csv
-from picopose_tpu_torch.eval.pipeline import build_bank_graphed, run_batch, run_batch_graphed
+from picopose_tpu_torch.eval.pipeline import Replica, build_bank_graphed, replica_on, run_batch, run_batch_graphed
 from picopose_tpu_torch.utils.graphs import GraphCache
 from picopose_tpu_torch.utils.precast import precast_inference_params
 
@@ -149,6 +158,20 @@ def _stream_batches(
         producer.join()
 
 
+def _parts(home: Replica, devices) -> list[tuple[torch.device, Replica]]:
+    """(device, replica) for each entry of ``devices`` (the model's own
+    device when None): one replica per distinct device, the model's own
+    device keeping ``home`` (eval/pipeline.py::replica_on)."""
+    made: dict[torch.device, Replica] = {}
+    parts = []
+    for d in devices or [home.model.device]:
+        d = indexed(resolve_device(d))
+        if d not in made:
+            made[d] = replica_on(home, d, seed=0)
+        parts.append((d, made[d]))
+    return parts
+
+
 def evaluate_dataset(
     model,
     dataset: BOPTestDataset,
@@ -163,14 +186,27 @@ def evaluate_dataset(
     cache_bytes: int = 2 << 30,
     generator: torch.Generator | None = None,
     pnp_draws=None,
+    use_mesh: bool | None = None,
+    devices=None,
 ) -> str:
     """Run the whole dataset through ``model`` (the port's PicoPose, on its
     device) and write the bop19 CSV to ``save_path``; returns the path.
 
     PnP draws come from ``generator`` (by default one on the model's
     device seeded with 0), or from ``pnp_draws(valid)`` for each batch in
-    order, as ``run_batch`` takes them (the eager route)."""
-    dev = model.device
+    order, as ``run_batch`` takes them (the eager route).  ``use_mesh``:
+    split each batch over ``devices`` (by default every card present;
+    None: whether the model is on a card and more than one is present;
+    the module docstring)."""
+    dev = indexed(model.device)
+    if use_mesh is None:
+        use_mesh = dev.type == "cuda" and torch.cuda.device_count() > 1
+    if use_mesh and devices is None:
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    if not use_mesh:
+        devices = None
+    if devices is not None:  # round batches up to a multiple of the devices
+        batch_size = -(-batch_size // len(devices)) * len(devices)
     if model.compute_dtype == torch.bfloat16:
         precast_inference_params(model)  # outside inference mode: the weights stay normal tensors
     with torch.inference_mode():
@@ -178,6 +214,8 @@ def evaluate_dataset(
             generator = torch.Generator(device=dev).manual_seed(0)
         cuda = dev.type == "cuda"
         graphs = GraphCache(dev)
+        parts = _parts(Replica(model, graphs, generator), devices)
+        per_part = batch_size // len(parts)
 
         # ---- metadata pass: group instance refs by object, no pixel decode
         n_images = len(dataset)
@@ -223,6 +261,7 @@ def evaluate_dataset(
                 graphs, model, tem["tem_rgb"], tem["tem_mask"], tem["tem_pts3d"],
                 tem["tem_pose"], tem["tem_K"], tem["tem_M"],
             )
+            banks = {d: bank if d == dev else bank.to(d) for d, _ in parts}
             if progress:
                 print(
                     f"[{dataset.dataset}] obj {obj_id}: bank ({dataset.n_template_view} views) "
@@ -234,14 +273,18 @@ def evaluate_dataset(
             pending: list = []
             mark = time.perf_counter()
             for chunk, B, batch in stream:
-                batch = {k: v.to(dev, non_blocking=True) for k, v in batch.items()}
-                if pnp_draws is None:
-                    out = run_batch_graphed(graphs, model, batch, bank, hyp=hyp, pnp_iters=pnp_iters,
-                                            stage3_topk=stage3_topk, generator=generator)
-                else:
-                    out = run_batch(model, batch, bank, hyp=hyp, pnp_iters=pnp_iters, stage3_topk=stage3_topk,
-                                    generator=generator, pnp_draws=pnp_draws)
-                packed = torch.cat([out.R[:B, 0].reshape(B, 9), out.t[:B, 0]], dim=1)
+                outs = []
+                for i, (d, rep) in enumerate(parts):  # in row order
+                    rows = slice(i * per_part, (i + 1) * per_part)
+                    b = {k: v[rows].to(d, non_blocking=True) for k, v in batch.items()}
+                    kw = dict(hyp=hyp, pnp_iters=pnp_iters, stage3_topk=stage3_topk, generator=rep.generator)
+                    if pnp_draws is None:
+                        out = run_batch_graphed(rep.graphs, rep.model, b, banks[d], **kw)
+                    else:
+                        out = run_batch(rep.model, b, banks[d], pnp_draws=pnp_draws, **kw)
+                    n = min(per_part, max(B - i * per_part, 0))
+                    outs.append(torch.cat([out.R[:n, 0].reshape(n, 9), out.t[:n, 0]], dim=1).to(dev))
+                packed = outs[0] if len(outs) == 1 else torch.cat(outs)
                 host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=cuda)
                 host.copy_(packed, non_blocking=cuda)
                 done = None
@@ -253,7 +296,7 @@ def evaluate_dataset(
                     mark = drain(pending.pop(0), mark)
             for p in pending:
                 mark = drain(p, mark)
-            del bank
+            del bank, banks
 
         if progress:
             tot = cache.hits + cache.misses

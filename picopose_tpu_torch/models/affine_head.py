@@ -4,7 +4,10 @@ Counterpart of picopose_tpu/models/affine_head.py: conv1x1 + GN(32) + ReLU
 -> conv3x3/s2 (no bias) + GN + ReLU -> fc1/fc2 with LeakyReLU(0.1) ->
 three MLP heads (translation 2, scale 1, in-plane cos/sin 2 with tanh +
 L2 normalisation).  Runs in fp32.  fc1 reads the (8, 8, C) map flattened
-in NHWC order, as the JAX model does.
+in NHWC order, as the JAX model does.  Inside
+``parallel.collectives.model_parallel`` fc1 runs column-parallel and fc2
+row-parallel over the model group, the pair the JAX package's
+tensor-parallel rules split.
 """
 
 from __future__ import annotations
@@ -13,8 +16,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from picopose_tpu_torch.models.layers import Conv2d, GroupNorm, Linear
+from picopose_tpu_torch.models.layers import Conv2d, GroupNorm, Linear, row_parallel
 from picopose_tpu_torch.ops.matching import l2_normalize
+from picopose_tpu_torch.parallel.collectives import model_mesh, to_model_parallel
 
 
 def _mlp_head(hidden: int, out: int) -> nn.Sequential:
@@ -44,8 +48,13 @@ class AffineRegressor(nn.Module):
         x = F.relu(self.gn0(self.conv0(x)))
         x = F.relu(self.gn1(self.conv1(x)))  # (B, hidden, 8, 8)
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # NHWC flatten
-        x = F.leaky_relu(self.fc1(x), 0.1)
-        x = F.leaky_relu(self.fc2(x), 0.1)
+        mesh = model_mesh()
+        if mesh is not None:  # fc1 column-parallel, fc2 row-parallel (the JAX rules' fc1 -> fc2 pair)
+            x = F.leaky_relu(self.fc1(to_model_parallel(x, mesh)), 0.1)
+            x = F.leaky_relu(row_parallel(self.fc2, x, mesh), 0.1)
+        else:
+            x = F.leaky_relu(self.fc1(x), 0.1)
+            x = F.leaky_relu(self.fc2(x), 0.1)
         translation = self.translation_predictor(x)
         scale = self.scale_predictor(x)[:, 0]
         inplane = l2_normalize(torch.tanh(self.inplane_predictor(x)), dim=-1)

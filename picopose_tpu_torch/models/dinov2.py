@@ -11,7 +11,12 @@ stripped, NHWC, with no final LayerNorm.
 Parameters stay fp32 and are cast to the compute dtype at each op; the LN
 scale and bias enter the kernel in fp32.  ``remat`` recomputes each
 block's activations in the backward (``torch.utils.checkpoint``, as the JAX
-package's ``nn.remat``): the recompute launches K1 and K2 again.  The
+package's ``nn.remat``): the recompute launches K1 and K2 again.
+Inside ``parallel.collectives.model_parallel`` the attention and the MLP
+run Megatron-split over the model group (parallel/shardings.py lays the
+weights out): qkv column-parallel by heads, so K2 runs on the rank's
+H / n heads, fc1 / w12 column-parallel, proj / fc2 / w3 row-parallel with
+one all-reduce each and the bias added after it; K1 stays on full rows.  The
 blocks draw no random numbers, so the checkpoint does not stash the RNG
 state, which a CUDA graph capture refuses to read.
 """
@@ -28,9 +33,10 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from picopose_tpu_torch.models.layers import Conv2d, Linear
+from picopose_tpu_torch.models.layers import Conv2d, Linear, row_parallel
 from picopose_tpu_torch.ops.attention import attention
 from picopose_tpu_torch.ops.layernorm import layernorm
+from picopose_tpu_torch.parallel.collectives import model_mesh, to_model_parallel
 
 
 @functools.lru_cache(maxsize=None)
@@ -122,6 +128,9 @@ class Mlp(nn.Module):
         self.fc2 = Linear(hidden, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mesh = model_mesh()
+        if mesh is not None:  # fc1 column-parallel, fc2 row-parallel
+            return row_parallel(self.fc2, F.gelu(self.fc1(to_model_parallel(x, mesh))), mesh)
         return self.fc2(F.gelu(self.fc1(x)))
 
 
@@ -135,6 +144,10 @@ class SwiGLUFFNFused(nn.Module):
         self.w3 = Linear(hidden, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mesh = model_mesh()
+        if mesh is not None:  # w12 column-parallel (gate and value of the rank's units), w3 row-parallel
+            x1, x2 = self.w12(to_model_parallel(x, mesh)).chunk(2, dim=-1)
+            return row_parallel(self.w3, F.silu(x1) * x2, mesh)
         x1, x2 = self.w12(x).chunk(2, dim=-1)
         return self.w3(F.silu(x1) * x2)
 
@@ -148,13 +161,18 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, N, C)
         B, N, C = x.shape
-        H = self.num_heads
-        qkv = self.qkv(x).reshape(B, N, 3, H, C // H)
+        mesh = model_mesh()
+        if mesh is not None:  # qkv column-parallel by heads, proj row-parallel
+            H = self.num_heads // mesh.n_model
+            qkv = self.qkv(to_model_parallel(x, mesh)).reshape(B, N, 3, H, C // self.num_heads)
+        else:
+            H = self.num_heads
+            qkv = self.qkv(x).reshape(B, N, 3, H, C // H)
         # (B, H, N, D) views, which the bf16 kernel reads in place; its
         # output is a view of a (B, N, H, D) buffer, so the merge is a view
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
-        out = attention(q, k, v).transpose(1, 2).reshape(B, N, C)
-        return self.proj(out)
+        out = attention(q, k, v).transpose(1, 2).reshape(B, N, -1)
+        return self.proj(out) if mesh is None else row_parallel(self.proj, out, mesh)
 
 
 class Block(nn.Module):

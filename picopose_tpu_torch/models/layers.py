@@ -13,6 +13,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from picopose_tpu_torch.parallel.collectives import all_reduce_shared, data_mesh, from_model_parallel
+
 
 def _cast(p: torch.Tensor | None, dtype: torch.dtype) -> torch.Tensor | None:
     return None if p is None else p.to(dtype)
@@ -21,6 +23,13 @@ def _cast(p: torch.Tensor | None, dtype: torch.dtype) -> torch.Tensor | None:
 class Linear(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype))
+
+
+def row_parallel(layer: Linear, x: torch.Tensor, mesh) -> torch.Tensor:
+    """``layer`` row-parallel over ``mesh``'s model group: this rank's
+    input columns, the ranks' partial outputs summed, the bias added once."""
+    y = from_model_parallel(F.linear(x, layer.weight.to(x.dtype)), mesh)
+    return y + layer.bias.to(y.dtype)
 
 
 class Conv2d(nn.Conv2d):
@@ -46,6 +55,12 @@ class BatchNorm2d(nn.Module):
     variance biased too, where ``nn.BatchNorm2d`` would store the unbiased
     one.  A module called twice in a step (the shared DPT head, each
     level's ``proj_bn``) updates them twice, in call order.
+
+    Inside ``parallel.collectives.data_parallel`` over more than one data
+    rank the statistics are the global batch's, as the JAX package's
+    sharded step computes them: each rank's sums of x and x^2 are summed
+    over the data group (the backward sums the ranks' gradients of them),
+    and every rank moves its running statistics by the same global values.
     """
 
     momentum = 0.9
@@ -61,9 +76,17 @@ class BatchNorm2d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = (slice(None), None, None)
         xf = x.float()
-        if self.training:
+        mesh = data_mesh()
+        if self.training and mesh is not None:  # the global batch's statistics
+            sums = all_reduce_shared(torch.stack([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3))]),
+                                     mesh.data_group)
+            n = float(mesh.n_data * (xf.numel() // xf.shape[1]))
+            mean = sums[0] / n
+            var = torch.clamp(sums[1] / n - mean * mean, min=0.0)
+        elif self.training:
             mean = xf.mean(dim=(0, 2, 3))
             var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        if self.training:
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)

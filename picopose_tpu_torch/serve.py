@@ -34,8 +34,15 @@ either package loads in the other.
 Serving modes: bf16 weights are stored in bf16 (utils/precast.py) when
 the compute dtype is bf16; ``quantize_stage3`` runs the stage-3 convs in
 int8; PICOPOSE_MATCH_INT8=1 / PICOPOSE_MATCH_FP32=1 pick the matching
-operands (ops/matching.py).  Not ported here: bank placement over
-several devices.
+operands (ops/matching.py).
+
+Several devices (``devices=``, picopose_tpu/serve.py:135-139, 168-189):
+banks are placed round-robin over the list as they are registered; each
+distinct device gets one replica of the (precast) model, made at its
+first bank, with its own ``GraphCache`` (a CUDA graph belongs to one
+device) and PnP generator; a chunk's inputs go to its bank's device and
+run there.  The home device (``device``) holds the first replica, the
+estimator's own model, graphs and generator.
 """
 
 from __future__ import annotations
@@ -60,8 +67,8 @@ from picopose_tpu_torch.data.crops import (
     square_bbox,
 )
 from picopose_tpu_torch.data.rle import rle_to_mask
-from picopose_tpu_torch.device import full_fp32, resolve_device
-from picopose_tpu_torch.eval.pipeline import TemplateBank, build_bank_graphed, run_batch_graphed
+from picopose_tpu_torch.device import full_fp32, indexed, resolve_device
+from picopose_tpu_torch.eval.pipeline import Replica, TemplateBank, build_bank_graphed, replica_on, run_batch_graphed
 from picopose_tpu_torch.models import PicoPose
 from picopose_tpu_torch.models.dinov2 import VIT_CONFIGS
 from picopose_tpu_torch.ops.preprocess import preprocess_frame_graphed
@@ -103,7 +110,8 @@ class PoseResult:
 
 
 class PoseEstimator:
-    """Single-process estimator around ``run_batch_graphed`` on one device."""
+    """Single-process estimator around ``run_batch_graphed`` on one device,
+    or on several (``devices``)."""
 
     def __init__(
         self,
@@ -126,6 +134,7 @@ class PoseEstimator:
         device: str | torch.device | None = None,
         device_preprocess: bool = False,
         generator: torch.Generator | None = None,
+        devices: Sequence[str | torch.device] | None = None,
     ):
         """``checkpoint``: a reference PyTorch checkpoint (``.ckpt`` or
         ``.pth``) or a train state the port saved (utils/checkpoint.py);
@@ -134,8 +143,11 @@ class PoseEstimator:
         the weights are drawn from ``seed``, with a warning.  ``device``:
         the card unless "cpu" is passed (raises when no card is
         present).  ``generator``: the PnP draws' generator, on ``device``
-        (by default one seeded with ``seed``)."""
-        self.device = resolve_device(device)
+        (by default one seeded with ``seed``).  ``devices``: place banks
+        round-robin over these (each must exist; the module docstring);
+        None keeps everything on ``device``."""
+        self.device = indexed(resolve_device(device))
+        self.devices = [indexed(resolve_device(d)) for d in devices] if devices else None
         dtype = _DTYPES[compute_dtype] if isinstance(compute_dtype, str) else compute_dtype
         self.model = PicoPose(vit_type, blocks_to_take, dtype, device=self.device,
                               quantize_stage3=quantize_stage3)
@@ -149,6 +161,8 @@ class PoseEstimator:
         self.generator = generator
         self.graphs = GraphCache(self.device)
         self._banks: dict[int, TemplateBank] = {}
+        self._bank_device: dict[int, torch.device] = {}
+        self._seed = seed
         if variables is None and checkpoint is not None:
             variables = load_any(checkpoint, depth=VIT_CONFIGS[vit_type].depth)
         if variables is not None:
@@ -158,6 +172,24 @@ class PoseEstimator:
             init_random_(self.model, seed)
         if dtype == torch.bfloat16:
             precast_inference_params(self.model)  # bitwise-identical bf16 weight storage
+        self._replicas: dict[torch.device, Replica] = {}
+
+    # ---- placement over devices ----------------------------------------------
+
+    def _next_device(self) -> torch.device:
+        """The device the next bank goes to: round-robin over ``devices``."""
+        if not self.devices:
+            return self.device
+        return self.devices[len(self._banks) % len(self.devices)]
+
+    def _replica(self, device: torch.device) -> Replica:
+        """The model on ``device``: the estimator's own on the home device,
+        elsewhere one made at its first use (eval/pipeline.py::replica_on,
+        its generator seeded with ``seed``)."""
+        home = Replica(self.model, self.graphs, self.generator)
+        if device != self.device and device not in self._replicas:
+            self._replicas[device] = replica_on(home, device, self._seed)
+        return self._replicas.get(device, home)
 
     # ---- object registration ---------------------------------------------
 
@@ -169,20 +201,20 @@ class PoseEstimator:
             template_dir, obj_id, self.n_template_view,
             self.img_size, self.pts_size, self.rgb_mask_flag,
         )
+        device = self._next_device()
+        rep = self._replica(device)
         self._banks[obj_id] = build_bank_graphed(
-            self.graphs, self.model, tem["tem_rgb"], tem["tem_mask"], tem["tem_pts3d"],
+            rep.graphs, rep.model, tem["tem_rgb"], tem["tem_mask"], tem["tem_pts3d"],
             tem["tem_pose"], tem["tem_K"], tem["tem_M"],
         )
+        self._bank_device[obj_id] = device
 
     def register_bank(self, obj_id: int, bank: TemplateBank) -> None:
         """Cache a prebuilt TemplateBank (eval/pipeline.py::build_bank) on
-        the estimator's device."""
-        move = lambda x: None if x is None else torch.as_tensor(x, device=self.device)
-        self._banks[obj_id] = TemplateBank(
-            feats=tuple(move(f) for f in bank.feats), mask=move(bank.mask),
-            pts3d=move(bank.pts3d), pose=move(bank.pose), K=move(bank.K), M=move(bank.M),
-            dpt=None if bank.dpt is None else tuple(move(d) for d in bank.dpt),
-        )
+        the next device."""
+        device = self._next_device()
+        self._banks[obj_id] = TemplateBank.to(bank, device)
+        self._bank_device[obj_id] = device
 
     @property
     def objects(self) -> list[int]:
@@ -208,8 +240,9 @@ class PoseEstimator:
             m = re.search(r"bank_(\d+)\.npz$", path)
             if not m:
                 continue
+            device = self._next_device()
             with np.load(path) as z:
-                arr = lambda k: from_numpy_typed(z[k], self.device)
+                arr = lambda k: from_numpy_typed(z[k], device)
                 n_feats = sum(1 for k in z.files if k.startswith("feats_"))
                 n_dpt = sum(1 for k in z.files if k.startswith("dpt_"))
                 bank = TemplateBank(
@@ -218,6 +251,7 @@ class PoseEstimator:
                     dpt=tuple(arr(f"dpt_{i}") for i in range(n_dpt)) if n_dpt else None,
                 )
             self._banks[int(m.group(1))] = bank
+            self._bank_device[int(m.group(1))] = device
             loaded.append(int(m.group(1)))
         return loaded
 
@@ -271,17 +305,17 @@ class PoseEstimator:
             mask[sq[0]:sq[1], sq[2]:sq[3]] = 1
         return mask.astype(np.uint8), raw, True
 
-    def _host_batch(self, rgb, K, dets, pad: int) -> dict:
+    def _host_batch(self, rgb, K, dets, pad: int, device: torch.device | None = None) -> dict:
         insts = [self._decode(rgb, K, d) for d in dets]
         batch = {}
         for name in ("rgb", "mask", "M", "K", "pts2d"):
             arr = np.stack([inst[name] for inst in insts])
             if pad:
                 arr = np.concatenate([arr, np.repeat(arr[-1:], pad, axis=0)])
-            batch[f"real_{name}"] = torch.from_numpy(arr).to(self.device)
+            batch[f"real_{name}"] = torch.from_numpy(arr).to(device or self.device)
         return batch
 
-    def _device_batch(self, rgb, K, dets, pad: int) -> dict:
+    def _device_batch(self, rgb, K, dets, pad: int, rep: Replica | None = None) -> dict:
         """The chunk's batch from ops/preprocess.py: one frame and its masks
         go to the device; only RLE decoding stays on the host."""
         H, W = rgb.shape[:2]
@@ -293,9 +327,10 @@ class PoseEstimator:
             masks = np.concatenate([masks, np.repeat(masks[-1:], pad, 0)])
             bboxes = np.concatenate([bboxes, np.repeat(bboxes[-1:], pad, 0)])
             use_bbox = np.concatenate([use_bbox, np.repeat(use_bbox[-1:], pad, 0)])
-        put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        rep = rep or self._replica(self.device)
+        put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(rep.model.device)
         batch = preprocess_frame_graphed(
-            self.graphs, put(rgb), put(masks), bboxes=put(bboxes), use_bbox=put(use_bbox),
+            rep.graphs, put(rgb), put(masks), bboxes=put(bboxes), use_bbox=put(use_bbox),
             out=self.img_size, pts=self.pts_size, mask_rgb=self.rgb_mask_flag,
         )
         batch["real_K"] = put(np.repeat(K.astype(np.float32)[None], len(dets) + pad, 0))
@@ -326,13 +361,14 @@ class PoseEstimator:
                 chunk = idxs[s : s + self.max_batch]
                 pad = self.max_batch - len(chunk)
                 dets = [detections[i] for i in chunk]
+                rep = self._replica(self._bank_device[obj])
                 if self.device_preprocess:
-                    batch = self._device_batch(rgb, K, dets, pad)
+                    batch = self._device_batch(rgb, K, dets, pad, rep)
                 else:
-                    batch = self._host_batch(rgb, K, dets, pad)
-                out = run_batch_graphed(self.graphs, self.model, batch, self._banks[obj], hyp=self.hyp,
+                    batch = self._host_batch(rgb, K, dets, pad, rep.model.device)
+                out = run_batch_graphed(rep.graphs, rep.model, batch, self._banks[obj], hyp=self.hyp,
                                         pnp_iters=self.pnp_iters, stage3_topk=self.stage3_topk,
-                                        generator=self.generator)
+                                        generator=rep.generator)
                 n = len(chunk)
                 packed.append(torch.cat([
                     out.R[:n, 0].reshape(n, 9), out.t[:n, 0], out.inlier_ratio[:n, :1],
@@ -341,7 +377,7 @@ class PoseEstimator:
                 chunks.append((obj, chunk))
         if not packed:
             return []
-        host = torch.cat(packed).cpu().numpy()
+        host = torch.cat([p.to(self.device) for p in packed]).cpu().numpy()
         results: list[PoseResult | None] = [None] * len(detections)
         row = 0
         for obj, chunk in chunks:

@@ -1,6 +1,6 @@
 """The training loop: loading, upload, steps, logging, checkpoints, resume.
 
-Counterpart of picopose_tpu/train/loop.py on one device (the reference's
+Counterpart of picopose_tpu/train/loop.py (the reference's
 run_train.py:49-131 and the Lightning behaviour it relies on: the dataset
 reset at each epoch start, the per-step learning-rate schedule, one
 checkpoint per epoch with every one kept, resume):
@@ -27,7 +27,14 @@ checkpoint per epoch with every one kept, resume):
     or shape mismatch raises;
   * ``run_training`` (:301-420): every step through the compiled step
     (train/step.py::make_train_step), made once, as the JAX loop jits its
-    step once (:350).
+    step once (:350).  Over ranks (``trainer.n_devices`` of them, a
+    process group of that size: ``torchrun``, see run_train.py) the state
+    is sharded as ``trainer.parallel`` says (parallel/shardings.py) and
+    each step's global batch is the JAX loop's ``bs * n_data`` rows
+    (:375): every rank loads the whole global batch (the same batches,
+    since the workers reseed each from (seed, epoch, start)) and trains
+    on its rows (``parallel.shard_batch``).  Rank 0 logs; every rank takes
+    part in a checkpoint (rank 0 writes it).
 
 A producer's exception (a loader thread, a worker process, the uploader)
 is raised in the training loop.  The JAX loop's quirks are kept: on
@@ -55,14 +62,15 @@ import torch
 from picopose_tpu_torch.data.megapose import MegaPoseTrainingDataset, collate
 from picopose_tpu_torch.device import resolve_device
 from picopose_tpu_torch.models.picopose import model_kwargs
+from picopose_tpu_torch.parallel.distributed import process_info
+from picopose_tpu_torch.parallel.mesh import Mesh, make_mesh, shard_batch
+from picopose_tpu_torch.parallel.shardings import MODES, shard_state, state_shardings
 from picopose_tpu_torch.train.step import init_state, make_optimizer, make_train_step, warmup_cosine_schedule
 from picopose_tpu_torch.utils import checkpoint as ckpt
 from picopose_tpu_torch.utils.checkpoint import read_weights
 from picopose_tpu_torch.utils.logging import TrainLogger
 from picopose_tpu_torch.utils.torch_port import port_dinov2, port_picopose, to_numpy_state_dict
 from picopose_tpu_torch.utils.weights import _dinov2, state_dict_from_flax
-
-_PARALLEL_MODES = ("ddp", "fsdp", "tp", "fsdp_tp")
 
 
 def _put(q: queue.Queue, item, stop: threading.Event) -> bool:
@@ -320,21 +328,28 @@ def warm_start(state, path: str, num_levels: int = 3):
     return state
 
 
-def _one_device(cfg, device: torch.device) -> None:
-    """The port trains on one device (ROADMAP A.8); at one device every
-    ``trainer.parallel`` mode computes the same step, as the JAX package
-    shards nothing on a mesh of one."""
+def training_mesh(cfg, device: torch.device) -> Mesh | None:
+    """The mesh ``cfg.trainer`` asks for over this process group, or None
+    for one device: ``n_devices // n_model`` data ranks by ``n_model``
+    model ranks.  ``n_devices`` -1 is the world size; any other count must
+    be the world size (a process drives one device: launch that many
+    ranks).  At one device every ``trainer.parallel`` mode computes the
+    same step, as the JAX package shards nothing on a mesh of one."""
     t = cfg.trainer
-    n_dev = t.n_devices
-    if n_dev == -1:
-        n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
-    if n_dev != 1 or t.n_model != 1:
-        raise NotImplementedError(
-            f"trainer.n_devices {t.n_devices} (resolves to {n_dev}) and trainer.n_model {t.n_model}: "
-            "the port trains on one device; multi-GPU training is ROADMAP A.8"
+    if t.parallel not in MODES:
+        raise ValueError(f"unknown trainer.parallel {t.parallel!r}; one of {MODES}")
+    world = process_info()[1]
+    n_dev = world if t.n_devices == -1 else t.n_devices
+    if n_dev != world:
+        raise ValueError(
+            f"trainer.n_devices {t.n_devices} but the process group has {world} rank(s): each rank drives "
+            f"one device, so launch {n_dev} (torchrun --nproc_per_node {n_dev} -m picopose_tpu_torch.run_train)"
         )
-    if t.parallel not in _PARALLEL_MODES:
-        raise ValueError(f"unknown trainer.parallel {t.parallel!r}; one of {_PARALLEL_MODES}")
+    if t.n_model < 1 or n_dev % t.n_model:
+        raise ValueError(f"trainer.n_model {t.n_model} does not divide the {n_dev} device(s)")
+    if n_dev == 1:
+        return None
+    return make_mesh(n_dev // t.n_model, t.n_model, device)
 
 
 def run_training(
@@ -344,12 +359,14 @@ def run_training(
     max_steps: int | None = None,
     device: str | torch.device | None = None,
 ) -> None:
-    """Train PicoPose as ``cfg`` says (utils/config.py::Config) on one
-    device (CUDA unless "cpu" is passed; raises without a card), logging
-    to and checkpointing under ``log_dir``; ``resume`` continues from the
-    latest checkpoint there; ``max_steps`` stops early."""
+    """Train PicoPose as ``cfg`` says (utils/config.py::Config) on this
+    rank's device (CUDA unless "cpu" is passed; raises without a card),
+    over the process group's ranks as ``training_mesh`` lays them out,
+    logging to and checkpointing under ``log_dir``; ``resume`` continues
+    from the latest checkpoint there; ``max_steps`` stops early."""
     device = resolve_device(device)
-    _one_device(cfg, device)
+    mesh = training_mesh(cfg, device)
+    rank = process_info()[0]
     model_kw = dict(model_kwargs(cfg), remat_vit=cfg.model.remat_vit)
     t = cfg.trainer
     tx = make_optimizer(
@@ -375,7 +392,11 @@ def run_training(
     if t.init_checkpoint and not resuming:
         warm_start(state, str(t.init_checkpoint), num_levels=cfg.model.num_levels)
         print(f"warm-started model weights from {t.init_checkpoint}")
-    train_step = make_train_step(state)
+    if mesh is None:
+        train_step = make_train_step(state)
+    else:
+        shard_state(state, mesh, t.parallel)
+        train_step = make_train_step(state, state_shardings(mesh, state, t.parallel), mesh)
     if resuming:
         ckpt.restore(log_dir, None, state)
         print(f"resumed from step {state.step}")
@@ -392,10 +413,16 @@ def run_training(
         backend = "procs" if (os.cpu_count() or 1) >= 8 else "threads"
     if backend not in ("procs", "threads"):
         raise ValueError(f"unknown train_dataloader.backend {loader.backend!r}")
+    if mesh is not None and backend == "threads" and loader.num_workers > 1:
+        raise ValueError(
+            "train_dataloader.backend threads with more than one worker draws another global batch on each "
+            "rank; use the procs backend (or one thread) to train over ranks"
+        )
 
-    bs = loader.bs
+    n_data = 1 if mesh is None else mesh.n_data
+    bs = loader.bs * n_data  # the global batch, as the JAX loop loads it
     iters_per_epoch = cfg.lr_scheduler.max_iters // t.training_epoch
-    logger = TrainLogger(log_dir, every=t.iters_to_print)
+    logger = TrainLogger(log_dir, every=t.iters_to_print) if rank == 0 else None
     noise = torch.Generator(device=device).manual_seed(t.rd_seed + 1)  # registered with the step's graphs
 
     step = state.step
@@ -410,18 +437,22 @@ def run_training(
                                           seed=t.rd_seed, epoch=epoch)
         else:
             batches = prefetch_batches(dataset, bs, steps=n_steps, workers=loader.num_workers)
+        if mesh is not None:
+            batches = (shard_batch(b, mesh) for b in batches)
         for batch in device_prefetch(batches, device, lock=train_step.graphs.lock):
             losses = train_step(state, batch, noise)
             step += 1
             # no host sync until the print boundary; with grad_accum the
             # schedule advances once per optimizer update
-            logger.step_async(step, losses, sched(step // t.grad_accum))
+            if logger is not None:
+                logger.step_async(step, losses, sched(step // t.grad_accum))
             if step >= total:
                 break
-        logger.epoch(epoch, step)
+        if logger is not None:
+            logger.epoch(epoch, step)
         if (epoch + 1) % max(t.ckpt_every_epochs, 1) == 0 or step >= total or epoch == t.training_epoch - 1:
             ckpt.save(log_dir, step, state, epoch)
     graphs = train_step.graphs
-    if graphs.captures:
+    if graphs.captures and rank == 0:
         print(f"compiled train step: {sum(graphs.replays.values())} replays of {sum(graphs.captures.values())} "
               f"captured programs (capture {sum(map(sum, graphs.capture_s.values())):.2f} s)")

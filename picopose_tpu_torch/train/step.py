@@ -12,7 +12,10 @@ program; so does ``make_train_step`` here, as a CUDA graph:
   * ``forward_train``: GT keypoints, stages 1-3 in train mode and the losses;
   * ``train_step``: one step, eagerly, gradients by autograd through the
     kernels' Functions (ops/vjp.py);
-  * ``make_train_step``: the same step as captured programs.
+  * ``make_train_step``: the same step as captured programs; with a
+    mesh and the state's shardings (parallel/), the sharded step: each
+    rank runs its rows of the global batch and every rank computes the
+    global batch's loss, as the JAX package's sharded program does.
 
 The update is optax's, written out on device tensors (``Optimizer``):
 ``optax.adamw`` decays every parameter (biases, norms, ``pos_embed`` and
@@ -27,7 +30,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable
+from typing import Any, Callable
 
 import torch
 
@@ -35,7 +38,9 @@ from picopose_tpu_torch.device import deterministic_cudnn, full_fp32
 from picopose_tpu_torch.geom.affine import gt_translation_scale_inplane, mmul, relative_affine
 from picopose_tpu_torch.models.correspondence import init_correspondences
 from picopose_tpu_torch.models.picopose import PicoPose
-from picopose_tpu_torch.train.augment import AffineNoise, perturb_affine
+from picopose_tpu_torch.parallel.collectives import all_reduce_, data_parallel, gather_param, model_parallel
+from picopose_tpu_torch.parallel.mesh import batch_rows
+from picopose_tpu_torch.train.augment import AffineNoise, draw_affine_noise, perturb_affine
 from picopose_tpu_torch.train.keypoints import sample_keypoints
 from picopose_tpu_torch.train.losses import flow_level_loss, info_nce_loss, stage2_loss, total_loss
 from picopose_tpu_torch.utils.graphs import GraphCache
@@ -286,6 +291,7 @@ class TrainState:
     step: int
     model: PicoPose
     optimizer: Optimizer
+    layout: Any = None  # parallel/shardings.py::ShardLayout once sharded
 
 
 def init_state(tx: OptimizerSpec, seed: int = 0, device=None, **model_kwargs) -> TrainState:
@@ -385,9 +391,11 @@ def train_step(state: TrainState, batch: dict, noise: AffineNoise | torch.Genera
 
 
 def make_train_step(state: TrainState, state_shardings=None, mesh=None):
-    """The compiled step for one device, as the JAX ``make_train_step``
-    returns the jitted ``_step``: ``step(state, batch, noise) -> losses``,
-    exactly one ``train_step``.
+    """The compiled step, as the JAX ``make_train_step`` returns the
+    jitted ``_step``: ``step(state, batch, noise) -> losses``; on one
+    device exactly one ``train_step``.  With ``state_shardings`` and
+    ``mesh`` (parallel/shardings.py, the state laid out by ``shard_state``)
+    the sharded step (``_sharded_step``).
 
     On CUDA the device work of a step (``_step_program``) is a CUDA graph
     (utils/graphs.py): two programs, the step that only accumulates and the
@@ -402,10 +410,11 @@ def make_train_step(state: TrainState, state_shardings=None, mesh=None):
     ``GraphCache`` calls the program: the step is ``train_step``.
 
     ``step.graphs`` is the ``GraphCache``; the loop holds its ``lock``
-    around its uploader's CUDA calls.  The sharded form (``state_shardings``,
-    ``mesh``) is not ported."""
-    if state_shardings is not None or mesh is not None:
-        raise NotImplementedError("the sharded train step is not ported; it runs on one device")
+    around its uploader's CUDA calls."""
+    if (state_shardings is None) != (mesh is None):
+        raise ValueError("make_train_step takes state_shardings and mesh together")
+    if mesh is not None:
+        return _sharded_step(state, state_shardings, mesh)
     graphs = GraphCache(state.model.device)
 
     def step(state: TrainState, batch: dict, noise: AffineNoise | torch.Generator) -> dict:
@@ -419,6 +428,107 @@ def make_train_step(state: TrainState, state_shardings=None, mesh=None):
                 "train_step", program, (b,) if gen is not None else (b, noise),
                 static=(update, model.feature_extractor.dinov2.remat), generator=gen, module=model,
                 writes=[*model.parameters(), *model.buffers(), *opt.tensors()],
+            )
+
+        return _host_step(state, device_work)
+
+    step.graphs = graphs
+    return step
+
+
+# ---------------------------------------------------------------- the sharded step
+
+
+class _Forward(torch.nn.Module):
+    """``forward_train`` as a module's forward, so that ``functional_call``
+    can run it on gathered parameters."""
+
+    def __init__(self, model: PicoPose):
+        super().__init__()
+        self.model = model
+
+    def forward(self, batch, noise):
+        return forward_train(self.model, batch, noise)
+
+
+def _noise_rows(noise: AffineNoise | torch.Generator, rows: slice, global_batch: int) -> AffineNoise:
+    """This rank's rows of the global batch's affine noise (drawn here for
+    the whole global batch from a generator, so every rank draws the same)."""
+    if isinstance(noise, torch.Generator):
+        noise = draw_affine_noise(global_batch, noise)
+    return AffineNoise(noise.ladder, noise.scale[rows], noise.rot[rows], noise.trans[rows])
+
+
+@full_fp32()
+@deterministic_cudnn()
+def _sharded_program(forward: _Forward, optimizer: Optimizer, layout, batch: dict, noise, update: bool) -> dict:
+    """The device work of one sharded step: each parameter split over
+    'data' gathered from its shards (its gradient reduce-scattered back in
+    the backward), a model rank's parts used as they are,
+    ``forward_train`` on the rank's rows under ``data_parallel`` (the
+    global batch's BatchNorm statistics and losses) and ``model_parallel``
+    (the Megatron layers), the backward of the global loss, and on an
+    updating step the gradient buckets of the parameters not split over
+    'data' summed over the data group, then the update of the rank's
+    tensors."""
+    mesh = layout.mesh
+    params = {f"model.{name}": t if spec.data is None else gather_param(t, spec.data, mesh.data_group)
+              for name, spec, t in layout.split()}
+    b = next(iter(batch.values())).shape[0]
+    rows = batch_rows(b * mesh.n_data, mesh)
+    with data_parallel(mesh), model_parallel(mesh):
+        losses = torch.func.functional_call(forward, params, (batch, _noise_rows(noise, rows, b * mesh.n_data)))
+        losses["loss"].backward()
+    if update:
+        if mesh.data_group is not None:
+            for bucket in layout.buckets:
+                all_reduce_(bucket, mesh.data_group)
+        optimizer.apply()
+    return {k: v.detach() for k, v in losses.items()}
+
+
+def _sharded_step(state: TrainState, shardings, mesh):
+    """``make_train_step`` over a mesh.  ``step(state, batch, noise)``:
+    ``batch`` is this rank's rows of the global batch
+    (``parallel.shard_batch``), ``noise`` the global batch's affine noise
+    (an ``AffineNoise`` of the global batch, or a generator seeded alike on
+    every rank).  Returns the global batch's loss dict, the same on every
+    rank.  The gradient that reaches the update is the global loss's,
+    summed over the data group: parameters split over 'data' by the
+    reduce-scatter of their gather's backward, the others in flat buckets
+    by one all-reduce each in the updating program (so with ``grad_accum``
+    only the program that updates reduces them; a split parameter's
+    gradient is reduce-scattered in every backward, since the rank keeps
+    only its shard).  Under tp / fsdp_tp the model ranks of a data index
+    hold the same rows, and the Megatron layers' collectives run in the
+    forward and the backward.
+
+    With no process group or the ``nccl`` backend the device work is
+    captured and replayed as the one-device step's is (NCCL collectives
+    are captured like kernels; the warm-up runs them first); with ``gloo``,
+    which a CUDA graph cannot hold, it runs eagerly.  The backend is the
+    one the caller's process group was made with."""
+    layout = state.layout
+    if layout is None or layout.mesh is not mesh:
+        raise ValueError("shard the state over this mesh first: parallel.shard_state(state, mesh, mode)")
+    if shardings.leaves != layout.shardings.leaves:
+        raise ValueError(f"the state is laid out for {layout.shardings.mode}, not {shardings.mode}")
+    model, opt = state.model, state.optimizer
+    forward = _Forward(model)
+    graphs = GraphCache(model.device)
+    eager = mesh.backend == "gloo"
+
+    def step(state: TrainState, batch: dict, noise: AffineNoise | torch.Generator) -> dict:
+        def device_work(update: bool) -> dict:
+            b = {k: torch.as_tensor(v, device=model.device) for k, v in batch.items()}
+            gen = noise if isinstance(noise, torch.Generator) else None
+            program = lambda b, n=noise: _sharded_program(forward, opt, layout, b, n, update)
+            if eager:
+                return program(b)
+            return graphs.run(
+                "train_step", program, (b,) if gen is not None else (b, noise),
+                static=(update, model.feature_extractor.dinov2.remat), generator=gen, module=model,
+                writes=[*model.parameters(), *model.buffers(), *(t for _, _, t in layout.split()), *opt.tensors()],
             )
 
         return _host_step(state, device_work)

@@ -16,6 +16,13 @@ summed gradients, the step and the epoch.  ``restore`` copies all of it
 into the state's tensors in place, so a step captured before the restore
 (train/step.py::make_train_step) replays on the restored state.
 
+Under ranks (a state laid out by parallel/shardings.py::shard_state) the
+file is the one one device writes: every rank gathers the split
+parameters and moments and sums the replicated gradients of an open
+accumulation (collectives), rank 0 writes, and every rank waits for it;
+``restore`` reads the whole state and keeps the rank's shards, so a run
+saved at one world size resumes at another, as orbax lets the JAX loop.
+
 ``load_any`` reads model weights from such a file or from a reference
 PyTorch checkpoint (``.ckpt`` in the Lightning layout, or a raw ``Net``
 state dict as ``.pth``), ported through utils/torch_port.py into a
@@ -31,6 +38,8 @@ import pickle
 
 import torch
 
+from picopose_tpu_torch.parallel.distributed import all_hosts_barrier, process_info
+from picopose_tpu_torch.parallel.shardings import full_optimizer_state, full_state_dict, local_optimizer_state, shard_of
 from picopose_tpu_torch.utils.torch_export import export_state_dict
 from picopose_tpu_torch.utils.torch_port import load_torch_checkpoint, port_picopose
 
@@ -49,15 +58,17 @@ def save(log_dir: str, step: int, state, epoch: int) -> str:
     """Write ``state`` (train/step.py::TrainState) as
     ``<log_dir>/checkpoints/<step>.pt``; returns the path."""
     payload = {
-        "model": state.model.state_dict(),
-        **state.optimizer.state_dict(),
+        "model": full_state_dict(state),
+        **full_optimizer_state(state),
         "step": int(step),
         "epoch": int(epoch),
     }
     path = checkpoint_path(log_dir, step)
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    torch.save(payload, path + ".tmp")
-    os.replace(path + ".tmp", path)
+    if process_info()[0] == 0:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        torch.save(payload, path + ".tmp")
+        os.replace(path + ".tmp", path)
+    all_hosts_barrier("checkpoint")
     return path
 
 
@@ -75,7 +86,19 @@ def restore(log_dir: str, step: int | None, state):
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {checkpoint_dir(log_dir)}")
     payload = torch.load(checkpoint_path(log_dir, step), map_location=state.model.device, weights_only=True)
-    state.model.load_state_dict(payload["model"])  # copies into the parameters and buffers
+    layout = getattr(state, "layout", None)
+    if layout is None:
+        state.model.load_state_dict(payload["model"])  # copies into the parameters and buffers
+    else:
+        model = dict(payload["model"])
+        with torch.no_grad():
+            for name, spec, t in layout.split():
+                t.copy_(shard_of(model.pop(name), spec, layout.mesh))
+        missing, unexpected = state.model.load_state_dict(model, strict=False)
+        if sorted(missing) != sorted(n for n, _, _ in layout.split()) or unexpected:
+            raise ValueError(f"checkpoint at step {step}: layout mismatch (missing {missing[:3]}, "
+                             f"unexpected {unexpected[:3]})")
+        payload = local_optimizer_state(payload, layout.specs, layout.mesh)
     try:
         state.optimizer.load_state_dict(payload)
     except ValueError as e:

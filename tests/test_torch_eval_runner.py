@@ -11,6 +11,12 @@ split(key)`` per batch) and injected into the port's runner.  The JAX
 crops take their cv2 path (PICOPOSE_NO_FASTPATH=1), the oracle the port's
 crops are held to (tests/test_torch_serve.py).
 
+The runner's multi-device branch (``use_mesh=True``) on two devices
+against the JAX runner's on a 2-device mesh, with ``batch_size`` 1
+rounded up to 2 by both (the batches of the one-device runs above): the
+JAX draws of each batch's global rows are served to the port's two parts
+in row order.
+
 Tolerances: the CSV's rows in the same order with the first four columns
 (scene, image, object, score) identical; R within 5e-3 and t within 1e-3
 m, those of tests/test_torch_run_batch.py; times positive.
@@ -190,3 +196,47 @@ def test_cli_checkpoint_resolution(tree, tmp_path, monkeypatch, capsys):
     os.makedirs(tmp_path / "log" / "picopose" / "version_5" / "checkpoints" / "40")
     with pytest.raises(ValueError, match="tools/export_torch.py"):
         run_test.main(_cli_args(tree, 5))
+
+
+def test_mesh_branch_matches_the_jax_runner_on_a_two_device_mesh(tree, weights, tmp_path, monkeypatch):
+    """Batches of 1 rounded up to 2, each split into two parts of one row:
+    on the CPU the parts run on ``cpu`` and ``cpu:0`` (a replica, its own
+    bank copy and graphs), as on two cards."""
+    import picopose_tpu.parallel.mesh as jax_mesh
+
+    jmodel, variables = weights
+    monkeypatch.setenv("PICOPOSE_NO_FASTPATH", "1")
+    make = jax_mesh.make_mesh
+    monkeypatch.setattr(jax_mesh, "make_mesh", lambda: make(n_data=2, devices=jax.devices()[:2]))
+    jds = JaxDataset(tree["data_dir"], "fakeds", tree["det_path"], n_template_view=VIEWS)
+    ref = read_csv(jax_evaluate_dataset(
+        jmodel, variables, jds, tree["template_dir"], str(tmp_path / "jax.csv"), jax.random.PRNGKey(0),
+        hyp=HYP, batch_size=1, pnp_iters=ITERS, progress=False, use_mesh=True, decode_workers=2,
+    ))
+    monkeypatch.delenv("PICOPOSE_NO_FASTPATH")
+    state = {"key": jax.random.PRNGKey(0), "row": 0}
+    total = 2 * HYP  # PnP rows of a batch of 2
+
+    def draws(valid):  # this part's rows of the draws the JAX runner makes for the whole batch
+        if state["row"] == 0:
+            state["key"], state["sub"] = jax.random.split(state["key"])
+        n, at = valid.shape[0], state["row"]
+        full = np.repeat(valid.numpy()[:1], total, axis=0)
+        full[at:at + n] = valid.numpy()
+        sample, subset = jax_pnp_draws(state["sub"], full, ITERS)
+        state["row"] = (at + n) % total
+        return torch.from_numpy(sample[at:at + n]).long(), torch.from_numpy(subset[at:at + n]).long()
+
+    model = PicoPose(**SMALL, compute_dtype=torch.float32, device="cpu")
+    load_flax_variables(model, variables)
+    ds = BOPTestDataset(tree["data_dir"], "fakeds", tree["det_path"], n_template_view=VIEWS)
+    got = read_csv(evaluate_dataset(
+        model, ds, tree["template_dir"], str(tmp_path / "port.csv"), hyp=HYP, batch_size=1, pnp_iters=ITERS,
+        progress=False, decode_workers=2, pnp_draws=draws, use_mesh=True,
+        devices=[torch.device("cpu"), torch.device("cpu", 0)],
+    ))
+    assert len(got) == len(ref) == 6 and [r[:4] for r in got] == [r[:4] for r in ref]
+    for g, r in zip(got, ref):
+        (R, t), (r_R, r_t) = pose_of(g), pose_of(r)
+        np.testing.assert_allclose(R, r_R, atol=5e-3, err_msg=f"R of {g[:3]}")
+        np.testing.assert_allclose(t, r_t, atol=1e-3, err_msg=f"t of {g[:3]}")

@@ -315,3 +315,39 @@ def test_runner_with_pnp_draws_takes_the_eager_route(world, tree, template_views
                              pnp_draws=draws)
     assert seen and "run_batch" not in graphs.calls and graphs.calls["bank_chunk"] == 2
     assert len(rows) > 1
+
+
+def test_runner_on_the_models_own_device_keeps_the_callers_generator(world, tree, template_views, tmp_path,
+                                                                     monkeypatch):
+    """``use_mesh=True`` over the model's own device alone is the one-device
+    run: no replica, the run's one ``GraphCache``, the caller's generator,
+    the same CSV."""
+    made, real = [], R.replica_on
+
+    def counted(home, device, seed):
+        rep = real(home, device, seed)
+        made.append(rep is not home)
+        return rep
+
+    monkeypatch.setattr(R, "replica_on", counted)
+    one, _ = _evaluate(world, tree, template_views, str(tmp_path / "one.csv"), monkeypatch,
+                       generator=torch.Generator().manual_seed(5))
+    mesh, _ = _evaluate(world, tree, template_views, str(tmp_path / "mesh.csv"), monkeypatch,
+                        generator=torch.Generator().manual_seed(5), use_mesh=True, devices=["cpu"])
+    assert made == [False, False] and mesh == one and len(one) > 1
+
+
+def test_a_card_named_without_its_index_is_the_models_own(world, monkeypatch):
+    """A model built on ``cuda`` sits on ``cuda:<current>``: asked for that
+    card under either name, ``replica_on`` and the runner's parts give the
+    caller's model, graphs and generator, and copy nothing (on the card in
+    tests/test_torch_kernels.py; here with the current card stubbed)."""
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(R, "resolve_device", torch.device)
+    monkeypatch.setattr(P.copy, "deepcopy", lambda *a: pytest.fail("copied the model"))
+    model = type("OnTheCard", (), {"device": torch.device("cuda")})()
+    home = P.Replica(model, GraphCache("cpu"), torch.Generator())
+    card = torch.device("cuda", 0)
+    assert P.replica_on(home, card, 0) is home and P.replica_on(home, torch.device("cuda"), 0) is home
+    parts = R._parts(home, None) + R._parts(home, [card, "cuda", card])
+    assert len(parts) == 4 and all(d == card and rep is home for d, rep in parts)

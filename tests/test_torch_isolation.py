@@ -37,6 +37,8 @@ def _imported_roots(path):
 def test_port_files_import_nothing_of_jax():
     files = _port_files()
     assert len(files) > 15
+    parallel = {"__init__.py", "distributed.py", "mesh.py", "shardings.py", "collectives.py"}
+    assert parallel <= {os.path.basename(f) for f in files if os.sep + "parallel" + os.sep in f}
     bad = {
         (os.path.relpath(f, ROOT), r) for f in files for r in _imported_roots(f)
         if r in FORBIDDEN
@@ -69,7 +71,9 @@ def test_import_leaves_jax_out_of_sys_modules():
         "picopose_tpu_torch.native.renderer, picopose_tpu_torch.render_templates, "
         "picopose_tpu_torch.score_csv, picopose_tpu_torch.eval.bop_scoring, "
         "picopose_tpu_torch.eval.metrics, picopose_tpu_torch.utils.profiling, "
-        "picopose_tpu_torch.data.tiff; "
+        "picopose_tpu_torch.data.tiff, picopose_tpu_torch.parallel, "
+        "picopose_tpu_torch.parallel.distributed, picopose_tpu_torch.parallel.mesh, "
+        "picopose_tpu_torch.parallel.shardings, picopose_tpu_torch.parallel.collectives; "
         "print(sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN + HOST_LIBRARIES!r}))"
     )
@@ -219,3 +223,27 @@ def test_importing_the_host_entry_points_starts_no_cuda():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                          timeout=120, check=True)
     assert out.stdout.strip() == "True False 0 None", out.stdout
+
+
+def test_a_card_or_rank_beyond_those_present_raises(monkeypatch):
+    """``cuda:N`` past the cards present raises, and under ``torchrun`` the
+    rank's card is ``cuda:LOCAL_RANK``, which must exist; an nccl rank
+    without its card raises before joining the group."""
+    from picopose_tpu_torch import resolve_device
+    from picopose_tpu_torch.parallel import distributed as pd
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.delenv("LOCAL_RANK", raising=False)
+    assert resolve_device("cuda:0") == torch.device("cuda", 0)
+    with pytest.raises(RuntimeError, match="cuda:1 requested but 1 CUDA device"):
+        resolve_device("cuda:1")
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    with pytest.raises(RuntimeError, match="cuda:1 requested"):
+        resolve_device()
+    assert resolve_device("cpu").type == "cpu"
+    for k, v in dict(RANK="1", WORLD_SIZE="2", MASTER_ADDR="localhost").items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(RuntimeError, match="LOCAL_RANK 1 but this host has 1"):
+        pd.initialize()
+    assert not pd.is_initialized()

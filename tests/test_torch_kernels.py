@@ -1012,6 +1012,23 @@ def test_run_batch_replay_equals_eager(graph_world):
 
 
 @pytest.mark.cuda
+def test_the_models_own_card_keeps_the_model_however_it_is_named(graph_world):
+    """The model sits on ``cuda`` (no index): the eval runner's parts and
+    ``replica_on`` on that card, named ``cuda`` or ``cuda:<index>``, are
+    the caller's model, graphs and generator, with no copy of the model."""
+    from picopose_tpu_torch.eval import runner as R
+    from picopose_tpu_torch.utils.graphs import GraphCache
+
+    P, model, _, _, _ = graph_world
+    assert model.device == torch.device("cuda")
+    home = P.Replica(model, GraphCache("cuda"), torch.Generator(device="cuda").manual_seed(3))
+    card = torch.device("cuda", torch.cuda.current_device())
+    assert P.replica_on(home, card, 0) is home and P.replica_on(home, "cuda", 0) is home
+    parts = R._parts(home, None) + R._parts(home, [card, "cuda"])
+    assert len(parts) == 3 and all(d == card and rep is home for d, rep in parts)
+
+
+@pytest.mark.cuda
 def test_queued_calls_do_not_alias(graph_world):
     """Two calls queued with different inputs before any is read each keep
     their own results."""

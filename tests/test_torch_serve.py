@@ -244,7 +244,7 @@ def test_bank_files_load_in_the_other_package(tmp_path, writer):
     )
     jest = _jax_estimator()
     test = PoseEstimator.__new__(PoseEstimator)  # no model: bank files only
-    test.device, test._banks = torch.device("cpu"), {}
+    test.device, test.devices, test._banks, test._bank_device = torch.device("cpu"), None, {}, {}
     if writer == "jax":
         jest._banks[7] = jbank
         jest.save_banks(str(tmp_path))
@@ -321,3 +321,42 @@ def test_estimate_raises_on_an_unregistered_object(frame, estimator):
         estimator.estimate(frame, K, [{"obj_id": 1, "mask": np.zeros((H, W), np.uint8)}])
     assert estimator.objects == [1, 2]
     assert estimator.estimate(frame, K, []) == []
+
+
+def test_devices_place_banks_round_robin_and_estimate_as_one_device(frame, estimator):
+    """``devices=[d0, d1]``: banks alternate over the list (as
+    tests/test_serve.py:141-160 pins the JAX estimator's placement), the
+    second device gets its own replica of the model, graphs and generator,
+    and each object's results are those of the one-device estimator on its
+    detections from a generator seeded alike.  On the CPU the two devices
+    are ``cpu`` and ``cpu:0``, which compare unequal, so the replica is
+    made as on a second card."""
+    kw = dict(vit_type="vit_tiny_test", blocks_to_take=(0, 1, 2, 3), compute_dtype="float32", hyp=2, pnp_iters=8,
+              stage3_topk=1, max_batch=2, device="cpu")
+    devs = [torch.device("cpu"), torch.device("cpu", 0)]
+    with pytest.warns(UserWarning, match="RANDOM weights"):
+        est = PoseEstimator(**kw, devices=devs)
+    est.register_bank(1, estimator._banks[1])
+    est.register_bank(2, estimator._banks[2])
+    assert est._bank_device == {1: devs[0], 2: devs[1]} and est._replicas == {}  # replicas come at first use
+    dets = [{"obj_id": 1, "mask": blob(*BLOBS[0])}, {"obj_id": 2, "mask": blob(*BLOBS[1])},
+            {"obj_id": 1, "bbox": [30, 20, 60, 50]}]
+    res = est.estimate(frame, K, dets)
+    assert [r.obj_id for r in res] == [1, 2, 1]
+    assert list(est._replicas) == [devs[1]]
+    replica = est._replicas[devs[1]]
+    assert replica.model is not est.model and replica.graphs is not est.graphs and replica.model.device == devs[1]
+    assert all(torch.equal(a, b) for a, b in zip(replica.model.state_dict().values(), est.model.state_dict().values()))
+    assert dict(replica.graphs.calls) == {"run_batch": 1} and dict(est.graphs.calls) == {"run_batch": 1}
+    saved = estimator.generator
+    try:
+        for obj in (1, 2):
+            estimator.generator = torch.Generator().manual_seed(0)
+            idx = [i for i, d in enumerate(dets) if d["obj_id"] == obj]
+            one = estimator.estimate(frame, K, [dets[i] for i in idx])
+            for i, r in zip(idx, one):
+                np.testing.assert_array_equal(res[i].R, r.R)
+                np.testing.assert_array_equal(res[i].t, r.t)
+                assert (res[i].score, res[i].template_score) == (r.score, r.template_score)
+    finally:
+        estimator.generator = saved

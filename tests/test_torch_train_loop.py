@@ -269,8 +269,8 @@ def test_warm_start_is_skipped_only_when_resuming_finds_a_checkpoint(tree, tmp_p
 
 
 @pytest.mark.parametrize("override, error, match", [
-    ("trainer.n_devices=2", NotImplementedError, "ROADMAP A.8"),
-    ("trainer.n_model=2", NotImplementedError, "ROADMAP A.8"),
+    ("trainer.n_devices=2", ValueError, "process group has 1 rank"),
+    ("trainer.n_model=2", ValueError, "n_model 2 does not divide"),
     ("trainer.parallel=zero9", ValueError, "zero9"),
     ("model.num_levels=4", ValueError, "DPT head"),
     ("train_dataloader.backend=gpu", ValueError, "gpu"),
