@@ -1,4 +1,4 @@
-"""Baseline JPEG decoding on numpy, and ``read_image``.
+"""Baseline JPEG decoding and encoding on numpy, and ``read_image``.
 
 The port's counterpart of what picopose_tpu/data/bop.py::_load_im (:56-67)
 gets from PIL for a ``.jpg``: the MegaPose shards' ``rgb.jpg`` frames and
@@ -35,6 +35,17 @@ the step it adds to the coefficient index; the Python loop then only
 chases symbol positions.  Coefficient values,
 dequantisation, the IDCT, upsampling and colour conversion run vectorised
 over all blocks at once.
+
+Write: ``encode_jpeg`` / ``write_jpeg``, the counterpart of what PIL's
+libjpeg-turbo writes at its defaults (``PIL.Image.save(..., quality=q)``,
+``imageio.imwrite(..., quality=q)``, which tools/synthetic_world.py uses
+for its MegaPose frames): JFIF, YCbCr 4:2:0, baseline Huffman, byte for
+byte the same file.  Its arithmetic is libjpeg's: jccolor.c's 16-bit
+fixed-point RGB -> YCbCr, jcsample.c's h2v2 downsampling with its
+alternating 1, 2 bias and edge replication, jfdctint.c's islow FDCT,
+jcdctmgr.c's reciprocal quantiser (16-bit DCT elements), the Annex K
+tables scaled by jcparam.c's quality rule with force_baseline, and the
+dummy blocks jccoefct.c writes past the image's edge.
 """
 
 from __future__ import annotations
@@ -497,3 +508,265 @@ def read_image(path: str) -> np.ndarray:
     baseline uncompressed), decoded by ``decode_image``."""
     with open(path, "rb") as f:
         return decode_image(f.read(), str(path))
+
+
+# ------------------------------------------------------------------ encoding
+# Annex K.1 quantisation tables (natural order) and K.3 Huffman tables
+# (jcparam.c std_luminance_quant_tbl / std_chrominance_quant_tbl,
+# std_huff_tables)
+QUANT_TABLES = (
+    np.array([16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55, 14, 13, 16, 24, 40, 57, 69, 56,
+              14, 17, 22, 29, 51, 87, 80, 62, 18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+              49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99]),
+    np.array([17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99, 24, 26, 56, 99, 99, 99, 99, 99,
+              47, 66, 99, 99, 99, 99, 99, 99] + [99] * 32),
+)
+_AC_LUMA = bytes.fromhex(
+    "01020300041105122131410613516107227114328191a1082342b1c11552d1f02433627282090a161718191a25262728"
+    "292a3435363738393a434445464748494a535455565758595a636465666768696a737475767778797a83848586878889"
+    "8a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2"
+    "e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8f9fa")
+_AC_CHROMA = bytes.fromhex(
+    "000102031104052131061241510761711322328108144291a1b1c109233352f0156272d10a162434e125f11718191a"
+    "262728292a35363738393a434445464748494a535455565758595a636465666768696a737475767778797a8283848586"
+    "8788898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9"
+    "dae2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8f9fa")
+# (class, id): (counts of codes of length 1..16, symbols), in the order
+# libjpeg writes the DHT segments
+HUFFMAN_TABLES = {
+    (0, 0): (bytes([0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0]), bytes(range(12))),
+    (1, 0): (bytes([0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7D]), _AC_LUMA),
+    (0, 1): (bytes([0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0]), bytes(range(12))),
+    (1, 1): (bytes([0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77]), _AC_CHROMA),
+}
+
+
+def _quant_tables(quality: int) -> list[np.ndarray]:
+    """The Annex K tables scaled as jcparam.c's jpeg_set_quality scales them
+    with force_baseline (entries clamped to 1..255)."""
+    quality = min(max(int(quality), 1), 100)
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    return [np.clip((q * scale + 50) // 100, 1, 255) for q in QUANT_TABLES]
+
+
+def _fix(x: float) -> int:
+    return int(x * 65536 + 0.5)
+
+
+def _rgb_to_ycc(rgb: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """jccolor.c rgb_ycc_convert: 16-bit fixed point, Y rounded with
+    ONE_HALF, Cb and Cr with ONE_HALF - 1."""
+    r, g, b = (rgb[..., i].astype(np.int64) for i in range(3))
+    half, offset = 1 << 15, 128 << 16
+    y = (_fix(0.299) * r + _fix(0.587) * g + _fix(0.114) * b + half) >> 16
+    cb = (-_fix(0.16874) * r - _fix(0.33126) * g + _fix(0.5) * b + offset + half - 1) >> 16
+    cr = (_fix(0.5) * r - _fix(0.41869) * g - _fix(0.08131) * b + offset + half - 1) >> 16
+    return y, cb, cr
+
+
+def _pad(plane: np.ndarray, rows: int, cols: int) -> np.ndarray:
+    """Replicate the last row and column out to (rows, cols), as
+    expand_right_edge and expand_bottom_edge do."""
+    return np.pad(plane, ((0, rows - plane.shape[0]), (0, cols - plane.shape[1])), mode="edge")
+
+
+def _downsample_h2v2(plane: np.ndarray, rows: int, cols: int) -> np.ndarray:
+    """jcsample.c h2v2_downsample of a full-size plane to (rows, cols): the
+    plane padded to an even height and to 2 * cols wide, each 2 x 2 sum
+    plus a bias alternating 1, 2, 1, ... along the row, shifted by 2; the
+    result's last row replicated down to ``rows``."""
+    H = plane.shape[0] + plane.shape[0] % 2
+    p = _pad(plane, H, 2 * cols)
+    s = p[0::2, 0::2] + p[0::2, 1::2] + p[1::2, 0::2] + p[1::2, 1::2]
+    bias = 1 + (np.arange(cols) & 1)
+    return _pad((s + bias) >> 2, rows, cols)
+
+
+def _fdct_1d(x: list, out_shift: int, even_shift: int) -> list:
+    """One pass of jfdctint.c's jpeg_fdct_islow over axis 0 of ``x`` (a
+    list of 8 int64 arrays): 13-bit constants, the even outputs scaled by
+    2^-even_shift (a left shift when negative), the odd ones by
+    2^-out_shift, each rounded as DESCALE rounds."""
+    def descale(v, n):
+        return (v + (1 << (n - 1))) >> n
+
+    tmp0, tmp7 = x[0] + x[7], x[0] - x[7]
+    tmp1, tmp6 = x[1] + x[6], x[1] - x[6]
+    tmp2, tmp5 = x[2] + x[5], x[2] - x[5]
+    tmp3, tmp4 = x[3] + x[4], x[3] - x[4]
+    tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
+    tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
+    out = [None] * 8
+    if even_shift < 0:
+        out[0], out[4] = (tmp10 + tmp11) << -even_shift, (tmp10 - tmp11) << -even_shift
+    else:
+        out[0], out[4] = descale(tmp10 + tmp11, even_shift), descale(tmp10 - tmp11, even_shift)
+    z1 = (tmp12 + tmp13) * 4433
+    out[2] = descale(z1 + tmp13 * 6270, out_shift)
+    out[6] = descale(z1 - tmp12 * 15137, out_shift)
+    z1, z2, z3, z4 = tmp4 + tmp7, tmp5 + tmp6, tmp4 + tmp6, tmp5 + tmp7
+    z5 = (z3 + z4) * 9633
+    tmp4, tmp5, tmp6, tmp7 = tmp4 * 2446, tmp5 * 16819, tmp6 * 25172, tmp7 * 12299
+    z1, z2 = z1 * -7373, z2 * -20995
+    z3, z4 = z3 * -16069 + z5, z4 * -3196 + z5
+    out[7] = descale(tmp4 + z1 + z3, out_shift)
+    out[5] = descale(tmp5 + z2 + z4, out_shift)
+    out[3] = descale(tmp6 + z2 + z3, out_shift)
+    out[1] = descale(tmp7 + z1 + z4, out_shift)
+    return out
+
+
+def _fdct_islow(blocks: np.ndarray) -> np.ndarray:
+    """(..., 8, 8) level-shifted samples -> the islow DCT, scaled by 8 as
+    libjpeg leaves it (CONST_BITS 13, PASS1_BITS 2)."""
+    rows = _fdct_1d([blocks[..., i] for i in range(8)], 11, -2)  # pass 1: along each row
+    rows = np.stack(rows, axis=-1)
+    cols = _fdct_1d([rows[..., i, :] for i in range(8)], 15, 2)  # pass 2: down each column
+    return np.stack(cols, axis=-2)
+
+
+def _quantize(coef: np.ndarray, qtable: np.ndarray) -> np.ndarray:
+    """jcdctmgr.c's quantize with compute_reciprocal's divisors for
+    16-bit DCT elements: the divisor q * 8, |x| + a rounding correction,
+    times a reciprocal, shifted; the sign restored."""
+    recip, corr, shift = np.zeros(64, np.int64), np.zeros(64, np.int64), np.zeros(64, np.int64)
+    for i, q in enumerate(qtable.reshape(-1)):
+        d = int(q) << 3
+        r = 16 + d.bit_length() - 1
+        fq, fr, c = (1 << r) // d, (1 << r) % d, d // 2
+        if fr == 0:  # a power of two
+            fq, r = fq >> 1, r - 1
+        elif fr <= d // 2:
+            c += 1
+        else:
+            fq += 1
+        recip[i], corr[i], shift[i] = fq, c, r
+    a = coef.reshape(*coef.shape[:-2], 64)
+    q = ((np.abs(a) + corr) * recip) >> shift
+    return np.where(a < 0, -q, q)
+
+
+def _huffman_codes(counts: bytes, symbols: bytes) -> tuple[np.ndarray, np.ndarray]:
+    """Canonical Huffman codes: (code, length) per symbol value 0..255."""
+    code_of, len_of = np.zeros(256, np.int64), np.zeros(256, np.int64)
+    code, k = 0, 0
+    for n in range(1, 17):
+        for _ in range(counts[n - 1]):
+            code_of[symbols[k]], len_of[symbols[k]] = code, n
+            code, k = code + 1, k + 1
+        code <<= 1
+    return code_of, len_of
+
+
+def _entropy_code(mcu: np.ndarray, table: np.ndarray, comp: np.ndarray) -> bytes:
+    """Baseline Huffman coding of the blocks ``mcu`` (N, 64), zigzag order,
+    in scan order: DC differences per component, AC run/size symbols with
+    ZRL and EOB, the magnitude bits after each symbol, 1-padding to a byte
+    and 0xFF stuffing.  The symbols and bits of the whole scan are laid
+    out at once in numpy."""
+    codes = {k: _huffman_codes(*v) for k, v in HUFFMAN_TABLES.items()}
+
+    def lookup(cls, sym, t):
+        c0, c1 = codes[cls, 0], codes[cls, 1]
+        return np.where(t == 0, c0[0][sym], c1[0][sym]), np.where(t == 0, c0[1][sym], c1[1][sym])
+
+    def size_of(v):
+        a = np.abs(v)
+        s = np.zeros(v.shape, np.int64)
+        while (a >> s).any():
+            s += (a >> s) > 0
+        return s
+
+    def extra(v, s):
+        return np.where(v >= 0, v, v + (1 << s) - 1)
+
+    nb = len(mcu)
+    dc = mcu[:, 0].copy()
+    for c in range(3):
+        sel = comp == c
+        dc[sel] = np.diff(np.concatenate([[0], mcu[sel, 0]]))
+    # items: (block, order key within the block, code, code length, extra bits, extra length)
+    s = size_of(dc)
+    items = [(np.arange(nb), np.zeros(nb, np.int64), *lookup(0, s, table), extra(dc, s), s)]
+    b, k = np.nonzero(mcu[:, 1:])
+    k = k + 1
+    first = np.r_[True, b[1:] != b[:-1]]
+    prev = np.where(first, 0, np.r_[0, k[:-1]])
+    run = k - prev - 1
+    v = mcu[b, k]
+    s = size_of(v)
+    items.append((b, 2 * k, *lookup(1, (run % 16) * 16 + s, table[b]), extra(v, s), s))
+    nz = run // 16  # ZRL symbols before the coefficient
+    zb, zk = np.repeat(b, nz), np.repeat(2 * k - 1, nz)
+    items.append((zb, zk, *lookup(1, np.full_like(zb, 0xF0), table[zb]), 0 * zb, 0 * zb))
+    last = np.zeros(nb, np.int64)
+    np.maximum.at(last, b, k)
+    eb = np.flatnonzero(last < 63)
+    items.append((eb, np.full_like(eb, 200), *lookup(1, 0 * eb, table[eb]), 0 * eb, 0 * eb))
+    blk, key, code, clen, ext, elen = (np.concatenate(a) for a in zip(*items))
+    order = np.lexsort((key, blk))
+    value = (code[order] << elen[order]) | (ext[order] & ((1 << elen[order]) - 1))
+    nbits = (clen + elen)[order]
+    total = int(nbits.sum())
+    starts = np.cumsum(nbits) - nbits
+    within = np.arange(total) - np.repeat(starts, nbits)
+    bits = (np.repeat(value, nbits) >> (np.repeat(nbits, nbits) - 1 - within)) & 1
+    bits = np.concatenate([bits, np.ones(-total % 8, np.int64)]).astype(np.uint8)
+    return np.packbits(bits).tobytes().replace(b"\xff", b"\xff\x00")
+
+
+def _blocks(plane: np.ndarray) -> np.ndarray:
+    """(8R, 8C) samples -> (R, C, 8, 8) blocks, level-shifted by 128."""
+    R, C = plane.shape[0] // 8, plane.shape[1] // 8
+    return plane.reshape(R, 8, C, 8).transpose(0, 2, 1, 3) - 128
+
+
+def encode_jpeg(rgb: np.ndarray, quality: int = 95) -> bytes:
+    """(H, W, 3) uint8 RGB -> baseline JFIF bytes as libjpeg(-turbo) writes
+    them at PIL's defaults (``PIL.Image.save(..., quality=quality)``,
+    ``imageio.imwrite(..., quality=quality)``): YCbCr by jccolor.c's fixed
+    point, 4:2:0 by h2v2_downsample, the islow FDCT, jcdctmgr.c's
+    quantiser, the Annex K tables scaled for ``quality`` with
+    force_baseline, the standard Huffman tables, no restart interval.  The
+    edge blocks are padded as libjpeg pads them, and the luma blocks past
+    the image in the last MCU column or row are its dummy blocks (the DC
+    of the block before them, no AC)."""
+    rgb = np.asarray(rgb)
+    if rgb.ndim != 3 or rgb.shape[2] != 3 or rgb.dtype != np.uint8:
+        raise ValueError(f"cannot encode a {rgb.dtype} array of shape {rgb.shape} as an RGB JPEG")
+    H, W = rgb.shape[:2]
+    my, mx = -(-H // 16), -(-W // 16)  # MCUs of 16 x 16
+    yr, yc = -(-H // 8), -(-W // 8)  # luma blocks inside the image
+    quant = _quant_tables(quality)
+    y, cb, cr = _rgb_to_ycc(rgb)
+    yq = _quantize(_fdct_islow(_blocks(_pad(y, 8 * yr, 8 * yc))), quant[0])
+    luma = np.zeros((2 * my, 2 * mx, 64), np.int64)
+    luma[:yr, :yc] = yq[..., NATURAL_ORDER]
+    if yc < 2 * mx:  # dummy right column: the DC of the block on its left
+        luma[:yr, yc, 0] = luma[:yr, yc - 1, 0]
+    if yr < 2 * my:  # dummy bottom row: the DC of the MCU's top-right block
+        luma[yr, :, 0] = np.repeat(luma[yr - 1, 1::2, 0], 2)
+    chroma = [_quantize(_fdct_islow(_blocks(_downsample_h2v2(p, 8 * my, 8 * mx))), quant[1])[..., NATURAL_ORDER]
+              for p in (cb, cr)]
+    yb = luma.reshape(my, 2, mx, 2, 64).transpose(0, 2, 1, 3, 4).reshape(my, mx, 4, 64)
+    mcu = np.concatenate([yb, chroma[0][:, :, None], chroma[1][:, :, None]], axis=2).reshape(-1, 64)
+    comp = np.tile([0, 0, 0, 0, 1, 2], my * mx)
+    data = _entropy_code(mcu, np.minimum(comp, 1), comp)
+
+    def seg(marker, payload):
+        return struct.pack(">BBH", 0xFF, marker, len(payload) + 2) + payload
+
+    out = [b"\xff\xd8", seg(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")]
+    for t, q in enumerate(quant):
+        out.append(seg(0xDB, bytes([t]) + bytes(q[NATURAL_ORDER].astype(np.uint8))))
+    out.append(seg(0xC0, struct.pack(">BHHB", 8, H, W, 3) + bytes([1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1])))
+    for (tc, th), (counts, symbols) in HUFFMAN_TABLES.items():
+        out.append(seg(0xC4, bytes([tc << 4 | th]) + counts + symbols))
+    out.append(seg(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0])))
+    return b"".join(out) + data + b"\xff\xd9"
+
+
+def write_jpeg(path: str, rgb: np.ndarray, quality: int = 95) -> None:
+    """Write ``rgb`` to ``path`` as ``encode_jpeg`` encodes it."""
+    with open(path, "wb") as fh:
+        fh.write(encode_jpeg(rgb, quality))

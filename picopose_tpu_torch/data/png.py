@@ -150,7 +150,8 @@ def decode_png(buf: bytes, path: str = "<bytes>") -> np.ndarray:
     if ftype.max(initial=0) > 4:
         raise ValueError(f"{path}: unknown scanline filter {int(ftype.max())}")
     f = rows[:, 1:].reshape(H, W, bpp)
-    px = _unfilter(ftype, f)
+    # every row None (what encode_png writes): the bytes are the pixels
+    px = _unfilter(ftype, f) if ftype.any() else f.copy()
     if depth == 16:
         return px.reshape(H, W * 2).view(">u2").astype(np.uint16)
     return px[..., 0] if bpp == 1 else px

@@ -115,6 +115,7 @@ class LayerNorm(nn.Module):
 class LayerScale(nn.Module):
     def __init__(self, dim: int, init_value: float = 1.0):
         super().__init__()
+        self.init_value = init_value
         self.gamma = nn.Parameter(torch.full((dim,), init_value))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

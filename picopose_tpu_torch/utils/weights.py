@@ -19,6 +19,7 @@ Layout rules, flax -> torch (the port keeps its own copy of them):
 
 from __future__ import annotations
 
+import math
 from typing import Any, Mapping
 
 import numpy as np
@@ -151,26 +152,48 @@ def load_flax_variables(model: nn.Module, variables: Mapping[str, Any]) -> None:
     model.load_state_dict(sd, strict=True)
 
 
+# jax.nn.initializers.variance_scaling's truncated_normal: a standard normal
+# truncated at +-2 has this standard deviation, so the draw is rescaled by it
+_TRUNCATED_STD = 0.87962566103423978
+_ERF_2 = math.erf(2.0 / math.sqrt(2.0))  # 2 * Phi(2) - 1
+
+
+def fan_in(module: nn.Module, weight: torch.Tensor) -> int:
+    """The fan-in flax's lecun_normal counts for a kernel: in for a Dense,
+    in x kh x kw for a Conv and for a ConvTranspose (torch keeps the latter
+    as (in, out, kh, kw))."""
+    if isinstance(module, nn.ConvTranspose2d):
+        return weight.shape[0] * weight[0, 0].numel()
+    return weight[0].numel()
+
+
 @torch.no_grad()
 def init_random_(model: nn.Module, seed: int) -> None:
     """Draw every parameter from one ``torch.Generator`` seeded with ``seed``
-    on the model's device: weight matrices and kernels ~ N(0, 1/fan_in),
-    cls/pos embeddings ~ N(0, 0.02^2), norm and LayerScale scales 1, biases
-    0, BatchNorm running statistics (0, 1)."""
+    on the model's device, from the distributions the JAX package's
+    ``model.init`` draws from (flax's defaults): every kernel truncated
+    lecun_normal (a normal truncated at +-2 sigma, sigma =
+    sqrt(1 / fan_in) / 0.8796), ``cls_token`` ~ N(0, 1e-6^2), ``pos_embed``
+    ~ N(0, 0.02^2), LayerScale gammas their ``init_value``, norm scales 1,
+    biases 0, BatchNorm running statistics (0, 1)."""
     device = next(model.parameters()).device
     g = torch.Generator(device=device).manual_seed(seed)
     for module in model.modules():
         for name, p in module.named_parameters(recurse=False):
-            if name in ("cls_token", "pos_embed"):
+            if name == "cls_token":
+                p.normal_(0.0, 1e-6, generator=g)
+            elif name == "pos_embed":
                 p.normal_(0.0, 0.02, generator=g)
             elif p.ndim >= 2:
-                fan_in = (
-                    module.in_channels if isinstance(module, nn.ConvTranspose2d)
-                    else p[0].numel()
-                )
-                p.normal_(0.0, fan_in ** -0.5, generator=g)
+                # inverse CDF of a uniform draw on (Phi(-2), Phi(2)), as
+                # nn.init.trunc_normal_ draws it (which is ~10x slower on the CPU)
+                std = fan_in(module, p) ** -0.5 / _TRUNCATED_STD
+                p.uniform_(-_ERF_2, _ERF_2, generator=g).erfinv_().mul_(std * math.sqrt(2.0))
+                p.clamp_(-2.0 * std, 2.0 * std)
             elif name == "bias":
                 p.zero_()
+            elif name == "gamma":
+                p.fill_(module.init_value)
             else:
                 p.fill_(1.0)
         for name, b in module.named_buffers(recurse=False):

@@ -52,6 +52,16 @@ def test_port_files_import_no_host_library_of_the_jax_package(library):
     assert not bad, bad
 
 
+@pytest.mark.parametrize("module", ["synthetic_world.py", "train_to_ar.py"])
+def test_accuracy_loop_modules_import_neither_jax_nor_an_image_library(module):
+    """The closed accuracy loop's world builder and driver write and read
+    their images with the port's own PNG and JPEG codecs."""
+    path = os.path.join(PACKAGE, module)
+    assert path in _port_files()
+    roots = set(_imported_roots(path))
+    assert not roots & set(FORBIDDEN + HOST_LIBRARIES), roots
+
+
 def test_import_leaves_jax_out_of_sys_modules():
     code = (
         "import sys, picopose_tpu_torch, picopose_tpu_torch.eval.pipeline, "
@@ -73,7 +83,8 @@ def test_import_leaves_jax_out_of_sys_modules():
         "picopose_tpu_torch.eval.metrics, picopose_tpu_torch.utils.profiling, "
         "picopose_tpu_torch.data.tiff, picopose_tpu_torch.parallel, "
         "picopose_tpu_torch.parallel.distributed, picopose_tpu_torch.parallel.mesh, "
-        "picopose_tpu_torch.parallel.shardings, picopose_tpu_torch.parallel.collectives; "
+        "picopose_tpu_torch.parallel.shardings, picopose_tpu_torch.parallel.collectives, "
+        "picopose_tpu_torch.synthetic_world, picopose_tpu_torch.train_to_ar; "
         "print(sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN + HOST_LIBRARIES!r}))"
     )

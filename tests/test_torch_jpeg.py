@@ -1,12 +1,16 @@
-"""The port's baseline JPEG decoder (picopose_tpu_torch/data/jpeg.py) against
-PIL, which the JAX package decodes with (picopose_tpu/data/bop.py::_load_im).
+"""The port's baseline JPEG decoder and encoder (picopose_tpu_torch/data/jpeg.py)
+against PIL, which the JAX package decodes with (picopose_tpu/data/bop.py::_load_im)
+and whose libjpeg-turbo encodes the JAX tool's frames (imageio q95).
 
 Files are written here with PIL, imageio and cv2 from seeded numpy images,
 in the forms the data uses (q95 4:2:0 as tools/synthetic_world.py writes
 MegaPose frames, imageio's default quality) and the forms the decoder
 reads besides (4:4:4, 4:2:2, 4:4:0, grey, restart intervals, Adobe RGB,
 optimised Huffman tables, comments, sizes that are not multiples of 16).
-Tolerance: bitwise equal to ``np.asarray(PIL.Image.open(path))``.
+Tolerance: bitwise equal to ``np.asarray(PIL.Image.open(path))``.  The
+encoder's bytes equal PIL's at its defaults for the same quality, so they
+decode, by PIL and by the port, to the arrays of PIL's own
+encode-then-decode.
 """
 
 import os
@@ -17,7 +21,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from picopose_tpu_torch.data.jpeg import read_image, read_jpeg
+from picopose_tpu_torch.data.jpeg import encode_jpeg, read_image, read_jpeg, write_jpeg
 
 
 def _image(hw, seed=0, grey=False):
@@ -138,3 +142,50 @@ def test_read_image_dispatches_on_the_signature(tmp_path):
     (tmp_path / "d.bin").write_bytes(b"GIF89a......")
     with pytest.raises(ValueError, match="d.bin"):
         read_image(str(tmp_path / "d.bin"))
+
+
+def _rendered_frame(tmp_path):
+    """A 480 x 640 frame of the synthetic world's textured block and L shape."""
+    from picopose_tpu_torch import synthetic_world as world
+
+    rng = np.random.default_rng(3)
+    objs = world.build_objects(str(tmp_path), ["tex", "lshape"], 60.0)
+    rgb, _, _, _ = world.render_composite(objs, [world.random_poses(1, rng, o.z0)[0] for o in objs])
+    assert (rgb > 0).mean() > 0.02
+    return rgb
+
+
+ENCODE_CASES = {  # name: (height, width) or "rendered"
+    "480x640": (480, 640), "17x33": (17, 33), "45x61": (45, 61), "8x8": (8, 8), "rendered": "rendered",
+}
+
+
+@pytest.mark.parametrize("quality", [95, 75])
+@pytest.mark.parametrize("name", sorted(ENCODE_CASES))
+def test_encoder_matches_pil(tmp_path, name, quality):
+    hw = ENCODE_CASES[name]
+    rgb = _rendered_frame(tmp_path) if hw == "rendered" else _image(hw, seed=len(name))
+    ref = str(tmp_path / "pil.jpg")
+    _pil(ref, rgb, quality=quality)
+    ours = str(tmp_path / "port.jpg")
+    write_jpeg(ours, rgb, quality=quality)
+    with open(ref, "rb") as f:
+        assert encode_jpeg(rgb, quality) == f.read()
+    want = np.asarray(Image.open(ref))
+    np.testing.assert_array_equal(np.asarray(Image.open(ours)), want)
+    np.testing.assert_array_equal(read_jpeg(ours), want)
+
+
+def test_encoder_matches_imageio_q95(tmp_path):
+    """tools/synthetic_world.py writes its frames with imageio at q95."""
+    rgb = _image((37, 50), seed=5)
+    path = str(tmp_path / "a.jpg")
+    imageio.imwrite(path, rgb, quality=95)
+    with open(path, "rb") as f:
+        assert encode_jpeg(rgb) == f.read()
+
+
+def test_encoder_refuses_other_arrays():
+    for bad in (np.zeros((4, 4), np.uint8), np.zeros((4, 4, 4), np.uint8), np.zeros((4, 4, 3), np.float32)):
+        with pytest.raises(ValueError, match="cannot encode"):
+            encode_jpeg(bad)
