@@ -18,9 +18,11 @@ Phases (any failure exits non-zero before the result line):
      contiguous (16, 16, 257, 64) and on views of a (B, 257, 3, 16, 64)
      qkv projection for B = 16 and 32, with SDPA on the same tensors; K3
      beside a cuBLAS bf16 GEMM of the table alone and with the reductions,
-     and its int8 branch on the same queries and views quantised as the
-     serving mode does, beside torch._int_mm of the table alone and with
-     the reductions;
+     its fp32 branch (``PICOPOSE_MATCH_FP32=1``) on the same queries and
+     views beside a cuBLAS fp32 GEMM, and its int8 branch on them
+     quantised as the serving mode does, beside torch._int_mm of the
+     table alone and with the reductions; each row with the kernel's
+     share of its bound;
      the corr-window kernel once per decoder level (16^2 with one pyramid
      level, 32^2 with two, 64^2 with three) on wild centres (windows
      scattered and pushed past the map edges: mostly its per-pixel path,
@@ -194,8 +196,9 @@ Phases (any failure exits non-zero before the result line):
      process of its own (``start_ar_loop``, started after phase 6, beside
      phases 7, 11 and 13c; ``ar_loop_phase``, last, reads it, then holds K1,
      K2 and K3 (fp32 and its int8 branch) at the loop's ViT-S fp32 shapes
-     against their plain versions with device ms, library ms and bound on
-     the idle card) on a 3-object, 2-scene world of 64
+     against their plain versions with device ms, library ms, bound and
+     the kernel's share of it on the idle card) on a 3-object, 2-scene
+     world of 64
      training and 8 test views (10 training steps; five evaluation arms,
      each scored with ``score_csv --vsd --bootstrap 2000``), every training
      and evaluation run printing its launches: the loss falls, each arm
@@ -211,8 +214,13 @@ launches in the int8-matching ``estimate`` that captures its program;
 each row's executions per replayed run_batch, from the trace, as
 ``replay_launches``, per replay of the compiled training step as
 ``train_launches`` and per loop step as ``loop_launches``, both from
-traces, and the launches of phase 14's runs summed as ``ar_launches``),
-the card line, and the result line.
+traces, and the launches of phase 14's runs summed as ``ar_launches``;
+K2's and K3's fp32 branches under ``fp32``: K3 at the main path's shape,
+both at the accuracy loop's; each time's source under ``timed_by``:
+"trace", or "events" where three traces in a row lost device events and
+the calls were timed back to back with CUDA events, launch gaps
+included; a kernel is called below its library call only when both
+times are traced), the card line, and the result line.
 The script leaves PyTorch's TF32 flags at their defaults (cuDNN may take
 TF32 for fp32 convolutions): the package pins its fp32 work itself
 (``device.full_fp32``), and phase 5 checks that.  Inputs and weights
@@ -267,16 +275,18 @@ def dev_us(e) -> float:
 
 
 def device_ms(fn, inputs, iters: int = 20, floor_ms: float = 0.0,
-              kernels_per_call: int | None = None) -> float:
-    """Device ms per call: the kernel time of ``iters`` calls, summed over a
-    torch.profiler trace (so host overhead between launches is left out),
-    inputs cycled as in ``cuda_ms``.  A trace whose time per call is below
-    ``floor_ms`` (the work's bound: no call can be faster), or that holds
-    another number of device events than ``iters`` x ``kernels_per_call``
-    where that is given, lost device events and is taken again; after three
-    such traces the calls are timed with CUDA events instead (``cuda_ms``),
-    and the line says so (traces on this machine lose events now and then:
-    K4's and K5's main-path timings have met three in a row)."""
+              kernels_per_call: int | None = None) -> tuple[float, str]:
+    """(device ms per call, "trace" or "events"): the kernel time of
+    ``iters`` calls, summed over a torch.profiler trace (so host overhead
+    between launches is left out), inputs cycled as in ``cuda_ms``.  A
+    trace whose time per call is below ``floor_ms`` (the work's bound: no
+    call can be faster), or that holds another number of device events
+    than ``iters`` x ``kernels_per_call`` where that is given, lost device
+    events and is taken again; after three such traces the calls are timed
+    with CUDA events instead (``cuda_ms``: back to back on the host's
+    clock, launch gaps included), and the second item says "events"
+    (traces on this machine lose events now and then: K4's and K5's
+    main-path timings have met three in a row)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -292,17 +302,29 @@ def device_ms(fn, inputs, iters: int = 20, floor_ms: float = 0.0,
         us, count = sum(dev_us(e) for e in events), sum(e.count for e in events)
         whole = kernels_per_call is None or count == iters * kernels_per_call
         if us > 0 and us / iters / 1e3 >= floor_ms and whole:
-            return us / iters / 1e3
+            return us / iters / 1e3, "trace"
         print(f"[profile] a trace held {us!r} us of device time in {count} events for {iters} calls (bound "
               f"{floor_ms!r} ms per call, {kernels_per_call} kernels per call); profiling again")
     ms = cuda_ms(fn, inputs, iters)
     print(f"[profile] timed with CUDA events instead: {ms!r} ms per call")
-    return ms
+    return ms, "events"
 
 
-def timed(fn, inputs, iters: int = 20, floor_ms: float = 0.0) -> tuple[float, float]:
-    """(device ms per call, ms per call back to back on the host clock)."""
-    return device_ms(fn, inputs, iters, floor_ms), cuda_ms(fn, inputs, iters)
+def time_row(r: dict, **timings: tuple[float, str]) -> None:
+    """Put each ``device_ms`` result in row ``r`` under its key, and what it
+    was timed by under ``r["timed_by"]``."""
+    for key, (ms, by) in timings.items():
+        r[key] = ms
+        r.setdefault("timed_by", {})[key] = by
+
+
+def below(r: dict, key: str = "library_ms") -> str:
+    """Whether the row's kernel took less device time than ``r[key]``; a
+    comparison is made only between two traced times."""
+    by = r["timed_by"]
+    if by["ms"] == by[key] == "trace":
+        return str(r["ms"] < r[key])
+    return f"not compared (kernel timed by {by['ms']}, the other by {by[key]})"
 
 
 def bound(nbytes: float, flops: float, peak: float) -> tuple[float, str]:
@@ -333,18 +355,19 @@ def layernorm_row(g: torch.Generator, rows: int, tag: str = "kernel", width: int
     tol = dict(atol=1e-3, rtol=2**-7) if dtype == torch.bfloat16 else dict(atol=1e-5, rtol=0)
     torch.testing.assert_close(got.float(), ref.float(), **tol)
     bd = bound(2 * xs[0].numel() * size + 2 * width * 4, 8 * xs[0].numel(), H100_FP32_FLOPS)
+    library = lambda x, s, b: F.layer_norm(x, (width,), wl, bl, 1e-6)
     r = dict(
         err=(got.float() - ref.float()).abs().max().item(), tol=f"atol {tol['atol']!r} + rtol {tol['rtol']!r}",
-        ms_call=cuda_ms(L.layernorm_cuda, args), plain_ms=device_ms(L.layernorm_plain, args, floor_ms=bd[0]),
-        bound=bd,
+        ms_call=cuda_ms(L.layernorm_cuda, args), bound=bd,
     )
-    r["ms"], r["library_ms"], r["library_call"] = (
-        device_ms(L.layernorm_cuda, args, floor_ms=bd[0]),
-        *timed(lambda x, s, b: F.layer_norm(x, (width,), wl, bl, 1e-6), args, floor_ms=bd[0]),
-    )
+    time_row(r, plain_ms=device_ms(L.layernorm_plain, args, floor_ms=bd[0]),
+             ms=device_ms(L.layernorm_cuda, args, floor_ms=bd[0]),
+             library_ms=device_ms(library, args, floor_ms=bd[0]))
+    r["library_call"] = cuda_ms(library, args)
     print(f"[{tag}] layernorm ({rows}, 257, {width}) {str(dtype)[6:]}: max_abs_err {r['err']!r}; device ms kernel "
           f"{r['ms']!r}, plain {r['plain_ms']!r}, F.layer_norm {r['library_ms']!r}; per call back to back kernel "
-          f"{r['ms_call']!r}, F.layer_norm {r['library_call']!r}; bound {r['bound'][0]!r} ms")
+          f"{r['ms_call']!r}, F.layer_norm {r['library_call']!r}; bound {r['bound'][0]!r} ms "
+          f"({r['bound'][0] / r['ms']!r} of it); timed by {r['timed_by']}")
     return r
 
 
@@ -353,7 +376,8 @@ def attention_row(g: torch.Generator, layout: str, B: int, tag: str = "kernel", 
     """K2 on attention (B, heads, 257, 64) (the ViT-L's bf16 16 heads by
     default), contiguous or on views of a (B, 257, 3, heads, 64) qkv
     projection, against its plain version, device ms beside SDPA on the
-    same tensors, and the bound."""
+    same tensors, and the bound.  The wrapper copies no q, k or v (both
+    kernels read views on the 16-byte grid)."""
     import torch.nn.functional as F
 
     from picopose_tpu_torch.ops import attention as A
@@ -373,21 +397,22 @@ def attention_row(g: torch.Generator, layout: str, B: int, tag: str = "kernel", 
     torch.cuda.synchronize()
     tol = dict(atol=1e-2, rtol=2**-7) if dtype == torch.bfloat16 else dict(atol=1e-5, rtol=0)
     torch.testing.assert_close(got.float(), ref.float(), **tol)
-    # the fp32 path takes contiguous operands (ops/attention.py)
-    check(dtype == torch.float32 or not A.INPUT_COPIES, f"attention reads {layout} in place: {dict(A.INPUT_COPIES)}")
+    check(not A.INPUT_COPIES, f"attention reads {layout} in place: {dict(A.INPUT_COPIES)}")
     BH = B * H
     peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS
     bd = bound(4 * BH * N * D * size, 4 * BH * N * N * D, peak)
     r = dict(
         err=(got.float() - ref.float()).abs().max().item(), tol=f"atol {tol['atol']!r} + rtol {tol['rtol']!r}",
-        ms_call=cuda_ms(A.attention_cuda, sets), plain_ms=device_ms(A.attention_plain, sets[:1], 5, bd[0]),
-        bound=bd,
+        ms_call=cuda_ms(A.attention_cuda, sets), bound=bd,
     )
-    r["ms"] = device_ms(A.attention_cuda, sets, floor_ms=bd[0])
-    r["library_ms"], r["library_call"] = timed(F.scaled_dot_product_attention, sets, floor_ms=bd[0])
+    time_row(r, plain_ms=device_ms(A.attention_plain, sets[:1], 5, bd[0]),
+             ms=device_ms(A.attention_cuda, sets, floor_ms=bd[0], kernels_per_call=1),
+             library_ms=device_ms(F.scaled_dot_product_attention, sets, floor_ms=bd[0]))
+    r["library_call"] = cuda_ms(F.scaled_dot_product_attention, sets)
     print(f"[{tag}] attention ({B}, {H}, {N}, {D}) {str(dtype)[6:]} {layout}: max_abs_err {r['err']!r}; device "
           f"ms kernel {r['ms']!r}, plain {r['plain_ms']!r}, SDPA {r['library_ms']!r}; per call back to back "
-          f"kernel {r['ms_call']!r}, SDPA {r['library_call']!r}; bound {r['bound'][0]!r} ms")
+          f"kernel {r['ms_call']!r}, SDPA {r['library_call']!r}; bound {r['bound'][0]!r} ms "
+          f"({r['bound'][0] / r['ms']!r} of it); timed by {r['timed_by']}; kernel below SDPA: {below(r)}")
     return r
 
 
@@ -402,33 +427,40 @@ def kernel_checks(g: torch.Generator) -> dict:
     out["attention"] = attention_row(g, "qkv views", 16)
     attention_row(g, "qkv views", 32)
 
-    # K3: 16 queries against a 162-view bf16 bank (S = 256, C = 1024)
+    # K3: 16 queries against a 162-view bf16 bank (S = 256, C = 1024), the
+    # same operands in fp32 (PICOPOSE_MATCH_FP32=1) and quantised to int8
     out["match_scores"], q32, qm, t32 = match_row(g, 16, 162, 256, 1024, torch.bfloat16)
+    out["match_scores_fp32"] = match_row(g, 16, 162, 256, 1024, torch.float32, operands=(q32, qm, t32))[0]
     out["match_scores_int8"] = match_int8_checks(q32, qm, t32)
     out.update(stage3_kernel_checks(g))
     for name, r in out.items():
         print(f"[kernel] {name}: max_abs_err {r['err']!r} ({r['tol']}), kernel {r['ms']!r} ms, "
               f"plain {r['plain_ms']!r} ms, library {r['library_ms']!r} ms, "
-              f"bound {r['bound'][0]!r} ms ({r['bound'][1]})")
+              f"bound {r['bound'][0]!r} ms ({r['bound'][1]}); timed by {r['timed_by']}")
     return out
 
 
-def match_row(g: torch.Generator, B: int, Nv: int, S: int, C: int, dtype: torch.dtype, tag: str = "kernel"):
+def match_row(g: torch.Generator, B: int, Nv: int, S: int, C: int, dtype: torch.dtype, tag: str = "kernel",
+              operands: tuple | None = None):
     """K3 for B queries against an Nv-view bank at (S, C) in ``dtype``
     against its plain version (atol 1e-5: the scores sum in another
     order), device ms beside cuBLAS's GEMM of the whole table alone and
-    with the reductions, and the bound.  Each query is a noisy copy of one
-    view, so the table has structure and the planted views must win.
-    Returns the row and the fp32 operands (q, mask, t) for the int8
-    branch."""
+    with the reductions, the bound and the kernel's share of it.  Each
+    query is a noisy copy of one view, so the table has structure and the
+    planted views must win.  Returns the row and the fp32 operands (q,
+    mask, t) for the int8 branch; ``operands`` gives them instead of new
+    draws."""
     from picopose_tpu_torch.ops import matching as M
 
     dev = torch.device("cuda")
     rn = lambda *s: torch.randn(*s, generator=g, device=dev)
-    t32 = M.l2_normalize(rn(Nv, S, C))
     planted = torch.arange(B, device=dev) * (Nv // B)
-    q32 = M.l2_normalize(t32[planted] + 0.5 * C**-0.5 * rn(B, S, C))
-    qm = (torch.rand(B, S, generator=g, device=dev) > 0.3).float()
+    if operands is None:
+        t32 = M.l2_normalize(rn(Nv, S, C))
+        q32 = M.l2_normalize(t32[planted] + 0.5 * C**-0.5 * rn(B, S, C))
+        qm = (torch.rand(B, S, generator=g, device=dev) > 0.3).float()
+    else:
+        q32, qm, t32 = operands
     q, t = q32.to(dtype), t32.to(dtype)
     margs = [(q, qm, t)]
     got, ref = M.match_scores_cuda(*margs[0]), M.match_scores_plain(*margs[0])
@@ -448,19 +480,20 @@ def match_row(g: torch.Generator, B: int, Nv: int, S: int, C: int, dtype: torch.
 
     peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS
     size = dtype.itemsize
-    r = dict(
-        err=(got - ref).abs().max().item(), tol="atol 1e-5",
-        ms=device_ms(M.match_scores_cuda, margs, iters=10),
-        plain_ms=device_ms(M.match_scores_plain, margs, iters=5),
-        library_ms=device_ms(library, margs, iters=5),
-        bound=bound((q.numel() + t.numel()) * size + qm.numel() * 4 + B * Nv * 4, 2 * B * Nv * S * S * C, peak),
-    )
-    gemm_ms = device_ms(gemm, margs, iters=5)
+    bd = bound((q.numel() + t.numel()) * size + qm.numel() * 4 + B * Nv * 4, 2 * B * Nv * S * S * C, peak)
+    # fp32 launches the tile kernel and the fold: a trace that lost one reads short and is taken again
+    per_call = 2 if dtype == torch.float32 else 1
+    r = dict(err=(got - ref).abs().max().item(), tol="atol 1e-5", bound=bd)
+    time_row(r, ms=device_ms(M.match_scores_cuda, margs, iters=10, floor_ms=bd[0], kernels_per_call=per_call),
+             plain_ms=device_ms(M.match_scores_plain, margs, iters=5, floor_ms=bd[0]),
+             library_ms=device_ms(library, margs, iters=5, floor_ms=bd[0]),
+             gemm_ms=device_ms(gemm, margs, iters=5, floor_ms=bd[0]))
     kind = str(dtype)[6:]
     print(f"[{tag}] match_scores ({B}, {Nv}, {S}, {C}) {kind}: max_abs_err {r['err']!r}; device ms kernel "
-          f"{r['ms']!r}, plain {r['plain_ms']!r}, cuBLAS {kind} GEMM of the table alone {gemm_ms!r}, GEMM + "
+          f"{r['ms']!r}, plain {r['plain_ms']!r}, cuBLAS {kind} GEMM of the table alone {r['gemm_ms']!r}, GEMM + "
           f"reductions {r['library_ms']!r}; "
-          f"bound {r['bound'][0]!r} ms = {r['bound'][0] / r['ms']!r} of the {kind} peak")
+          f"bound {r['bound'][0]!r} ms ({r['bound'][1]}; {r['bound'][0] / r['ms']!r} of it); timed by "
+          f"{r['timed_by']}; kernel below GEMM + reductions: {below(r)}")
     return r, q32, qm, t32
 
 
@@ -492,19 +525,18 @@ def match_int8_checks(q32: torch.Tensor, qm: torch.Tensor, t32: torch.Tensor, ta
         return (rowmax * ok).sum(1) / S
 
     torch.testing.assert_close(library(*args[0]), ref, atol=1e-5, rtol=0)
-    r = dict(
-        err=(got - ref).abs().max().item(), tol="atol 1e-5 (sims exact; the score sums in another order)",
-        ms=device_ms(M.match_scores_cuda, args, iters=10),
-        plain_ms=device_ms(M.match_scores_plain, args, iters=3),
-        library_ms=device_ms(library, args, iters=5),
-        bound=bound(q.numel() + qm.numel() * 4 + t.numel() + B * Nv * 4, 2 * B * Nv * S * S * C, H100_INT8_OPS),
-    )
-    g_ms = device_ms(gemm, args, iters=5)
+    bd = bound(q.numel() + qm.numel() * 4 + t.numel() + B * Nv * 4, 2 * B * Nv * S * S * C, H100_INT8_OPS)
+    r = dict(err=(got - ref).abs().max().item(), tol="atol 1e-5 (sims exact; the score sums in another order)",
+             bound=bd)
+    time_row(r, ms=device_ms(M.match_scores_cuda, args, iters=10, floor_ms=bd[0], kernels_per_call=1),
+             plain_ms=device_ms(M.match_scores_plain, args, iters=3, floor_ms=bd[0]),
+             library_ms=device_ms(library, args, iters=5, floor_ms=bd[0]),
+             gemm_ms=device_ms(gemm, args, iters=5, floor_ms=bd[0]))
     print(f"[{tag}] match_scores int8 ({B}, {Nv}, {S}, {C}): max_abs_err {r['err']!r} against the plain version "
           f"({(got - ref32).abs().max().item()!r} against fp32 operands); device ms kernel {r['ms']!r}, plain "
           f"{r['plain_ms']!r}, "
-          f"torch._int_mm of the table alone {g_ms!r}, _int_mm + reductions {r['library_ms']!r}; bound "
-          f"{r['bound'][0]!r} ms = {r['bound'][0] / r['ms']!r} of the int8 peak")
+          f"torch._int_mm of the table alone {r['gemm_ms']!r}, _int_mm + reductions {r['library_ms']!r}; bound "
+          f"{r['bound'][0]!r} ms = {r['bound'][0] / r['ms']!r} of the int8 peak; timed by {r['timed_by']}")
     return r
 
 
@@ -566,6 +598,7 @@ def warp_timing(what: str, calls: list) -> dict:
     from picopose_tpu_torch.ops import sample as SA
 
     tot = dict(ms=0.0, plain_ms=0.0, lib=0.0, b=0.0, err=0.0)
+    by = {"ms": "trace", "plain_ms": "trace", "library_ms": "trace"}  # "events" where any grid fell back
     for sets in calls:
         feat, cen, H, W, group = sets[0]
         B2, P, C = feat.shape
@@ -585,10 +618,14 @@ def warp_timing(what: str, calls: list) -> dict:
         nbytes = (feat.numel() + got.numel()) * feat.element_size() + cen.numel() * 4
         bd = bound(nbytes, B * P * 4 * C * 2, H100_BF16_FLOPS)
         lib_args = [library_args(*a) for a in sets]
-        lib = device_ms(lambda x, grid: F.grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
-                                                      align_corners=True), lib_args, floor_ms=bd[0])
-        ms = device_ms(SA.warp_cuda, sets, floor_ms=bd[0])
-        plain = device_ms(SA.warp_plain, sets[:1], iters=3, floor_ms=bd[0])
+        timings = {
+            "library_ms": device_ms(lambda x, grid: F.grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
+                                                                  align_corners=True), lib_args, floor_ms=bd[0]),
+            "ms": device_ms(SA.warp_cuda, sets, floor_ms=bd[0]),
+            "plain_ms": device_ms(SA.warp_plain, sets[:1], iters=3, floor_ms=bd[0]),
+        }
+        by.update({k: "events" for k, (_, b) in timings.items() if b == "events"})
+        (lib, _), (ms, _), (plain, _) = timings.values()
         print(f"[kernel] warp {what} G={H}: max_abs_err {err!r}, kernel {ms!r} ms, plain {plain!r} ms, "
               f"grid_sample {lib!r} ms, bound {bd[0]!r} ms ({bd[1]}) = {bd[0] / ms!r} of the kernel's time")
         tot.update(ms=tot["ms"] + ms, plain_ms=tot["plain_ms"] + plain, lib=tot["lib"] + lib,
@@ -596,10 +633,11 @@ def warp_timing(what: str, calls: list) -> dict:
         del lib_args, got, ref
     n = len(calls)
     print(f"[kernel] warp {what} per batch ({n} launches): kernel {tot['ms']!r} ms, plain {tot['plain_ms']!r} ms, "
-          f"grid_sample {tot['lib']!r} ms, bound {tot['b']!r} ms = {tot['b'] / tot['ms']!r} of the kernel's time")
+          f"grid_sample {tot['lib']!r} ms, bound {tot['b']!r} ms = {tot['b'] / tot['ms']!r} of the kernel's time; "
+          f"timed by {by}")
     return dict(
         err=tot["err"], tol="atol 1e-2 + rtol 2^-7", ms=tot["ms"] / n, plain_ms=tot["plain_ms"] / n,
-        library_ms=tot["lib"] / n, bound=(tot["b"] / n, "bytes"),
+        library_ms=tot["lib"] / n, bound=(tot["b"] / n, "bytes"), timed_by=by,
     )
 
 
@@ -612,6 +650,7 @@ def corr_timing(what: str, calls: list, tol: dict, timed: bool = True) -> dict:
     from picopose_tpu_torch.ops import corr as CO
 
     tot = dict(ms=0.0, plain_ms=0.0, b=0.0, f=0.0, err=0.0)
+    by = {"ms": "trace", "plain_ms": "trace"}  # "events" where any level fell back
     for sets in calls:
         f1, maps, grid, radius, group = sets[0]
         B, G, W, C = f1.shape
@@ -630,10 +669,12 @@ def corr_timing(what: str, calls: list, tol: dict, timed: bool = True) -> dict:
         bd = bound(nbytes, flops, H100_BF16_FLOPS)
         # a trace below the bound lost events and is taken again
         launches = -(-L // CO.LEVELS_PER_LAUNCH)
-        ms = device_ms(CO.corr_windows_cuda, sets, floor_ms=bd[0], kernels_per_call=launches) \
-            if timed else float("nan")
-        plain = device_ms(CO.corr_windows_plain, sets[:1], iters=3, floor_ms=bd[0]) \
-            if timed else float("nan")
+        ms, plain = float("nan"), float("nan")
+        if timed:
+            (ms, by_ms), (plain, by_plain) = (
+                device_ms(CO.corr_windows_cuda, sets, floor_ms=bd[0], kernels_per_call=launches),
+                device_ms(CO.corr_windows_plain, sets[:1], iters=3, floor_ms=bd[0]))
+            by.update({k: "events" for k, b in (("ms", by_ms), ("plain_ms", by_plain)) if b == "events"})
         tiles, mixed, pixels = stats.tolist()
         print(f"[kernel] corr_window {what} radius={radius} G={G} levels={L}: max_abs_err {err!r} (largest |plain| "
               f"{ref.float().abs().max().item()!r}; at most {use!r} of the tolerance), kernel {ms!r} ms, "
@@ -643,10 +684,11 @@ def corr_timing(what: str, calls: list, tol: dict, timed: bool = True) -> dict:
                    b=tot["b"] + nbytes / H100_BYTES_PER_S * 1e3, f=tot["f"] + flops / H100_BF16_FLOPS * 1e3)
     n = len(calls)
     print(f"[kernel] corr_window {what} radius={radius} per batch ({n} launches): kernel {tot['ms']!r} ms, "
-          f"plain {tot['plain_ms']!r} ms, bound {max(tot['b'], tot['f'])!r} ms")
+          f"plain {tot['plain_ms']!r} ms, bound {max(tot['b'], tot['f'])!r} ms; timed by {by if timed else {}}")
     return dict(
         err=tot["err"], tol="atol 1e-2 + rtol 2^-7", ms=tot["ms"] / n, plain_ms=tot["plain_ms"] / n,
         library_ms=None, bound=(max(tot["b"], tot["f"]) / n, "bytes" if tot["b"] >= tot["f"] else "operations"),
+        timed_by=by if timed else {},
     )
 
 
@@ -1026,8 +1068,8 @@ def count_kernels(events, match) -> tuple[float, int]:
 # the CUDA kernels each wrapper's entry point launches, as a profiler trace names them
 KERNEL_SYMBOLS = {
     "layernorm": r"\blayernorm_(row|loop)_kernel<",
-    "attention": r"\battention_(hopper|tc|f32)_kernel<",
-    "match_scores": r"\bmatch_scores_(hopper_kernel<__nv_bfloat16>|f32_kernel\b)",
+    "attention": r"\battention_(hopper|tc|ffma)_kernel<",
+    "match_scores": r"\bmatch_scores_(hopper_kernel<__nv_bfloat16>|ffma_kernel\b)",
     "match_scores_int8": r"\bmatch_scores_hopper_kernel<signed char>",
     "corr_window": r"\bcorr_(tile|f32|any)_kernel\b",
     "warp": r"\bwarp_kernel<",
@@ -1178,13 +1220,13 @@ def serve_phase(seed: int) -> dict:
     decode = host_ms(lambda: [est._host_batch(frame, K, dets[s : s + 16], max(0, s + 16 - n)) for s in (0, 16)], 6)[1:]
     ft = torch.as_tensor(frame, device=est.device)
     mk = torch.as_tensor(np.stack([d["mask"] for d in dets[:16]]), device=est.device)
-    pre_ms = device_ms(lambda f, m: preprocess_frame(f, m), [(ft, mk)], iters=10)
+    pre_ms, pre_by = device_ms(lambda f, m: preprocess_frame(f, m), [(ft, mk)], iters=10)
     print(f"[serve] estimate ms per frame (18 detections, 2 chunks; 10 runs after one warm-up): host "
           f"preprocessing median {float(np.median(per_frame[False]))!r} (min {min(per_frame[False])!r}, max "
           f"{max(per_frame[False])!r}); on-device preprocessing median {float(np.median(per_frame[True]))!r} "
           f"(min {min(per_frame[True])!r}, max {max(per_frame[True])!r})")
     print(f"[serve] host decode of the 18 crops (both chunks) ms, median of 5: {float(np.median(decode))!r}; "
-          f"preprocess_frame device ms (16 detections, 960 x 1280 frame): {pre_ms!r}")
+          f"preprocess_frame device ms (16 detections, 960 x 1280 frame): {pre_ms!r} (timed by {pre_by})")
     host_crop_paths(est, frame, K, dets)
     host_entry_point_ms(frame, dets[0]["mask"])
 
@@ -2935,7 +2977,7 @@ def train_phase(seed: int) -> dict:
     for name, r in rows.items():
         print(f"[train] {name} at the training shapes: max_abs_err {r['err']!r} ({r['tol']}), kernel {r['ms']!r} ms "
               f"per launch, plain {r['plain_ms']!r} ms, library {r['library_ms']!r} ms, bound {r['bound'][0]!r} ms "
-              f"({r['bound'][1]})")
+              f"({r['bound'][1]}); timed by {r['timed_by']}")
 
     # 4. overfitting a fixed batch: 30 steps at lr 3e-4, the same noise every step
     init_random_(model, seed)
@@ -4066,17 +4108,21 @@ AR_TAGS = ("random", "trained", "trained_int8", "trained_topk1", "trained_quant"
 AR_KEYS = ("AR_MSSD", "AR_MSPD", "AR_mssd_mspd", "AR_VSD", "AR_bop19")
 
 
-def ar_loop_kernel_checks(g: torch.Generator) -> None:
+def ar_loop_kernel_checks(g: torch.Generator) -> dict:
     """K1, K2 and K3 at the accuracy loop's shapes (ViT-S, fp32): K1 on a
     bank chunk's and a training batch's rows (32 and 16 crops, 257 tokens,
     width 384), K2 on their qkv views (6 heads), K3 for the evaluation's 4
     queries against a 42-view bank (S = 256, C = 384) in fp32 and its int8
-    branch on the same operands quantised."""
+    branch on the same operands quantised.  Returns the fp32 rows of K2 (a
+    bank chunk's 32 crops) and K3."""
+    out = {}
     for rows in (32, 16):
         layernorm_row(g, rows, "ar", width=384, dtype=torch.float32)
-        attention_row(g, "qkv views", rows, "ar", heads=6, dtype=torch.float32)
-    _, q32, qm, t32 = match_row(g, 4, 42, 256, 384, torch.float32, "ar")
+        r = attention_row(g, "qkv views", rows, "ar", heads=6, dtype=torch.float32)
+        out.setdefault("attention", r)
+    out["match_scores"], q32, qm, t32 = match_row(g, 4, 42, 256, 384, torch.float32, "ar")
     match_int8_checks(q32, qm, t32, "ar")
+    return out
 
 
 def ar_log(path: str) -> dict:
@@ -4217,11 +4263,11 @@ def start_ar_loop(seed: int, log: str) -> subprocess.Popen:
     return proc
 
 
-def ar_loop_phase(seed: int, proc: subprocess.Popen, log: str) -> dict:
+def ar_loop_phase(seed: int, proc: subprocess.Popen, log: str) -> tuple[dict, dict]:
     """Phase 14: waits for ``start_ar_loop``'s process and prints its lines,
     then K1, K2 and K3 at the loop's shapes on the otherwise idle card
     (``ar_loop_kernel_checks``).  Returns the runs' launches, summed per
-    kernel."""
+    kernel, and the fp32 rows of K2 and K3."""
     t0 = time.perf_counter()
     rc = proc.wait(timeout=1200)
     print(f"[ar] waited {time.perf_counter() - t0!r} s for the loop's process")
@@ -4234,9 +4280,9 @@ def ar_loop_phase(seed: int, proc: subprocess.Popen, log: str) -> dict:
         print(out[-8000:], file=sys.stderr)
     check(rc == 0, "phase 14's runs exit 0 and pass their checks")
     t0 = time.perf_counter()
-    ar_loop_kernel_checks(torch.Generator(device="cuda").manual_seed(seed + 14))
+    rows = ar_loop_kernel_checks(torch.Generator(device="cuda").manual_seed(seed + 14))
     print(f"[ar] kernels at the loop's shapes {time.perf_counter() - t0!r} s")
-    return json.loads(out.split("FRESH_RESULT ", 1)[1].splitlines()[0])
+    return json.loads(out.split("FRESH_RESULT ", 1)[1].splitlines()[0]), rows
 
 
 def main() -> int:
@@ -4327,7 +4373,7 @@ def main() -> int:
     ranks_phase(SEED)
     print(f"[phase] ranks (phase 13a, 13b) {time.perf_counter() - t0!r} s")
     t0 = time.perf_counter()
-    ar_launches = ar_loop_phase(SEED, ar_proc, ar_log_path)
+    ar_launches, ar_rows = ar_loop_phase(SEED, ar_proc, ar_log_path)
     print(f"[phase] accuracy loop (phase 14, its runs started before phase 7) {time.perf_counter() - t0!r} s")
 
     src = "picopose_tpu_torch/kernels/csrc/"
@@ -4339,6 +4385,12 @@ def main() -> int:
         "corr_window": "picopose_tpu/ops/pallas/corr.py:327",
         "warp": "picopose_tpu/ops/pallas/warp.py:102",
     }
+    def brief(r: dict) -> dict:
+        return {"max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+                "bound_by": r["bound"][1], "library_ms": r["library_ms"], "timed_by": r["timed_by"]}
+
+    fp32 = {"attention": {"loop": brief(ar_rows["attention"])},
+            "match_scores": {"main": brief(checks["match_scores_fp32"]), "loop": brief(ar_rows["match_scores"])}}
     rows = []
     for name, (source, _, _) in kernels.KERNELS.items():
         r = checks[name]
@@ -4350,7 +4402,8 @@ def main() -> int:
             "ar_launches": ar_launches[name],
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-            "library_ms": r["library_ms"],
+            "library_ms": r["library_ms"], "timed_by": r["timed_by"],
+            **({"fp32": fp32[name]} if name in fp32 else {}),
         })
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -37,7 +37,7 @@ NVCC_FLAGS = (
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _S = ctypes.c_char_p  # int64 values packed with struct.pack
 
-_MATCH = ("matching.cu", "pp_match_scores", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
+_MATCH = ("matching.cu", "pp_match_scores", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P])
 
 # kernel name -> (source file, C entry point, argument types)
 KERNELS = {
@@ -147,6 +147,14 @@ def launch(name: str, *args) -> None:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err} ({msg})")
     if not torch.cuda.is_current_stream_capturing():
         LAUNCHES[name] += 1
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name`` (built at first use), for the
+    helpers its source exports beside its entry point."""
+    if name not in _libs:
+        build([name])
+    return _libs[name]
 
 
 def reset_launches() -> None:

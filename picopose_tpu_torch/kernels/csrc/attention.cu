@@ -41,12 +41,27 @@
 // warp computes 16 query rows with wmma (mma.sync) products, recomputing
 // the chunked Q K^T in two passes (row maximum and sum, then P and P V).
 //
-// fp32 (any N <= 512): one warp per query row on the CUDA cores (keys
-// spread over lanes, P shuffled to the lane owning each output column); V
-// is read from device memory where it does not fit beside K (N = 512 at
-// D = 64).
+// fp32 (any N <= 512): full fp32 on the CUDA cores (no TF32, as the fp32
+// contract asks), so bound by operations at the FFMA rate: at the accuracy
+// loop's ViT-S (32, 6, 257, 64) 3.25 GFLOP, ~48.5 us at 67 TFLOP/s, over
+// 50.5 MB (~15 us).  A register-tiled FFMA kernel with an online softmax:
+// a block of 4 warps takes 64 query rows of one (batch, head) (warps
+// whose 16 rows all lie past N only stage, so the 257th row costs one
+// warp) and walks K and V in tiles of 32 keys, double-buffered by 16-byte
+// cp.async copies read in place by strides (the ViT's qkv views; O is
+// written by strides into its (B, N, H, D) buffer).  Each thread holds a
+// 4-row x 4-key tile of scores (8 FMAs per float4 read from shared
+// memory, K rows padded so a quarter-warp's reads hit 8 bank groups), the
+// running maximum and sum of its 4 rows and a 4 x D/8 tile of O; P goes
+// through shared memory (the warp's own rows: __syncwarp) into a
+// register-tiled P V.  The tail key tile pays only for the 8-key slots
+// below N (one slot for the 257th key).  A last row tile that fits one
+// warp (the 257th row's) splits the keys over its four warps instead and
+// combines their softmax states in a fixed order; the grid runs the row
+// tiles slowest, so those short blocks run together after the full
+// ones.  ~60 KB of shared memory (D = 64): three blocks per SM.
 //
-// The last two take contiguous (BH, N, D) tensors only.
+// The bf16 two-pass kernel takes contiguous (BH, N, D) tensors only.
 
 #include "hopper.cuh"
 
@@ -604,123 +619,350 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int BH, int 
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- fp32: CUDA cores ----------------------------------------------------
+// ---- fp32: register-tiled FFMA, online softmax ---------------------------
 
-constexpr int kWarps = 8;
-constexpr int kRowsPerBlock = 64;
-constexpr int kSlots = kMaxKeys / 32;
+namespace ff {
 
-// row stride of K in shared memory: D plus one 32-bit word of padding, so
-// 32 lanes reading 32 different key rows hit 32 different banks
+constexpr int kWarps = 4;
+constexpr int kRows = 16 * kWarps;  // query rows per block
+constexpr int kKeys = 32;           // keys per staged K / V tile
+constexpr int kSlots = kKeys / 8;   // keys per lane and tile
+constexpr int kThreads = 32 * kWarps;
+
 template <int D>
-__host__ __device__ constexpr int key_stride() { return D + 1; }
+struct Layout {
+  static constexpr int kLd = D + 4;         // Q and K row stride in floats (bank groups)
+  static constexpr int kPLd = kKeys + 4;    // P row stride
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kRows * kLd;      // K[2]
+  static constexpr int kV = kK + 2 * kKeys * kLd;  // V[2], rows of D
+  static constexpr int kP = kV + 2 * kKeys * D;
+  static constexpr int kBytes = (kP + kRows * kPLd) * static_cast<int>(sizeof(float));
+};
 
-// K, the warps' query rows and (v_shared) V; without V it is read from
-// device memory (through L1) where the block's 227 KB cannot hold it, as
-// at N = 512, D = 64
-template <int D>
-size_t smem_bytes(int N, bool v_shared) {
-  return static_cast<size_t>(N) * (key_stride<D>() + (v_shared ? D : 0)) * sizeof(float) +
-         kWarps * D * sizeof(float);
+struct Args {
+  float* o;
+  long long sq[3], sk[3], sv[3], so[3];  // (b, h, n) strides in elements, D contiguous
+  int N, H;
+  float scale_log2;  // D^-0.5 * log2(e)
+};
+
+// ROWS rows of K, V or Q from row0 on, as 16-byte copies by NT threads
+// (thread t of them); rows past N zero-filled
+template <int D, int ROWS, int LD, int NT>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src, long long sn, int row0,
+                                           int N, int t) {
+  constexpr int kQuads = D / 4, kCopies = ROWS * kQuads;
+#pragma unroll
+  for (int it = 0; it < (kCopies + NT - 1) / NT; ++it) {
+    const int c = it * NT + t, r = c / kQuads, part = c % kQuads;
+    if (kCopies % NT != 0 && c >= kCopies) break;
+    const bool ok = row0 + r < N;
+    pp::cp_async16(dst + r * LD + part * 4, src + (ok ? row0 + r : 0) * sn + part * 4, ok);
+  }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kWarps * 32)
-attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o, int N,
-                     float scale, bool v_shared) {
-  constexpr int KS = key_stride<D>();
-  constexpr int DPL = D / 32;  // output columns per lane
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* ks = reinterpret_cast<float*>(smem);
-  float* qs = ks + N * KS + (v_shared ? N * D : 0);
-
-  const size_t base = static_cast<size_t>(blockIdx.y) * N * D;
-  const float* vs = v_shared ? ks + N * KS : v + base;
-  for (int i = threadIdx.x; i < N * D; i += blockDim.x) {
-    ks[(i / D) * KS + (i % D)] = k[base + i];
-    if (v_shared) ks[N * KS + i] = v[base + i];
+// Scores of this thread's 4 rows x its first NJ key slots (keys kg + 8 j
+// of the tile); NJ is the least count that holds every key below N, so
+// the tail tile (the 257th key) pays for one slot
+template <int D, int NJ>
+__device__ __forceinline__ void scores(int nj, float (&s)[4][kSlots], const float* qw,
+                                       const float* kt, int kg) {
+  if constexpr (NJ > 1) {
+    if (nj < NJ) return scores<D, NJ - 1>(nj, s, qw, kt, kg);
   }
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* qw = qs + warp * D;
-  const int row_end = min(N, static_cast<int>(blockIdx.x + 1) * kRowsPerBlock);
-  for (int row = blockIdx.x * kRowsPerBlock + warp; row < row_end; row += kWarps) {
-    for (int d = lane; d < D; d += 32) qw[d] = q[base + static_cast<size_t>(row) * D + d];
-    __syncwarp();
-
-    float sc[kSlots];
-    float m = -CUDART_INF_F;
+  using L = Layout<D>;
 #pragma unroll
-    for (int s = 0; s < kSlots; ++s) {
-      const int j = s * 32 + lane;
-      sc[s] = -CUDART_INF_F;
-      if (j < N) {
-        const float* kr = ks + j * KS;
-        float acc = 0.f;
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int d = 0; d < D; ++d) acc += qw[d] * kr[d];
-        sc[s] = acc * scale;
-        m = fmaxf(m, sc[s]);
+    for (int j = 0; j < kSlots; ++j) s[i][j] = 0.f;
+#pragma unroll
+  for (int d = 0; d < D; d += 4) {
+    float4 a[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const float4*>(qw + 4 * i * L::kLd + d);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const float4 k = *reinterpret_cast<const float4*>(kt + (kg + 8 * j) * L::kLd + d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[i][j] = fmaf(a[i].x, k.x, s[i][j]);
+        s[i][j] = fmaf(a[i].y, k.y, s[i][j]);
+        s[i][j] = fmaf(a[i].z, k.z, s[i][j]);
+        s[i][j] = fmaf(a[i].w, k.w, s[i][j]);
       }
     }
-    m = pp::warp_max(m);
-    float sum = 0.f;
-#pragma unroll
-    for (int s = 0; s < kSlots; ++s) {
-      sc[s] = (s * 32 + lane < N) ? expf(sc[s] - m) : 0.f;
-      sum += sc[s];
-    }
-    sum = pp::warp_sum(sum);
-#pragma unroll
-    for (int s = 0; s < kSlots; ++s) sc[s] /= sum;
+  }
+}
 
-    float acc[DPL];
+// This thread's running state: rows rg + 4 i of its warp's 16, the
+// running maximum m (base 2), its lanes' share of the sum l and its
+// output columns 32 h + 4 kg.. of O
+template <int D>
+struct State {
+  float o[4][D / 8], m[4], l[4];
+  __device__ __forceinline__ State() {
 #pragma unroll
-    for (int e = 0; e < DPL; ++e) acc[e] = 0.f;
+    for (int i = 0; i < 4; ++i) {
+      m[i] = -CUDART_INF_F;
+      l[i] = 0.f;
 #pragma unroll
-    for (int s = 0; s < kSlots; ++s) {
-      if (s * 32 < N) {
-        const int jn = min(32, N - s * 32);
-        for (int src = 0; src < jn; ++src) {
-          const float p = __shfl_sync(0xffffffffu, sc[s], src);
-          const float* vr = vs + (s * 32 + src) * D + lane * DPL;
+      for (int e = 0; e < D / 8; ++e) o[i][e] = 0.f;
+    }
+  }
+};
+
+// One key tile of nk keys below N (K rows kt, V rows vt in shared memory):
+// scores, the online softmax in base 2 (x = s D^-0.5 log2(e), keys past
+// N at -inf), P through the warp's own rows pw, O += P V four keys at a
+// time (P is 0 and V's zero-filled rows are finite past N)
+template <int D>
+__device__ __forceinline__ void step(State<D>& st, const float* qw, const float* kt,
+                                     const float* vt, float* pw, int nk, int kg,
+                                     float scale_log2) {
+  using L = Layout<D>;
+  constexpr int kH = D / 32;  // float4 output columns per lane
+  float s[4][kSlots];
+  scores<D, kSlots>((nk + 7) / 8, s, qw, kt, kg);
 #pragma unroll
-          for (int e = 0; e < DPL; ++e) acc[e] += p * vr[e];
+  for (int i = 0; i < 4; ++i) {
+    float mt = -CUDART_INF_F;
+#pragma unroll
+    for (int j = 0; j < kSlots; ++j) {
+      s[i][j] = kg + 8 * j < nk ? s[i][j] * scale_log2 : -CUDART_INF_F;
+      mt = fmaxf(mt, s[i][j]);
+    }
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 4));
+    const float mn = fmaxf(st.m[i], mt);  // finite: every tile holds a key below N
+    const float alpha = exp2f(st.m[i] - mn);
+    st.m[i] = mn;
+    st.l[i] *= alpha;
+#pragma unroll
+    for (int e = 0; e < 4 * kH; ++e) st.o[i][e] *= alpha;
+#pragma unroll
+    for (int j = 0; j < kSlots; ++j) {
+      const float pj = exp2f(s[i][j] - mn);
+      st.l[i] += pj;
+      pw[4 * i * L::kPLd + kg + 8 * j] = pj;
+    }
+  }
+  __syncwarp();  // the warp's P rows are written
+  const int nc = (nk + 3) & ~3;
+  for (int c = 0; c < nc; c += 4) {
+    float4 pr[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) pr[i] = *reinterpret_cast<const float4*>(pw + 4 * i * L::kPLd + c);
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) {
+#pragma unroll
+      for (int hh = 0; hh < kH; ++hh) {
+        const float4 w = *reinterpret_cast<const float4*>(vt + (c + cc) * D + 32 * hh + 4 * kg);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float p = cc == 0 ? pr[i].x : cc == 1 ? pr[i].y : cc == 2 ? pr[i].z : pr[i].w;
+          st.o[i][4 * hh + 0] = fmaf(p, w.x, st.o[i][4 * hh + 0]);
+          st.o[i][4 * hh + 1] = fmaf(p, w.y, st.o[i][4 * hh + 1]);
+          st.o[i][4 * hh + 2] = fmaf(p, w.z, st.o[i][4 * hh + 2]);
+          st.o[i][4 * hh + 3] = fmaf(p, w.w, st.o[i][4 * hh + 3]);
         }
       }
     }
-    float* orow = o + base + static_cast<size_t>(row) * D + lane * DPL;
+  }
+  __syncwarp();  // P is rewritten by the next tile
+}
+
+__device__ __forceinline__ float row_group_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  x += __shfl_xor_sync(0xffffffffu, x, 2);
+  return x + __shfl_xor_sync(0xffffffffu, x, 4);
+}
+
+// A block takes 64 query rows of one (b, h) and walks K and V in tiles of
+// 32 keys, double-buffered by cp.async.  Warp w owns rows 16 w.. ; lane
+// (rg = lane / 8, kg = lane % 8) owns rows 16 w + rg + 4 i (i < 4), keys
+// kg + 8 j of a tile (j < kSlots) and output columns 32 h + 4 kg.. (h < D / 32).
+// A block whose rows past row0 fit one warp (the 257th row's) splits the
+// keys instead: warp w walks the 16-key tiles w, w + 4, .. of the same 16
+// rows, each staging its own tiles, and the four partial softmax states
+// are combined in shared memory in a fixed order; so that block costs a
+// quarter of a warp's walk, not a whole block's.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+attention_ffma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const Args a) {
+  using L = Layout<D>;
+  constexpr int kH = D / 32;  // float4 output columns per lane
+  extern __shared__ __align__(16) float sm[];
+  float* qs = sm + L::kQ;
+  float* ks = sm + L::kK;
+  float* vs = sm + L::kV;
+  float* ps = sm + L::kP;
+  // (b, h) fastest, row tiles slow: the full tiles run in even waves and
+  // the short last tiles (the 257th row's) run together at the end
+  const int N = a.N, b = blockIdx.x / a.H, h = blockIdx.x % a.H;
+  const int row0 = blockIdx.y * kRows;
+  const float* qb = q + b * a.sq[0] + h * a.sq[1];
+  const float* kb = k + b * a.sk[0] + h * a.sk[1];
+  const float* vb = v + b * a.sv[0] + h * a.sv[1];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, rg = lane / 8, kg = lane % 8;
+  float* pw = ps + (warp * 16 + rg) * L::kPLd;
+  State<D> st;
+  float* orow0 = a.o + b * a.so[0] + h * a.so[1];
+
+  if (N - row0 <= 16) {  // block-uniform: one row unit, the keys split over the warps
+    static_assert(kWarps * 16 * (L::kLd + D) <= L::kP - L::kK, "per-warp 16-key tiles fit K[2], V[2]");
+    stage_rows<D, 16, L::kLd, kThreads>(qs, qb, a.sq[2], row0, N, threadIdx.x);
+    pp::cp_async_commit();
+    pp::cp_async_wait<0>();
+    __syncthreads();
+    float* kw = ks + warp * 16 * (L::kLd + D);  // this warp's K tile, then its V tile
+    float* vw = kw + 16 * L::kLd;
+    for (int t = warp; t * 16 < N; t += kWarps) {
+      stage_rows<D, 16, L::kLd, 32>(kw, kb, a.sk[2], t * 16, N, lane);
+      stage_rows<D, 16, D, 32>(vw, vb, a.sv[2], t * 16, N, lane);
+      pp::cp_async_commit();
+      pp::cp_async_wait<0>();
+      __syncwarp();
+      step<D>(st, qs + rg * L::kLd, kw, vw, pw, min(16, N - t * 16), kg, a.scale_log2);
+    }
+    __syncthreads();  // every warp is done with its tiles: the region holds the states
+    float* cm = ks;                      // [warp][row] maxima
+    float* cl = cm + kWarps * 16;        // [warp][row] sums
+    float* co = cl + kWarps * 16;        // [warp][row][D]
 #pragma unroll
-    for (int e = 0; e < DPL; ++e) orow[e] = acc[e];
-    __syncwarp();  // qw is rewritten for the next row
+    for (int i = 0; i < 4; ++i) {
+      const int r = warp * 16 + rg + 4 * i;
+      const float li = row_group_sum(st.l[i]);
+      if (kg == 0) {
+        cm[r] = st.m[i];
+        cl[r] = li;
+      }
+#pragma unroll
+      for (int hh = 0; hh < kH; ++hh)
+        *reinterpret_cast<float4*>(co + r * D + 32 * hh + 4 * kg) =
+            make_float4(st.o[i][4 * hh], st.o[i][4 * hh + 1], st.o[i][4 * hh + 2], st.o[i][4 * hh + 3]);
+    }
+    __syncthreads();
+    if (warp != 0) return;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = rg + 4 * i;
+      if (row0 + r >= N) continue;
+      float mx = cm[r];
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w) mx = fmaxf(mx, cm[w * 16 + r]);
+      float sum = 0.f, out[4 * kH];
+#pragma unroll
+      for (int e = 0; e < 4 * kH; ++e) out[e] = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {  // a warp without a tile has m = -inf: weight 0
+        const float sc = exp2f(cm[w * 16 + r] - mx);
+        sum += cl[w * 16 + r] * sc;
+#pragma unroll
+        for (int hh = 0; hh < kH; ++hh) {
+          const float4 x = *reinterpret_cast<const float4*>(co + (w * 16 + r) * D + 32 * hh + 4 * kg);
+          out[4 * hh] += x.x * sc;
+          out[4 * hh + 1] += x.y * sc;
+          out[4 * hh + 2] += x.z * sc;
+          out[4 * hh + 3] += x.w * sc;
+        }
+      }
+      const float inv = 1.f / sum;
+      float* orow = orow0 + (row0 + r) * a.so[2];
+#pragma unroll
+      for (int hh = 0; hh < kH; ++hh)
+        *reinterpret_cast<float4*>(orow + 32 * hh + 4 * kg) =
+            make_float4(out[4 * hh] * inv, out[4 * hh + 1] * inv, out[4 * hh + 2] * inv,
+                        out[4 * hh + 3] * inv);
+    }
+    return;
+  }
+
+  stage_rows<D, kRows, L::kLd, kThreads>(qs, qb, a.sq[2], row0, N, threadIdx.x);
+  stage_rows<D, kKeys, L::kLd, kThreads>(ks, kb, a.sk[2], 0, N, threadIdx.x);
+  stage_rows<D, kKeys, D, kThreads>(vs, vb, a.sv[2], 0, N, threadIdx.x);
+  pp::cp_async_commit();
+
+  const bool active = row0 + warp * 16 < N;  // a warp whose rows all lie past N only stages
+  const float* qw = qs + (warp * 16 + rg) * L::kLd;
+  const int tiles = (N + kKeys - 1) / kKeys;
+  for (int t = 0; t < tiles; ++t) {
+    if (t + 1 < tiles) {  // the other buffer: every thread finished tile t - 1 (barrier below)
+      const int nb = (t + 1) & 1;
+      stage_rows<D, kKeys, L::kLd, kThreads>(ks + nb * kKeys * L::kLd, kb, a.sk[2], (t + 1) * kKeys,
+                                             N, threadIdx.x);
+      stage_rows<D, kKeys, D, kThreads>(vs + nb * kKeys * D, vb, a.sv[2], (t + 1) * kKeys, N,
+                                        threadIdx.x);
+    }
+    pp::cp_async_commit();
+    pp::cp_async_wait<1>();
+    __syncthreads();
+    if (active)
+      step<D>(st, qw, ks + (t & 1) * kKeys * L::kLd, vs + (t & 1) * kKeys * D, pw,
+              min(kKeys, N - t * kKeys), kg, a.scale_log2);
+    __syncthreads();  // this buffer is refilled by tile t + 2's copies
+  }
+  if (!active) return;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float inv = 1.f / row_group_sum(st.l[i]);
+    const int row = row0 + warp * 16 + rg + 4 * i;
+    if (row >= N) continue;
+    float* orow = orow0 + row * a.so[2];
+#pragma unroll
+    for (int hh = 0; hh < kH; ++hh)
+      *reinterpret_cast<float4*>(orow + 32 * hh + 4 * kg) =
+          make_float4(st.o[i][4 * hh] * inv, st.o[i][4 * hh + 1] * inv, st.o[i][4 * hh + 2] * inv,
+                      st.o[i][4 * hh + 3] * inv);
   }
 }
 
+// every stride a multiple of 4 floats and every start on 16 bytes: the
+// 16-byte copies and float4 stores
+inline bool on_grid(const void* p, const long long* st) {
+  if (reinterpret_cast<uintptr_t>(p) % 16) return false;
+  for (int i = 0; i < 3; ++i)
+    if (st[i] % 4 || st[i] <= 0) return false;
+  return true;
+}
+
 template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int BH, int N,
-               float scale, cudaStream_t stream) {
-  const bool v_shared = smem_bytes<D>(N, true) <= kMaxSmem;
-  const size_t smem = smem_bytes<D>(N, v_shared);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(attention_f32_kernel<D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(smem));
+int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int N,
+           const long long* st, float scale, cudaStream_t stream) {
+  if (!on_grid(q, st) || !on_grid(k, st + 3) || !on_grid(v, st + 6) || !on_grid(o, st + 9))
+    return cudaErrorInvalidValue;
+  Args a{};
+  a.o = static_cast<float*>(o);
+  for (int i = 0; i < 3; ++i) {
+    a.sq[i] = st[i];
+    a.sk[i] = st[3 + i];
+    a.sv[i] = st[6 + i];
+    a.so[i] = st[9 + i];
+  }
+  a.N = N;
+  a.H = H;
+  a.scale_log2 = scale * 1.4426950408889634f;
+  constexpr int smem = Layout<D>::kBytes;
+  const cudaError_t e = cudaFuncSetAttribute(attention_ffma_kernel<D>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((N + kRowsPerBlock - 1) / kRowsPerBlock, BH);
-  attention_f32_kernel<D><<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), N, scale, v_shared);
+  const dim3 grid(B * H, (N + kRows - 1) / kRows);
+  attention_ffma_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v), a);
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace ff
 
 }  // namespace
 
 // q, k, v: (B, H, N, D) with strides st[0..2], st[3..5], st[6..8] (b, h, n;
 // elements, D contiguous); o: strides st[9..11].  bf16 with N <= 272 takes
-// any such 16-byte-aligned strides (the Hopper kernel); the other kernels
-// take contiguous (B, H, N, D) tensors only.
+// any such 16-byte-aligned strides (the Hopper kernel), and so does fp32
+// (the FFMA kernel); bf16 with N > 272 takes contiguous (B, H, N, D)
+// tensors only.
 extern "C" int pp_attention(const void* q, const void* k, const void* v, void* o, int B,
                             int H, int N, int D, const long long* st, float scale,
                             int is_bf16, void* stream) {
@@ -733,18 +975,18 @@ extern "C" int pp_attention(const void* q, const void* k, const void* v, void* o
   }
   const long long BH = static_cast<long long>(B) * H;
   if (BH > 65535) return cudaErrorInvalidValue;
+  if (!is_bf16) {
+    if (D == 64) return ff::launch<64>(q, k, v, o, B, H, N, st, scale, s);
+    if (D == 32) return ff::launch<32>(q, k, v, o, B, H, N, st, scale, s);
+    return cudaErrorInvalidValue;
+  }
   for (int t = 0; t < 4; ++t)  // contiguous (B, H, N, D)
     if (st[3 * t] != static_cast<long long>(H) * N * D || st[3 * t + 1] != static_cast<long long>(N) * D ||
         st[3 * t + 2] != D)
       return cudaErrorInvalidValue;
   const int bh = static_cast<int>(BH);
-  if (is_bf16) {
-    if (D == 64) return launch_tc<64>(q, k, v, o, bh, N, scale, s);
-    if (D == 32) return launch_tc<32>(q, k, v, o, bh, N, scale, s);
-  } else {
-    if (D == 64) return launch_f32<64>(q, k, v, o, bh, N, scale, s);
-    if (D == 32) return launch_f32<32>(q, k, v, o, bh, N, scale, s);
-  }
+  if (D == 64) return launch_tc<64>(q, k, v, o, bh, N, scale, s);
+  if (D == 32) return launch_tc<32>(q, k, v, o, bh, N, scale, s);
   return cudaErrorInvalidValue;
 }
 

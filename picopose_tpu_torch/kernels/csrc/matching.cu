@@ -40,9 +40,28 @@
 // as an m64n256k16 bf16 step, and its s32 accumulators sit where the fp32
 // ones do; they are converted and scaled in their own registers (fp32 bits
 // in the s32 array: a second array spilled) before the same epilogue
-// (zero-filled pads still give 0 products).  fp32: plain FMAs from device memory
-// on the CUDA cores, with 16 x 16 tiles folded through a per-warp scratch
-// tile.
+// (zero-filled pads still give 0 products).
+//
+// fp32 (PICOPOSE_MATCH_FP32=1 and the fp32 models): full fp32 on the CUDA
+// cores (no TF32), so bound by operations at the FFMA rate: 348 GFLOP at
+// (16, 162, 256, 1024), ~5.19 ms at 67 TFLOP/s; 8.46 GFLOP at the
+// accuracy loop's (4, 42, 256, 384), ~0.126 ms.  A register-tiled SGEMM:
+// a 256-thread block computes one 128 x 128 tile of one pair's sim, each
+// thread an 8 x 8 tile of fp32 sums in registers (16 FMAs per float4 read
+// from shared memory), over 16-channel slices staged by 16-byte cp.async
+// copies into a 3-stage ring (channels contiguous, rows padded to 80 B so
+// a quarter-warp's reads hit 8 bank groups; 61 KB).  One block per SM,
+// so that the tile and its operands get ~234 registers (held to two
+// blocks, to 128 registers, the kernel ran slower at both shapes).
+// The epilogue runs on the registers: the mask scale, the tile's row and
+// column maxima (columns and rows past S left out), sim[:, 0] and sim[0,
+// :], written to a scratch.  Tiles, not pairs, fill the card: (4, 42,
+// 256, 384) is 672 tiles on 132 SMs, where one block per pair was 1.27
+// waves; the tiles are numbered with the view slowest, so the views in
+// flight and every query stay in L2 (the fp32 bank at (16, 162, 256,
+// 1024) is 170 MB).  A second kernel folds each pair's partial maxima in
+// a fixed order (a maximum does not depend on it) and takes the masked
+// mean as write_score does, so two calls agree bitwise.
 
 #include "hopper.cuh"
 
@@ -52,7 +71,7 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 constexpr size_t kMaxSmem = 232448;
-constexpr int kWarps = 8;  // of the fp32 kernel and of both consumers together
+constexpr int kWarps = 8;  // of both consumers together
 
 // per-(b, n) vectors in shared memory, in floats
 struct Vectors {
@@ -346,100 +365,223 @@ int launch(const void* q, const void* qm, const void* t, void* out, int B, int N
 
 }  // namespace tc
 
-// ---- fp32: CUDA cores ----------------------------------------------------
+// ---- fp32: register-tiled FFMA on the CUDA cores ------------------------
 
-constexpr int kThreads = kWarps * 32;
-constexpr int kPass = kWarps * 16;  // rows and columns of one pass
-constexpr int kFrags = kPass / 16;  // 16-column tiles per warp and pass
-constexpr int kScratchLd = 20;      // padded row stride of a warp's 16x16 tile
+namespace ff {
 
-size_t f32_smem_bytes(int S) {
-  return (static_cast<size_t>(kWarps) * 16 * kScratchLd + vector_floats(S)) * sizeof(float);
-}
+constexpr int kTile = 128;    // query rows and view rows of a block's tile
+constexpr int kK = 16;        // channels per stage
+constexpr int kLd = kK + 4;   // row stride in floats: 80 B, so 8 consecutive rows hit 8 16-byte bank groups
+constexpr int kStages = 3;    // cp.async ring
+constexpr int kThreads = 256; // 16 x 16 threads, 8 x 8 sims each
+constexpr int kStageFloats = 2 * kTile * kLd;
+constexpr int kSmem = kStages * kStageFloats * static_cast<int>(sizeof(float));  // 61,440 B
+constexpr int kFoldWarps = 8;
 
-// The 16x16 tile of sim at rows r0.., columns cb.. sits in this warp's
-// scratch: fold it into the running row maxima (lanes 0-15, one row each),
-// this warp's column maxima (lanes 16-31, one column each), sim[:,0], sim[0,:].
-__device__ __forceinline__ void fold_tile(const Vectors& v, const float* scratch,
-                                          int warp, int lane, int r0, int cb,
-                                          float& rmax, int S) {
-  if (lane < 16) {
-    const int r = r0 + lane;
-    const float m = v.mask[r];
-    const float* srow = scratch + lane * kScratchLd;
+// Per-(b, n) partial vectors in the scratch, P = B * N pairs, T = tiles
+// along S: row maxima per column tile [P][T][S], column maxima per row
+// tile [P][T][S], sim[:, 0] [P][S], sim[0, :] [P][S].
+struct Partials {
+  float *rowmax, *colmax, *col0, *row0;
+  static constexpr long long floats(long long P, int T, int S) { return P * S * (2LL * T + 2); }
+  __device__ Partials(float* s, long long P, int T, int S) {
+    rowmax = s;
+    colmax = rowmax + P * T * S;
+    col0 = colmax + P * T * S;
+    row0 = col0 + P * S;
+  }
+};
+
+// one stage: rows r0.. of q_b and c0.. of t_n, channels k0..k0+15, four
+// 16-byte copies a thread; rows past S are zero-filled
+__device__ __forceinline__ void load_stage(float* st, const float* qb, const float* tn, int r0,
+                                           int c0, int S, int C, int k0) {
 #pragma unroll
-    for (int cc = 0; cc < 16; ++cc) rmax = fmaxf(rmax, srow[cc] * m);
-    if (cb == 0) v.col0[r] = srow[0] * m;
-  } else {
-    const int cc = lane - 16, col = cb + cc;
-    float cm = -CUDART_INF_F;
-#pragma unroll
-    for (int rr = 0; rr < 16; ++rr) cm = fmaxf(cm, scratch[rr * kScratchLd + cc] * v.mask[r0 + rr]);
-    float* cmax = v.colmax_part + warp * S;
-    cmax[col] = fmaxf(cmax[col], cm);
-    if (r0 == 0) v.row0[col] = scratch[cc] * v.mask[0];
+  for (int it = 0; it < 2 * kTile * (kK / 4) / kThreads; ++it) {
+    const int c = it * kThreads + threadIdx.x;
+    const int which = c / (kTile * (kK / 4));  // 0: query rows, 1: view rows
+    const int rr = (c / (kK / 4)) % kTile, part = c % (kK / 4);
+    const int row = (which ? c0 : r0) + rr;
+    const bool ok = row < S;
+    const float* src = (which ? tn : qb) + static_cast<size_t>(ok ? row : 0) * C + k0 + part * 4;
+    pp::cp_async16(st + which * kTile * kLd + rr * kLd + part * 4, src, ok);
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-match_scores_f32_kernel(const float* __restrict__ q, const float* __restrict__ qm,
-                        const float* __restrict__ t, float* __restrict__ out, int B,
-                        int N, int S, int C) {
-  const int b = blockIdx.x % B, n = blockIdx.x / B;
+// One 128 x 128 tile of sim for (b, n): rows r0.., columns c0..  Thread
+// (tx, ty) holds rows r0 + ty + 16 i and columns c0 + tx + 16 j (i, j < 8),
+// so a quarter-warp's float4 reads of the view rows fall on 8 consecutive
+// padded rows (no bank conflict) and its query-row reads are broadcasts.
+__global__ void __launch_bounds__(kThreads, 1)
+match_scores_ffma_kernel(const float* __restrict__ q, const float* __restrict__ qm,
+                         const float* __restrict__ t, float* __restrict__ scratch, int B, int N,
+                         int S, int C) {
+  extern __shared__ __align__(16) float sm[];
+  const int T = (S + kTile - 1) / kTile;
+  long long u = blockIdx.x;  // column tile fastest, then row tile, query, view (slow: L2)
+  const int cb = static_cast<int>(u % T);
+  u /= T;
+  const int rb = static_cast<int>(u % T);
+  u /= T;
+  const int b = static_cast<int>(u % B), n = static_cast<int>(u / B);
+  const long long p = static_cast<long long>(b) * N + n;
   const float* qb = q + static_cast<size_t>(b) * S * C;
   const float* tn = t + static_cast<size_t>(n) * S * C;
+  const int r0 = rb * kTile, c0 = cb * kTile;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 
-  extern __shared__ __align__(128) float smem[];
-  const Vectors v = carve(smem + kWarps * 16 * kScratchLd, S);
-  reset(v, qm, b, S, threadIdx.x, kThreads);
-  __syncthreads();
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* scratch = smem + warp * 16 * kScratchLd;
-  const int r = lane / 2, e0 = (lane % 2) * 8;  // this lane's 8 outputs of a tile
-  for (int wr0 = warp * 16; wr0 < S; wr0 += kPass) {
-    float rmax = -CUDART_INF_F;
-    for (int c0 = 0; c0 < S; c0 += kPass) {
-      const int ncf = min(kFrags, (S - c0) / 16);
-      float acc[kFrags][8];
+  const int steps = C / kK;
 #pragma unroll
-      for (int f = 0; f < kFrags; ++f)
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < steps) load_stage(sm + s * kStageFloats, qb, tn, r0, c0, S, C, s * kK);
+    pp::cp_async_commit();
+  }
+  for (int kt = 0; kt < steps; ++kt) {
+    pp::cp_async_wait<kStages - 2>();
+    __syncthreads();  // stage kt is in; every thread is done with stage kt - 1
+    const int next = kt + kStages - 1;
+    if (next < steps) load_stage(sm + (next % kStages) * kStageFloats, qb, tn, r0, c0, S, C, next * kK);
+    pp::cp_async_commit();
+    const float* as = sm + (kt % kStages) * kStageFloats;
+    const float* bs = as + kTile * kLd;
 #pragma unroll
-        for (int e = 0; e < 8; ++e) acc[f][e] = 0.f;
-      const float* qrow = qb + static_cast<size_t>(wr0 + r) * C;
-      const float* tcol = tn + static_cast<size_t>(c0 + e0) * C;
-      for (int k = 0; k < C; ++k) {
-        const float a = qrow[k];
+    for (int kk = 0; kk < kK; kk += 4) {
+      float4 a[8];
 #pragma unroll
-        for (int f = 0; f < kFrags; ++f) {
-          if (f < ncf) {
+      for (int i = 0; i < 8; ++i) a[i] = *reinterpret_cast<const float4*>(as + (ty + 16 * i) * kLd + kk);
 #pragma unroll
-            for (int e = 0; e < 8; ++e) acc[f][e] += a * tcol[static_cast<size_t>(f * 16 + e) * C + k];
-          }
-        }
-      }
+      for (int j = 0; j < 8; ++j) {
+        const float4 w = *reinterpret_cast<const float4*>(bs + (tx + 16 * j) * kLd + kk);
 #pragma unroll
-      for (int f = 0; f < kFrags; ++f) {
-        if (f < ncf) {
-#pragma unroll
-          for (int e = 0; e < 8; ++e) scratch[r * kScratchLd + e0 + e] = acc[f][e];
-          __syncwarp();
-          fold_tile(v, scratch, warp, lane, wr0, c0 + f * 16, rmax, S);
-          __syncwarp();
+        for (int i = 0; i < 8; ++i) {
+          acc[i][j] = fmaf(a[i].x, w.x, acc[i][j]);
+          acc[i][j] = fmaf(a[i].y, w.y, acc[i][j]);
+          acc[i][j] = fmaf(a[i].z, w.z, acc[i][j]);
+          acc[i][j] = fmaf(a[i].w, w.w, acc[i][j]);
         }
       }
     }
-    if (lane < 16) v.rowmax[wr0 + lane] = rmax;
+  }
+  pp::cp_async_wait<0>();
+  __syncthreads();  // the ring is free for the column maxima
+
+  // epilogue in registers: the mask scale, then this tile's share of the
+  // row maxima (columns past S left out), column maxima (rows past S left
+  // out), sim[:, 0] and sim[0, :]
+  const Partials part(scratch, static_cast<long long>(B) * N, T, S);
+  bool rok[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = r0 + ty + 16 * i;
+    rok[i] = row < S;
+    const float m = rok[i] ? qm[static_cast<size_t>(b) * S + row] : 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] *= m;
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float rm = -CUDART_INF_F;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (c0 + tx + 16 * j < S) rm = fmaxf(rm, acc[i][j]);
+#pragma unroll
+    for (int o = 1; o < 16; o <<= 1) rm = fmaxf(rm, __shfl_xor_sync(0xffffffffu, rm, o));
+    const int row = r0 + ty + 16 * i;
+    if (tx == 0 && rok[i]) {
+      part.rowmax[(p * T + cb) * S + row] = rm;
+      if (c0 == 0) part.col0[p * S + row] = acc[i][0];
+    }
+  }
+  if (r0 == 0 && ty == 0) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (c0 + tx + 16 * j < S) part.row0[p * S + c0 + tx + 16 * j] = acc[0][j];
+  }
+  float* red = sm;  // [8 warps][kTile]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    float cm = -CUDART_INF_F;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (rok[i]) cm = fmaxf(cm, acc[i][j]);
+    cm = fmaxf(cm, __shfl_xor_sync(0xffffffffu, cm, 16));  // the warp's other ty
+    if (lane < 16) red[warp * kTile + tx + 16 * j] = cm;
   }
   __syncthreads();
-  write_score(v, out + static_cast<size_t>(b) * N + n, S, threadIdx.x, [] { __syncthreads(); });
+  if (threadIdx.x < kTile && c0 + static_cast<int>(threadIdx.x) < S) {
+    float cm = red[threadIdx.x];
+#pragma unroll
+    for (int w = 1; w < kThreads / 32; ++w) cm = fmaxf(cm, red[w * kTile + threadIdx.x]);
+    part.colmax[(p * T + rb) * S + c0 + threadIdx.x] = cm;
+  }
 }
+
+// One warp per (b, n): the partial maxima folded in a fixed order (a
+// maximum does not depend on it), validity, and the masked mean with the
+// lanes' sums combined in a fixed butterfly, so two calls agree bitwise.
+__global__ void __launch_bounds__(kFoldWarps * 32)
+match_fold_ffma_kernel(const float* __restrict__ qm, float* __restrict__ scratch,
+                       float* __restrict__ out, int B, int N, int S) {
+  const long long P = static_cast<long long>(B) * N;
+  const long long p = static_cast<long long>(blockIdx.x) * kFoldWarps + threadIdx.x / 32;
+  if (p >= P) return;
+  const int lane = threadIdx.x % 32, T = (S + kTile - 1) / kTile;
+  const Partials part(scratch, P, T, S);
+  const float* m = qm + (p / N) * S;
+  float count = 0.f, total = 0.f;
+  for (int i = lane; i < S; i += 32) {
+    float rm = -CUDART_INF_F, cm = -CUDART_INF_F;
+    for (int k = 0; k < T; ++k) {
+      rm = fmaxf(rm, part.rowmax[(p * T + k) * S + i]);
+      cm = fmaxf(cm, part.colmax[(p * T + k) * S + i]);
+    }
+    if (m[i] > 0.f && part.col0[p * S + i] < rm && part.row0[p * S + i] < cm) {
+      count += 1.f;
+      total += rm;
+    }
+  }
+  count = pp::warp_sum(count);
+  total = pp::warp_sum(total);
+  if (lane == 0) out[p] = count > 0.f ? total / static_cast<float>(S) : 0.f;
+}
+
+int launch(const float* q, const float* qm, const float* t, float* out, float* scratch, int B,
+           int N, int S, int C, cudaStream_t stream) {
+  const long long T = (S + kTile - 1) / kTile, P = static_cast<long long>(B) * N;
+  if (scratch == nullptr || P * T * T > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const cudaError_t e = cudaFuncSetAttribute(match_scores_ffma_kernel,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (e != cudaSuccess) return e;
+  match_scores_ffma_kernel<<<static_cast<unsigned>(P * T * T), kThreads, kSmem, stream>>>(
+      q, qm, t, scratch, B, N, S, C);
+  const cudaError_t first = cudaGetLastError();
+  if (first != cudaSuccess) return first;
+  match_fold_ffma_kernel<<<static_cast<unsigned>((P + kFoldWarps - 1) / kFoldWarps), kFoldWarps * 32,
+                           0, stream>>>(qm, scratch, out, B, N, S);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace ff
 
 }  // namespace
 
-// dtype: 0 fp32, 1 bf16, 2 int8 (q and t alike)
-extern "C" int pp_match_scores(const void* q, const void* qm, const void* t,
-                               void* out, int B, int N, int S, int C, int dtype,
+// Floats of the fp32 branch's scratch (ff::Partials), which the caller
+// allocates and passes to pp_match_scores.
+extern "C" long long pp_match_scratch_floats(int B, int N, int S) {
+  return ff::Partials::floats(static_cast<long long>(B) * N, (S + ff::kTile - 1) / ff::kTile, S);
+}
+
+// dtype: 0 fp32, 1 bf16, 2 int8 (q and t alike).  scratch: fp32 only,
+// pp_match_scratch_floats(B, N, S) floats.
+extern "C" int pp_match_scores(const void* q, const void* qm, const void* t, void* out,
+                               void* scratch, int B, int N, int S, int C, int dtype,
                                void* stream) {
   if (B <= 0 || N <= 0 || S <= 0 || C <= 0 || S % 16 != 0 || C % 16 != 0 ||
       dtype < 0 || dtype > 2 || static_cast<long long>(B) * N > 0x7fffffffLL)
@@ -447,16 +589,9 @@ extern "C" int pp_match_scores(const void* q, const void* qm, const void* t,
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) return tc::launch<bf16>(q, qm, t, out, B, N, S, C, s);
   if (dtype == 2) return tc::launch<int8_t>(q, qm, t, out, B, N, S, C, s);
-  const size_t smem = f32_smem_bytes(S);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  const cudaError_t e = cudaFuncSetAttribute(match_scores_f32_kernel,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             static_cast<int>(smem));
-  if (e != cudaSuccess) return e;
-  match_scores_f32_kernel<<<static_cast<unsigned>(static_cast<long long>(B) * N), kThreads, smem, s>>>(
-      static_cast<const float*>(q), static_cast<const float*>(qm), static_cast<const float*>(t),
-      static_cast<float*>(out), B, N, S, C);
-  return static_cast<int>(cudaGetLastError());
+  return ff::launch(static_cast<const float*>(q), static_cast<const float*>(qm),
+                    static_cast<const float*>(t), static_cast<float*>(out),
+                    static_cast<float*>(scratch), B, N, S, C, s);
 }
 
 PP_EXPORT_ERROR_STRING

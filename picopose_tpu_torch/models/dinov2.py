@@ -169,7 +169,7 @@ class Attention(nn.Module):
         else:
             H = self.num_heads
             qkv = self.qkv(x).reshape(B, N, 3, H, C // H)
-        # (B, H, N, D) views, which the bf16 kernel reads in place; its
+        # (B, H, N, D) views, which the kernels read in place; their
         # output is a view of a (B, N, H, D) buffer, so the merge is a view
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
         out = attention(q, k, v).transpose(1, 2).reshape(B, N, -1)

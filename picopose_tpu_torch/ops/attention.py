@@ -13,13 +13,23 @@ call per ViT block).  The kernels are in ``kernels/csrc/attention.cu``:
   known.
 - bf16 with 272 < N <= 512: the two-pass wmma kernel (Q K^T recomputed
   for the row maximum and sum, then for P V).
-- fp32: one warp per query row on the CUDA cores.
+- fp32: register-tiled FFMA on the CUDA cores (full fp32, no TF32).  A
+  block takes 64 query rows of one (batch, head) and walks K and V in
+  tiles of 32 keys, double-buffered by 16-byte cp.async copies; each
+  thread holds a 4 x 4 tile of scores and a 4 x D/8 tile of O in
+  registers, with an online softmax in fp32 and P passed through shared
+  memory.  A last row tile that fits one warp (the 257th row's) splits
+  the keys over its four warps and combines their states.  Bound by
+  operations at the FFMA rate: at the accuracy loop's
+  (32, 6, 257, 64) 3.25 GFLOP (~48.5 us at 67 TFLOP/s).  Like the
+  Hopper kernel it reads the qkv views in place and writes a (B, N, H,
+  D) buffer.
 
-The last two take contiguous tensors: for them, and for views whose
-strides or alignment TMA cannot take, the wrapper copies q, k and v and
-counts the copy in ``INPUT_COPIES`` under its reason.  Bound by bytes at
-the main path's (16, 16, 257, 64) bf16: 33.7 MB moved (~10 us at 3.35
-TB/s) against 4.3 GFLOP (~4.4 us on the bf16 tensor cores).
+The two-pass kernel takes contiguous tensors: for it, and for views
+whose strides or start lie off the 16-byte grid, the wrapper copies q, k
+and v and counts the copy in ``INPUT_COPIES`` under its reason.  Bound
+by bytes at the main path's (16, 16, 257, 64) bf16: 33.7 MB moved (~10
+us at 3.35 TB/s) against 4.3 GFLOP (~4.4 us on the bf16 tensor cores).
 
 Semantics (every version): fp32 scores from storage-dtype operands, the
 scale D^-0.5 applied to the fp32 scores, fp32 softmax, P rounded to V's
@@ -27,7 +37,9 @@ dtype, P V summed in fp32, output in Q's dtype.  For D = 64 the scale is a
 power of two, so this equals scaling Q first; for D = 32 it is not.  The
 Hopper kernel takes exp2 with D^-0.5 * log2(e) folded into one FMA and
 multiplies by the reciprocal of the row sum; either may move a P element
-by one bf16 step against the plain version.
+by one bf16 step against the plain version.  The fp32 kernel sums P V
+with the running maximum's rescaling and divides by the row sum last:
+the plain version's arithmetic in another order.
 
 Gradients (ops/vjp.py): ``attention`` is differentiable through an
 autograd Function whose backward recomputes ``attention_reference``, the
@@ -72,18 +84,18 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> to
 
 
 def copy_reason(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str | None:
-    """None if the Hopper kernel reads (B, H, N, D) q, k, v where they lie;
-    else why the wrapper copies them: that kernel takes bf16 with N <= 272
-    and TMA takes a contiguous last dim with other strides and the start on
-    the 16-byte grid."""
-    if q.dtype != torch.bfloat16:
-        return "fp32: the CUDA-core kernel takes contiguous tensors"
-    if q.shape[2] > HOPPER_MAX_KEYS:
+    """None if the kernel reads (B, H, N, D) q, k, v where they lie; else
+    why the wrapper copies them.  The bf16 Hopper kernel (N <= 272) and the
+    fp32 kernel take a contiguous last dim with other strides and the start
+    on the 16-byte grid (TMA boxes, 16-byte cp.async copies); the bf16
+    two-pass kernel (N > 272) takes contiguous tensors."""
+    if q.dtype == torch.bfloat16 and q.shape[2] > HOPPER_MAX_KEYS:
         return f"N > {HOPPER_MAX_KEYS}: the two-pass kernel takes contiguous tensors"
+    per = 16 // q.element_size()  # elements per 16 bytes
     for t in (q, k, v):
         sb, sh, sn, sd = t.stride()
-        if sd != 1 or t.data_ptr() % 16 or sb % 8 or sh % 8 or sn % 8 or min(sb, sh, sn) <= 0:
-            return "strides or start off the 16-byte grid TMA needs"
+        if sd != 1 or t.data_ptr() % 16 or sb % per or sh % per or sn % per or min(sb, sh, sn) <= 0:
+            return "strides or start off the 16-byte grid"
     return None
 
 

@@ -8,9 +8,10 @@ version on the CPU.  The kernel is bound by operations: at B = 16 queries
 against N = 162 bf16 views (S = 256, C = 1024) it does 348 GFLOP of
 products over 93 MB of input.  The TPU kernel's whole (S, S) fp32 block
 (256 KB) does not fit a Hopper block, so the kernel computes sim in blocks
-of 128 query rows x 256 view rows (bf16: wgmma from a TMA-fed ring, the
-block in registers; fp32: the CUDA cores) and keeps only row/column
-maxima and sim[:,0], sim[0,:] per (query, view).
+(bf16: 128 query rows x 256 view rows by wgmma from a TMA-fed ring, the
+block in registers; fp32: 128 x 128 by FFMA on the CUDA cores, the
+partial maxima of each block folded by a second kernel) and keeps only
+row/column maxima and sim[:,0], sim[0,:] per (query, view).
 
 The serving modes of picopose_tpu/ops/matching.py:116-143 carry over:
 PICOPOSE_MATCH_INT8=1 scores int8 operands (the kernel's s8 wgmma branch,
@@ -27,6 +28,7 @@ Two reference quirks are kept on purpose:
 
 from __future__ import annotations
 
+import ctypes
 import os
 
 import torch
@@ -124,6 +126,14 @@ def match_scores_plain(
     return torch.cat(out, dim=1)
 
 
+def _f32_scratch_floats(B: int, N: int, S: int) -> int:
+    """Floats of the fp32 kernel's scratch (its per-tile partial maxima), as
+    the source that lays it out counts them."""
+    fn = kernels.library("match_scores").pp_match_scratch_floats
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_longlong
+    return fn(B, N, S)
+
+
 def match_scores_cuda(
     q_norm: torch.Tensor, q_mask: torch.Tensor, t_norm: torch.Tensor
 ) -> torch.Tensor:
@@ -145,12 +155,15 @@ def match_scores_cuda(
     out = torch.empty((B, N), dtype=torch.float32, device=q_norm.device)
     if out.numel() == 0:
         return out
+    scratch = None
+    if q_norm.dtype == torch.float32:
+        scratch = torch.empty(_f32_scratch_floats(B, N, S), dtype=torch.float32, device=q_norm.device)
     name = "match_scores_int8" if q_norm.dtype == torch.int8 else "match_scores"
     with kernels.on_device_of(q_norm):
         kernels.launch(
             name, q_norm.data_ptr(), q_mask.data_ptr(), t_norm.data_ptr(),
-            out.data_ptr(), B, N, S, C, DTYPE_CODES[q_norm.dtype],
-            kernels.stream_of(q_norm),
+            out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            B, N, S, C, DTYPE_CODES[q_norm.dtype], kernels.stream_of(q_norm),
         )
     return out
 

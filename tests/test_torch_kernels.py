@@ -282,7 +282,7 @@ def test_attention_kernel_is_differentiable(cuda_device, dtype, layout):
     kernels.reset_launches()
     A.INPUT_COPIES.clear()
     out = A.attention(q, k, v)
-    assert dtype == torch.float32 or not A.INPUT_COPIES
+    assert not A.INPUT_COPIES
     _check_grads(out, leaves, A.attention_plain(q, k, v), dtype, "attention", 1)
 
 
@@ -550,7 +550,7 @@ def test_match_kernel_masks_and_ties(cuda_device, dtype, S, C):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
 def test_match_kernel_negative_sims_beat_padding(cuda_device, dtype):
     """With every sim negative (views anti-aligned with the query), the
     maxima are negative: a zero-filled pad row or column would win them."""
@@ -627,12 +627,14 @@ def _qkv_views(g, B, N, H, D, dtype, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [32, 64])
-@pytest.mark.parametrize("N", [17, 257, 272, 273, 512])
+@pytest.mark.parametrize("N", [5, 16, 17, 257, 272, 273, 512])
 @pytest.mark.parametrize("B,H", [(1, 16), (32, 16)])
 def test_attention_kernel_on_qkv_views(cuda_device, dtype, D, N, B, H):
     """Every attention kernel on the ViT's strided views: the Hopper kernel
     (bf16, N <= 272), the two-pass wmma kernel (bf16, N > 272) and the fp32
-    kernel, at BH = 16 and at a bank chunk's BH = 512."""
+    kernel, at BH = 16 and at a bank chunk's BH = 512.  N <= 16 makes the
+    fp32 kernel's only row tile one that splits the keys over its warps,
+    some of which hold no key tile."""
     g = torch.Generator(device=cuda_device).manual_seed(N + D)
     q, k, v = _qkv_views(g, B, N, H, D, dtype, cuda_device)
     got = A.attention_cuda(q, k, v)
@@ -642,14 +644,15 @@ def test_attention_kernel_on_qkv_views(cuda_device, dtype, D, N, B, H):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("D", [32, 64])
 @pytest.mark.parametrize("N", [17, 257, 272])
-def test_attention_reads_qkv_views_in_place(cuda_device, D, N):
-    """bf16 with N <= 272 (the main path) allocates its output and nothing
-    else: no copy of q, k or v."""
+def test_attention_reads_qkv_views_in_place(cuda_device, D, N, dtype):
+    """bf16 with N <= 272 (the main path) and fp32 allocate their output
+    and nothing else: no copy of q, k or v."""
     g = torch.Generator(device=cuda_device).manual_seed(N)
     B, H = 4, 8
-    q, k, v = _qkv_views(g, B, N, H, D, torch.bfloat16, cuda_device)
+    q, k, v = _qkv_views(g, B, N, H, D, dtype, cuda_device)
     A.attention_cuda(q, k, v)  # built and warm
     torch.cuda.synchronize()
     copies = dict(A.INPUT_COPIES)
@@ -661,6 +664,47 @@ def test_attention_reads_qkv_views_in_place(cuda_device, D, N):
     assert out_bytes <= grown < 2 * out_bytes  # the output's block; a copy of q alone would double it
     assert dict(A.INPUT_COPIES) == copies
     assert got.transpose(1, 2).is_contiguous()  # a (B, N, H, D) buffer: the head merge is a view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [16, 32])
+def test_attention_fp32_at_vit_s_shapes(cuda_device, B):
+    """The FFMA kernel at the accuracy loop's ViT-S shapes, (B, 6, 257, 64)
+    fp32 on the qkv views (a bank chunk's 32 crops and a training batch's
+    16): the plain version's output (1e-5), no copy, and two calls bitwise
+    equal (every sum in a fixed order)."""
+    g = torch.Generator(device=cuda_device).manual_seed(B)
+    q, k, v = _qkv_views(g, B, 257, 6, 64, torch.float32, cuda_device)
+    A.INPUT_COPIES.clear()
+    got = A.attention_cuda(q, k, v)
+    again = A.attention_cuda(q, k, v)
+    torch.cuda.synchronize()
+    assert not A.INPUT_COPIES
+    torch.testing.assert_close(got, A.attention_plain(q, k, v), atol=1e-5, rtol=0)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,S,C", [
+    (4, 42, 256, 384),  # the accuracy loop's evaluation: 168 pairs, 672 tiles
+    (2, 5, 256, 384),  # 10 pairs, below the 132 SMs
+    (16, 162, 256, 1024),  # PICOPOSE_MATCH_FP32=1 on the main path: 2592 pairs
+])
+def test_match_fp32_kernel_across_grid_sizes(cuda_device, B, N, S, C):
+    """K3 fp32 splits each (query, view) table over 128 x 128 tiles and
+    folds their maxima in a second pass: the plain version's scores
+    (1e-5), the planted views win, and two calls are bitwise equal."""
+    g = torch.Generator(device=cuda_device).manual_seed(B * N)
+    t = M.l2_normalize(torch.randn(N, S, C, generator=g, device=cuda_device))
+    planted = torch.arange(B, device=cuda_device) * (N // B)
+    q = M.l2_normalize(t[planted] + 0.5 * C**-0.5 * torch.randn(B, S, C, generator=g, device=cuda_device))
+    qm = (torch.rand(B, S, generator=g, device=cuda_device) > 0.3).float()
+    got = M.match_scores_cuda(q, qm, t)
+    again = M.match_scores_cuda(q, qm, t)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, M.match_scores_plain(q, qm, t), atol=1e-5, rtol=0)
+    assert torch.equal(got.argmax(1), planted)
+    assert torch.equal(got, again)
 
 
 @pytest.mark.cuda
@@ -939,8 +983,8 @@ def _run_pair(P, graphs, model, batch, bank, g_graph, g_eager):
 # the CUDA kernels each wrapper's entry point launches, as a profiler trace names them
 KERNEL_SYMBOLS = {
     "layernorm": r"\blayernorm_(row|loop)_kernel<",
-    "attention": r"\battention_(hopper|tc|f32)_kernel<",
-    "match_scores": r"\bmatch_scores_(hopper_kernel<__nv_bfloat16>|f32_kernel\b)",
+    "attention": r"\battention_(hopper|tc|ffma)_kernel<",
+    "match_scores": r"\bmatch_scores_(hopper_kernel<__nv_bfloat16>|ffma_kernel\b)",
     "match_scores_int8": r"\bmatch_scores_hopper_kernel<signed char>",
     "corr_window": r"\bcorr_(tile|f32|any)_kernel\b",
     "warp": r"\bwarp_kernel<",

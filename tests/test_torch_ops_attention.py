@@ -30,7 +30,7 @@ def _qkv(shape, seed=0):
     return [rng.normal(size=shape).astype(np.float32) for _ in range(3)]
 
 
-@pytest.mark.parametrize("shape", [(1, 2, 257, 64), (2, 4, 257, 32), (1, 3, 17, 64)])
+@pytest.mark.parametrize("shape", [(1, 2, 257, 64), (2, 4, 257, 32), (1, 3, 17, 64), (1, 3, 16, 32), (2, 2, 5, 64)])
 def test_plain_matches_pallas_and_xla_fp32(shape):
     q, k, v = _qkv(shape)
     jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
@@ -93,10 +93,32 @@ def test_copy_reason_takes_qkv_views_in_place():
     assert copy_reason(*_qkv_views(qkv)) is None
     contiguous = [t.contiguous() for t in _qkv_views(qkv)]
     assert copy_reason(*contiguous) is None
-    assert "fp32" in copy_reason(*_qkv_views(qkv.float()))
+    # fp32: the FFMA kernel reads views on the 16-byte grid in place, at any N
+    assert copy_reason(*_qkv_views(qkv.float())) is None
+    assert copy_reason(*_qkv_views(torch.zeros(1, 512, 3, 2, 32))) is None
+    shifted32 = torch.zeros(2 * 257 * 3 * 4 * 64 + 1)[1:].view(2, 257, 3, 4, 64)
+    assert "16-byte" in copy_reason(*_qkv_views(shifted32))
+    odd = torch.zeros(2, 257, 3, 4, 66)[..., :64]  # rows 66 floats apart
+    assert "16-byte" in copy_reason(*_qkv_views(odd))
     long = torch.zeros(1, HOPPER_MAX_KEYS + 1, 3, 2, 64, dtype=torch.bfloat16)
     assert "N >" in copy_reason(*_qkv_views(long))
     shifted = torch.zeros(2 * 257 * 3 * 4 * 64 + 1, dtype=torch.bfloat16)[1:].view(2, 257, 3, 4, 64)
     assert "16-byte" in copy_reason(*_qkv_views(shifted))
     q, k, v = _qkv_views(qkv)
     assert "16-byte" in copy_reason(q.transpose(2, 3).contiguous().transpose(2, 3), k, v)
+
+
+def test_plain_matches_pallas_at_the_loops_shape_fp32():
+    """The accuracy loop's ViT-S attention, (2, 6, 257, 64) fp32, from views
+    of one (B, N, 3, H, D) projection, against the Pallas kernel and
+    ``attention_xla`` (1e-5, module docstring)."""
+    B, N, H, D = 2, 257, 6, 64
+    qkv = np.random.default_rng(16).normal(size=(B, N, 3, H, D)).astype(np.float32)
+    jq, jk, jv = (jnp.asarray(qkv[:, :, i].transpose(0, 2, 1, 3)) for i in range(3))
+    ref_k = np.asarray(flash_attention(jq, jk, jv, interpret=True))
+    ref_x = np.asarray(attention_xla(jq, jk, jv))
+    tq, tk, tv = _qkv_views(torch.from_numpy(qkv))
+    assert copy_reason(tq, tk, tv) is None
+    got = attention(tq, tk, tv).numpy()
+    np.testing.assert_allclose(got, ref_k, atol=1e-5)
+    np.testing.assert_allclose(got, ref_x, atol=1e-5)

@@ -114,3 +114,27 @@ def test_cpu_dispatch_is_plain_and_launches_nothing():
     with pytest.raises(ValueError):
         tm.match_scores_cuda(q, qm, t)
 
+
+
+def test_plain_scores_match_pallas_at_the_loops_shape_fp32():
+    """S = 256, C = 384 (the accuracy loop's ViT-S bank) in fp32, with
+    exact first-index ties planted (view column 5 equal to column 0, so
+    the row argmax stays 0; query row 3 equal to row 0, so the column
+    argmax stays 0), masked rows and one query with every row masked
+    (score 0), against the Pallas kernel (1e-5)."""
+    B, N, S, C = 4, 12, 256, 384
+    rng = np.random.default_rng(16)
+    t = rng.normal(size=(N, S, C)).astype(np.float32)
+    t[:, 5] = t[:, 0]
+    q = t[:B] + 0.5 * rng.normal(size=(B, S, C)).astype(np.float32)
+    q[:, 3] = q[:, 0]
+    qm = (rng.random((B, S)) > 0.3).astype(np.float32)
+    qm[:, 0] = qm[:, 3] = 1.0
+    qm[1] = 0.0
+    jq = jm.l2_normalize(jnp.asarray(q), axis=-1)
+    jt = jm.l2_normalize(jnp.asarray(t), axis=-1)
+    ref = np.asarray(match_scores_pallas(jq, jnp.asarray(qm), jt, interpret=True))
+    got = tm.match_scores(_t(jq), torch.from_numpy(qm), _t(jt)).numpy()
+    np.testing.assert_allclose(got, ref, atol=1e-5)
+    assert (got[1] == 0).all() and (ref[1] == 0).all()
+    np.testing.assert_array_equal(got[[0, 2, 3]].argmax(1), [0, 2, 3])
