@@ -134,9 +134,10 @@ Phases (any failure exits non-zero before the result line):
      corr-window, 3 warp per step in the trace) and the checkpoint's bytes,
      save and restore, one loop batch's eager step through the kernels
      against the plain path, and ``python -m picopose_tpu_torch.run_train``
-     for 2 epochs of 4 steps (checkpoints at 4 and 8; two loader workers)
-     and ``--resume`` to step 12, each through the compiled step (cut from
-     2 x 10 + 10 steps with ten workers, for phase 13's time);
+     for one epoch of 4 steps (a checkpoint at 4; two loader workers) and
+     ``--resume`` for one more epoch, to step 8, each through the compiled
+     step (cut from 2 x 10 + 10 steps with ten workers, for phase 13's
+     time, then from 2 x 4 + 4, for phase 15's);
      the loader's crops take
      the C++ fast path (the host library's calls of 8 samples in this
      process printed: the workers count in their own);
@@ -176,9 +177,10 @@ Phases (any failure exits non-zero before the result line):
      --bootstrap 100`` on its CSV (every AR finite, in [0, 1]) and on the
      ground truth's (AR 1.0);
  13. ranks and devices on the one card (``ranks_phase``, last, and
-     ``devices_phase``, run after phase 11 on phase 7's tree): ViT-L bf16,
-     base.yaml's AdamW at a constant lr 1e-4, a global batch of 8 sphere
-     pairs.  (a) A one-rank NCCL group: the sharded step in ddp and fsdp
+     ``devices_phase``, run after phase 11 on phase 7's tree): ViT-L's
+     width at RANKS_DEPTH of its 24 blocks (13a, 13b; cut for phase 15's
+     time: the checks are of collectives and layouts), bf16, base.yaml's
+     AdamW at a constant lr 1e-4, a global batch of 8 sphere pairs.  (a) A one-rank NCCL group: the sharded step in ddp and fsdp
      (``make_train_step(state, shardings, mesh)``) captured and replayed,
      bitwise the eager sharded step and the one-device step, the
      collectives the capturing call issued, one replay's trace (NCCL and
@@ -194,17 +196,28 @@ Phases (any failure exits non-zero before the result line):
      16 against the one-device run with the same PnP draws;
  14. the closed accuracy loop: ``picopose_tpu_torch.train_to_ar`` in a
      process of its own (``start_ar_loop``, started after phase 6, beside
-     phases 7, 11 and 13c; ``ar_loop_phase``, last, reads it, then holds K1,
-     K2 and K3 (fp32 and its int8 branch) at the loop's ViT-S fp32 shapes
-     against their plain versions with device ms, library ms, bound and
-     the kernel's share of it on the idle card) on a 3-object, 2-scene
+     phases 7, 11, 13c and 15; ``ar_loop_phase``, last, reads it, then
+     holds K1, K2, K3 (fp32 and its int8 branch), K4 and K5 at the loop's
+     ViT-S fp32 shapes against their plain versions with device ms,
+     library ms, bound and the kernel's share of it on the idle card) on a
+     3-object, 2-scene
      world of 64
      training and 8 test views (10 training steps; five evaluation arms,
      each scored with ``score_csv --vsd --bootstrap 2000``), every training
      and evaluation run printing its launches: the loss falls, each arm
      writes one CSV row per detection, every AR is finite and in [0, 1],
      K3's int8 branch runs in the int8 arm only; the training run's time
-     in each step and between steps (loader-bound or step-bound).
+     in each step and between steps (loader-bound or step-bound);
+ 15. the rest of the port's surface (``demos_phase``, before phase 14's
+     reading): ``python -m picopose_tpu_torch.synthetic_demo`` (ViT-L
+     bf16, 42 views) and ``python -m picopose_tpu_torch.serve_demo --vit
+     dinov2_vitl14`` (ViT-L fp32) as users call them, in processes of their
+     own under RUN_COUNTED, each exiting 0 with finite poses and K1-K5
+     among its launches; meanwhile per-item (B, N, h, w, C) banks at full
+     width (PER_ITEM) in ``match_templates`` against K3 fp32 on the shared
+     bank they repeat (every score within 1e-5, ids equal except at near
+     ties, counted), and ``python -m picopose_tpu_torch.export_torch`` on a
+     ViT-S train state with no card visible, bitwise ``export_state_dict``.
 Launch counts are the wrappers' (``kernels.LAUNCHES``), which count a
 kernel where they launch it: an eager call and a program's warm-up, not
 a capture or a replay.  What a replay ran is counted by kernel name in a
@@ -215,8 +228,8 @@ each row's executions per replayed run_batch, from the trace, as
 ``replay_launches``, per replay of the compiled training step as
 ``train_launches`` and per loop step as ``loop_launches``, both from
 traces, and the launches of phase 14's runs summed as ``ar_launches``;
-K2's and K3's fp32 branches under ``fp32``: K3 at the main path's shape,
-both at the accuracy loop's; each time's source under ``timed_by``:
+the fp32 branches under ``fp32``: K3 at the main path's shape, K2-K5
+at the accuracy loop's; each time's source under ``timed_by``:
 "trace", or "events" where three traces in a row lost device events and
 the calls were timed back to back with CUDA events, launch gaps
 included; a kernel is called below its library call only when both
@@ -327,6 +340,12 @@ def below(r: dict, key: str = "library_ms") -> str:
     return f"not compared (kernel timed by {by['ms']}, the other by {by[key]})"
 
 
+def peak_flops(dtype: torch.dtype) -> float:
+    """The card's peak rate for products of ``dtype`` (fp32 on the CUDA
+    cores, bf16 on the tensor cores)."""
+    return H100_FP32_FLOPS if dtype == torch.float32 else H100_BF16_FLOPS
+
+
 def bound(nbytes: float, flops: float, peak: float) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S * 1e3, flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -399,7 +418,7 @@ def attention_row(g: torch.Generator, layout: str, B: int, tag: str = "kernel", 
     torch.testing.assert_close(got.float(), ref.float(), **tol)
     check(not A.INPUT_COPIES, f"attention reads {layout} in place: {dict(A.INPUT_COPIES)}")
     BH = B * H
-    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS
+    peak = peak_flops(dtype)
     bd = bound(4 * BH * N * D * size, 4 * BH * N * N * D, peak)
     r = dict(
         err=(got.float() - ref.float()).abs().max().item(), tol=f"atol {tol['atol']!r} + rtol {tol['rtol']!r}",
@@ -478,7 +497,7 @@ def match_row(g: torch.Generator, B: int, Nv: int, S: int, C: int, dtype: torch.
         ok = (qm[:, :, None] > 0) & (sim[..., 0] < rowmax) & (sim[:, 0].transpose(1, 2) < colmax.transpose(1, 2))
         return (rowmax.float() * ok).sum(1) / S
 
-    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS
+    peak = peak_flops(dtype)
     size = dtype.itemsize
     bd = bound((q.numel() + t.numel()) * size + qm.numel() * 4 + B * Nv * 4, 2 * B * Nv * S * S * C, peak)
     # fp32 launches the tile kernel and the fold: a trace that lost one reads short and is taken again
@@ -542,7 +561,11 @@ def match_int8_checks(q32: torch.Tensor, qm: torch.Tensor, t32: torch.Tensor, ta
 
 B2_MAIN, GROUP_MAIN = 16, 5  # run_batch's query maps and hypotheses per map
 SETS = {16: 6, 32: 3, 64: 1}  # input sets rotated per call at each grid: > 50 MB of L2
-K4_TOL = dict(atol=1e-2, rtol=2**-7)  # one bf16 step where fp32 sums straddle a rounding boundary
+# K4 and K5 against their plain versions, by the dtype of their operands:
+# bf16, one bf16 step where fp32 sums straddle a rounding boundary; fp32,
+# sums and lerps in another order (readings under 1e-6 at |plain| ~4)
+K4_TOL = {torch.bfloat16: dict(atol=1e-2, rtol=2**-7), torch.float32: dict(atol=1e-5, rtol=1e-6)}
+K5_TOL = K4_TOL
 
 
 def wild_centres(g: torch.Generator, B: int, G: int, level: int = 0) -> torch.Tensor:
@@ -556,19 +579,21 @@ def wild_centres(g: torch.Generator, B: int, G: int, level: int = 0) -> torch.Te
     return ((pixel_coords_grid(G, G, device=dev) + flow) / 2.0**level).reshape(B, G * G, 2)
 
 
-def rows_bf16(g: torch.Generator, n: int, P: int, C: int = 256) -> torch.Tensor:
-    return torch.randn(n, P, C, generator=g, device="cuda").bfloat16()
+def random_rows(g: torch.Generator, n: int, P: int, C: int = 256, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    return torch.randn(n, P, C, generator=g, device="cuda").to(dtype)
 
 
-def wild_corr_args(g: torch.Generator, radius: int, sets: dict = SETS) -> list:
-    """K4's argument sets at the flow decoder's shapes for 16 queries x 5
-    hypotheses (80 streams over 16 query maps, C = 256, bf16), one list per
-    decoder level (16^2 with one pyramid level, 32^2 with two, 64^2 with
-    three), on wild centres; ``sets`` argument sets per grid."""
-    B2, group, C = B2_MAIN, GROUP_MAIN, 256
+def wild_corr_args(g: torch.Generator, radius: int, sets: dict = SETS, B2: int = B2_MAIN, group: int = GROUP_MAIN,
+                   dtype: torch.dtype = torch.bfloat16) -> list:
+    """K4's argument sets at the flow decoder's shapes, by default for 16
+    queries x 5 hypotheses (80 streams over 16 query maps, C = 256, bf16),
+    one list per decoder level (16^2 with one pyramid level, 32^2 with two,
+    64^2 with three), on wild centres; ``sets`` argument sets per grid."""
+    C = 256
     B = B2 * group
-    pyramid = lambda G, L: [(rows_bf16(g, B2, (G >> i) ** 2).view(B2, G >> i, G >> i, C), i) for i in range(L)]
-    return [[(rows_bf16(g, B, G * G).view(B, G, G, C), pyramid(G, L), wild_centres(g, B, G).view(B, G, G, 2),
+    rows = lambda n, P: random_rows(g, n, P, C, dtype)
+    pyramid = lambda G, L: [(rows(B2, (G >> i) ** 2).view(B2, G >> i, G >> i, C), i) for i in range(L)]
+    return [[(rows(B, G * G).view(B, G, G, C), pyramid(G, L), wild_centres(g, B, G).view(B, G, G, 2),
               radius, group) for _ in range(sets[G])] for G, L in ((16, 1), (32, 2), (64, 3))]
 
 
@@ -580,17 +605,17 @@ def stage3_kernel_checks(g: torch.Generator) -> dict:
     batch's device time."""
     B2, group = B2_MAIN, GROUP_MAIN
     B = B2 * group
-    res = {"corr_window": corr_timing("wild centres", wild_corr_args(g, 2), K4_TOL)}
+    res = {"corr_window": corr_timing("wild centres", wild_corr_args(g, 2))}
 
     res["warp"] = warp_timing("wild centres", [
-        [(rows_bf16(g, B2, G * G), wild_centres(g, B, G), G, G, group) for _ in range(SETS[G])] for G in (16, 32, 64)])
+        [(random_rows(g, B2, G * G), wild_centres(g, B, G), G, G, group) for _ in range(SETS[G])] for G in (16, 32, 64)])
     return res
 
 
 def warp_timing(what: str, calls: list) -> dict:
     """K5 per grid, each a list of (feat, cen, H, W, group) argument sets
-    rotated per call: the kernel against the plain version (one bf16 step
-    at most), device ms of the kernel, the plain version and F.grid_sample
+    rotated per call: the kernel against the plain version (K5_TOL by the
+    features' dtype), device ms of the kernel, the plain version and F.grid_sample
     (one call on the expanded NCHW maps and a normalised grid), the bound.
     Returns the row for one batch, per launch (a launch is one grid)."""
     import torch.nn.functional as F
@@ -603,9 +628,10 @@ def warp_timing(what: str, calls: list) -> dict:
         feat, cen, H, W, group = sets[0]
         B2, P, C = feat.shape
         B = cen.shape[0]
+        tol = K5_TOL[feat.dtype]
         got, ref = SA.warp_cuda(*sets[0]), SA.warp_plain(*sets[0])
         torch.cuda.synchronize()
-        torch.testing.assert_close(got.float(), ref.float(), atol=1e-2, rtol=2**-7)
+        torch.testing.assert_close(got.float(), ref.float(), **tol)
         err = (got.float() - ref.float()).abs().max().item()
 
         def library_args(feat, cen, H, W, group):
@@ -616,7 +642,7 @@ def warp_timing(what: str, calls: list) -> dict:
             return x, (cen * norm - 1.0).reshape(B, H, W, 2).to(x.dtype)
 
         nbytes = (feat.numel() + got.numel()) * feat.element_size() + cen.numel() * 4
-        bd = bound(nbytes, B * P * 4 * C * 2, H100_BF16_FLOPS)
+        bd = bound(nbytes, B * P * 4 * C * 2, peak_flops(feat.dtype))
         lib_args = [library_args(*a) for a in sets]
         timings = {
             "library_ms": device_ms(lambda x, grid: F.grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
@@ -626,7 +652,7 @@ def warp_timing(what: str, calls: list) -> dict:
         }
         by.update({k: "events" for k, (_, b) in timings.items() if b == "events"})
         (lib, _), (ms, _), (plain, _) = timings.values()
-        print(f"[kernel] warp {what} G={H}: max_abs_err {err!r}, kernel {ms!r} ms, plain {plain!r} ms, "
+        print(f"[kernel] warp {what} G={H}: max_abs_err {err!r} (atol {tol['atol']!r} + rtol {tol['rtol']!r}), kernel {ms!r} ms, plain {plain!r} ms, "
               f"grid_sample {lib!r} ms, bound {bd[0]!r} ms ({bd[1]}) = {bd[0] / ms!r} of the kernel's time")
         tot.update(ms=tot["ms"] + ms, plain_ms=tot["plain_ms"] + plain, lib=tot["lib"] + lib,
                    err=max(tot["err"], err), b=tot["b"] + bd[0])
@@ -636,14 +662,15 @@ def warp_timing(what: str, calls: list) -> dict:
           f"grid_sample {tot['lib']!r} ms, bound {tot['b']!r} ms = {tot['b'] / tot['ms']!r} of the kernel's time; "
           f"timed by {by}")
     return dict(
-        err=tot["err"], tol="atol 1e-2 + rtol 2^-7", ms=tot["ms"] / n, plain_ms=tot["plain_ms"] / n,
-        library_ms=tot["lib"] / n, bound=(tot["b"] / n, "bytes"), timed_by=by,
+        err=tot["err"], tol=f"atol {tol['atol']!r} + rtol {tol['rtol']!r}", ms=tot["ms"] / n,
+        plain_ms=tot["plain_ms"] / n, library_ms=tot["lib"] / n, bound=(tot["b"] / n, "bytes"), timed_by=by,
     )
 
 
-def corr_timing(what: str, calls: list, tol: dict, timed: bool = True) -> dict:
+def corr_timing(what: str, calls: list, timed: bool = True) -> dict:
     """K4 per decoder level, each a list of (f1, maps, grid, radius, group)
-    argument sets rotated per call: the kernel against the plain version,
+    argument sets rotated per call: the kernel against the plain version
+    (K4_TOL by the operands' dtype),
     device ms, the tile counts of the first set, the bound.  Returns the
     row for one batch, per launch (a launch is one decoder level).  With
     ``timed`` False only the first set is checked (no times)."""
@@ -655,6 +682,7 @@ def corr_timing(what: str, calls: list, tol: dict, timed: bool = True) -> dict:
         f1, maps, grid, radius, group = sets[0]
         B, G, W, C = f1.shape
         L = len(maps)
+        tol = K4_TOL[f1.dtype]
         stats = torch.zeros(3, dtype=torch.int32, device=f1.device)
         got = CO.corr_windows_cuda(*sets[0], stats=stats)
         ref = CO.corr_windows_plain(*sets[0])
@@ -666,7 +694,7 @@ def corr_timing(what: str, calls: list, tol: dict, timed: bool = True) -> dict:
         nbytes = (f1.numel() + sum(m.numel() for m, _ in maps)) * f1.element_size() + grid.numel() * 4 \
             + got.numel() * got.element_size()
         flops = B * G * W * L * (2 * radius + 2) ** 2 * C * 2  # the (2r+2)^2 cells of each window
-        bd = bound(nbytes, flops, H100_BF16_FLOPS)
+        bd = bound(nbytes, flops, peak_flops(f1.dtype))
         # a trace below the bound lost events and is taken again
         launches = -(-L // CO.LEVELS_PER_LAUNCH)
         ms, plain = float("nan"), float("nan")
@@ -677,17 +705,18 @@ def corr_timing(what: str, calls: list, tol: dict, timed: bool = True) -> dict:
             by.update({k: "events" for k, b in (("ms", by_ms), ("plain_ms", by_plain)) if b == "events"})
         tiles, mixed, pixels = stats.tolist()
         print(f"[kernel] corr_window {what} radius={radius} G={G} levels={L}: max_abs_err {err!r} (largest |plain| "
-              f"{ref.float().abs().max().item()!r}; at most {use!r} of the tolerance), kernel {ms!r} ms, "
+              f"{ref.float().abs().max().item()!r}; at most {use!r} of atol {tol['atol']!r} + rtol "
+              f"{tol['rtol']!r}), kernel {ms!r} ms, "
               f"plain {plain!r} ms, bound {bd[0]!r} ms ({bd[1]}); tile-levels {tiles}, with per-pixel "
               f"pixels {mixed}, per-pixel pixel-levels {pixels} of {B * G * W * L}")
         tot.update(ms=tot["ms"] + ms, plain_ms=tot["plain_ms"] + plain, err=max(tot["err"], err),
-                   b=tot["b"] + nbytes / H100_BYTES_PER_S * 1e3, f=tot["f"] + flops / H100_BF16_FLOPS * 1e3)
+                   b=tot["b"] + nbytes / H100_BYTES_PER_S * 1e3, f=tot["f"] + flops / peak_flops(f1.dtype) * 1e3)
     n = len(calls)
     print(f"[kernel] corr_window {what} radius={radius} per batch ({n} launches): kernel {tot['ms']!r} ms, "
           f"plain {tot['plain_ms']!r} ms, bound {max(tot['b'], tot['f'])!r} ms; timed by {by if timed else {}}")
     return dict(
-        err=tot["err"], tol="atol 1e-2 + rtol 2^-7", ms=tot["ms"] / n, plain_ms=tot["plain_ms"] / n,
-        library_ms=None, bound=(max(tot["b"], tot["f"]) / n, "bytes" if tot["b"] >= tot["f"] else "operations"),
+        err=tot["err"], tol=f"atol {tol['atol']!r} + rtol {tol['rtol']!r}", ms=tot["ms"] / n,
+        plain_ms=tot["plain_ms"] / n, library_ms=None, bound=(max(tot["b"], tot["f"]) / n, "bytes" if tot["b"] >= tot["f"] else "operations"),
         timed_by=by if timed else {},
     )
 
@@ -713,7 +742,7 @@ def corr_on_main_path(seen: list, what: str = "main-path centres", timed: bool =
         calls.append([(feat1, maps, grid, radius, group)] + [
             (feat1.clone(), [(m.clone(), i) for m, i in maps], grid.clone(), radius, group)
             for _ in range(n - 1 if timed else 0)])
-    return corr_timing(what, calls, K4_TOL, timed)
+    return corr_timing(what, calls, timed)
 
 
 @torch.inference_mode()
@@ -2447,7 +2476,7 @@ def decoder_phase(seed: int, root: str, world: dict, argv: list) -> None:
             corr_on_main_path(seen, f"decoder inputs, lookup radius {r}", timed=r in (2, 4))
             del seen
             wild = wild_corr_args(g, r, {16: 1, 32: 1, 64: 1})
-            corr_timing(f"wild centres, lookup radius {r}", wild, K4_TOL, timed=False)
+            corr_timing(f"wild centres, lookup radius {r}", wild, timed=False)
             del wild
     finally:
         flow_module.corr_lookup = lookup
@@ -3210,8 +3239,8 @@ def loop_phase(seed: int, step_ms_alone: float) -> dict:
     steps with each step's launches and a profile of ten steps, the
     checkpoint's save and restore; one loop batch's step through the
     kernels against the plain path; then
-    ``python -m picopose_tpu_torch.run_train`` for 2 epochs of 4 steps and
-    ``--resume`` for one more.  Everything is written to a temporary
+    ``python -m picopose_tpu_torch.run_train`` for one epoch of 4 steps
+    and ``--resume`` for one more.  Everything is written to a temporary
     directory in the checkout, removed at the end (at most two train-state
     files, ~4.5 GB each, exist at a time).  Returns the kernels' launches
     per loop step."""
@@ -3376,7 +3405,7 @@ def loop_phase(seed: int, step_ms_alone: float) -> dict:
         del batch
         torch.cuda.empty_cache()
 
-        # the CLI: 2 epochs of 4 steps, then --resume for one more (two loader
+        # the CLI: one epoch of 4 steps, then --resume for one more (two loader
         # workers: the CLI runs check checkpoints and resume, the loader's
         # rate is timed above)
         env = {**os.environ, "PYTHONPATH": here}
@@ -3384,7 +3413,7 @@ def loop_phase(seed: int, step_ms_alone: float) -> dict:
                 "trainer.iters_to_print=2", "trainer.ckpt_every_epochs=1", "train_dataloader.num_workers=2"]
         log_dir = os.path.join(tmp, "log", "picopose", "version_9")
         runs = {}
-        for name, extra in (("first", ["--max_steps", "8"]), ("resumed", ["--max_steps", "12", "--resume"])):
+        for name, extra in (("first", ["--max_steps", "4"]), ("resumed", ["--max_steps", "8", "--resume"])):
             t0 = time.perf_counter()
             r = subprocess.run([sys.executable, "-m", "picopose_tpu_torch.run_train", *extra, *args], cwd=tmp, env=env,
                                capture_output=True, text=True, timeout=600)
@@ -3396,19 +3425,16 @@ def loop_phase(seed: int, step_ms_alone: float) -> dict:
             print(f"[loop] run_train ({name} run): {compiled}")
             check(len(compiled) == 1 and " of 1 captured programs" in compiled[0],
                   f"run_train ({name} run) went through the compiled step")
+            saved = sorted(os.listdir(os.path.join(log_dir, "checkpoints")), key=lambda n: int(n[:-3]))
             if name == "first":
-                saved = sorted(os.listdir(os.path.join(log_dir, "checkpoints")))
-                check(saved == ["4.pt", "8.pt"], f"checkpoints at steps 4 and 8 ({saved})")
-                os.remove(os.path.join(log_dir, "checkpoints", "4.pt"))  # at most two train states at a time
+                check(saved == ["4.pt"], f"a checkpoint at step 4, the epoch's end ({saved})")
             else:
-                check("resumed from step 8" in r.stdout, "the resumed run starts at step 8")
-                saved = sorted(os.listdir(os.path.join(log_dir, "checkpoints")), key=lambda n: int(n[:-3]))
-                check(saved == ["8.pt", "12.pt"], f"the resumed run saved at step 12 ({saved})")
+                check("resumed from step 4" in r.stdout, "the resumed run starts at step 4")
+                check(saved == ["4.pt", "8.pt"], f"the resumed run saved at step 8 ({saved})")
         heads, losses = loop_log(log_dir)
-        print(f"[loop] run_train: 2 epochs of 4 steps in {runs['first']!r} s, --resume to step 12 in "
+        print(f"[loop] run_train: one epoch of 4 steps in {runs['first']!r} s, --resume to step 8 in "
               f"{runs['resumed']!r} s; log {heads!r}; losses finite {bool(np.isfinite(losses).all())}")
-        check(heads == ["iter 2", "iter 4", "epoch 0 done at iter 4", "iter 6", "iter 8",
-                        "epoch 1 done at iter 8", "iter 10", "iter 12", "epoch 0 done at iter 12"],
+        check(heads == ["iter 2", "iter 4", "epoch 0 done at iter 4", "iter 6", "iter 8", "epoch 0 done at iter 8"],
               "the log's iteration and epoch lines (the resumed run's epoch counter restarts at 0)")
         check(len(losses) > 0 and all(np.isfinite(losses)), "every logged loss finite")
     finally:
@@ -3645,6 +3671,11 @@ RANKS_B = 8  # the global batch of phase 13's training steps
 RANKS_STEPS = 2
 RANKS_LR = 1e-4  # base.yaml's AdamW at a constant lr (no warm-up), so that two steps move the parameters
 RANKS_MODES = ("ddp", "fsdp")  # phase 13a, one rank
+# phase 13a-b run ViT-L's width at half its depth: the checks are of the
+# collectives and the layouts, which the block count leaves as they are,
+# and the blocks' bytes set the phase's time
+RANKS_DEPTH, RANKS_TAPS = 12, (2, 5, 8, 11)
+RANKS_FORWARD = {"layernorm": 4 * RANKS_DEPTH, "attention": 2 * RANKS_DEPTH, "corr_window": 3, "warp": 3}
 # phase 13b over two ranks: (compute dtype, mode, n_data, n_model)
 RANKS_RUNS = ((torch.float32, "ddp", 2, 1), (torch.float32, "fsdp", 2, 1), (torch.float32, "tp", 1, 2),
               (torch.bfloat16, "ddp", 2, 1))
@@ -3672,10 +3703,23 @@ RANKS_LIMITS = {torch.float32: dict(loss=(1e-4, 1e-3), grad_rms=1e-3, state_rms=
                 torch.bfloat16: dict(loss=(1e-4, 1e-2), grad_rms=1e-2, state_rms=0.1, param_lr=4.5)}
 
 
+def ranks_vit() -> str:
+    """ViT-L's width at RANKS_DEPTH blocks, registered under its own name
+    in the package's table of this process (each rank's process calls
+    this through ``_ranks_inputs``)."""
+    from dataclasses import replace
+
+    from picopose_tpu_torch.models.dinov2 import VIT_CONFIGS
+
+    name = f"dinov2_vitl14_depth{RANKS_DEPTH}"
+    VIT_CONFIGS.setdefault(name, replace(VIT_CONFIGS["dinov2_vitl14"], depth=RANKS_DEPTH))
+    return name
+
+
 def _ranks_inputs(seed: int, dtype: torch.dtype = torch.bfloat16):
     """Phase 13's global batch of 8 sphere pairs on the card, the affine
     noise of each step (the global batch's draws), the model's arguments
-    (ViT-L at ``dtype``) and base.yaml's AdamW at RANKS_LR."""
+    (``ranks_vit`` at ``dtype``) and base.yaml's AdamW at RANKS_LR."""
     from picopose_tpu_torch.train import step as ts
     from picopose_tpu_torch.train.augment import draw_affine_noise
 
@@ -3683,7 +3727,7 @@ def _ranks_inputs(seed: int, dtype: torch.dtype = torch.bfloat16):
     batch = {k: torch.as_tensor(v, device=dev) for k, v in train_batch(RANKS_B, seed).items()}
     g = torch.Generator(device=dev).manual_seed(seed + 13)
     noises = [draw_affine_noise(RANKS_B, g) for _ in range(RANKS_STEPS)]
-    model_kw = dict(vit_type="dinov2_vitl14", blocks_to_take=(5, 11, 17, 23), compute_dtype=dtype)
+    model_kw = dict(vit_type=ranks_vit(), blocks_to_take=RANKS_TAPS, compute_dtype=dtype)
     return batch, noises, model_kw, ts.make_optimizer(base_lr=RANKS_LR, warmup_factor=1.0)
 
 
@@ -3916,7 +3960,8 @@ def ranks_phase(seed: int) -> None:
     try:
         t0 = time.perf_counter()
         a = in_fresh_interpreter(f"nccl_one_rank({seed}, {_free_port()}, {tmp!r})", "[ranks]")
-        print(f"[ranks] (a) one-rank NCCL group, ViT-L bf16, global batch {RANKS_B}, AdamW lr {RANKS_LR}: "
+        print(f"[ranks] (a) one-rank NCCL group, ViT-L's width at {RANKS_DEPTH} blocks, bf16, global batch "
+              f"{RANKS_B}, AdamW lr {RANKS_LR}: "
               f"{time.perf_counter() - t0!r} s")
         for dtype, w in a["witness"].items():
             print(f"[ranks] (a) what 4 rows instead of 8 change in the forward, one device, {dtype}: the ViT's taps "
@@ -3936,7 +3981,7 @@ def ranks_phase(seed: int) -> None:
             check(r["issued"][0].get("all_reduce") == 2 * r["buckets"] and not r["issued"][1],
                   f"(a) {mode}: the capturing call all-reduced each bucket (warm-up and capture), the replay "
                   "issued nothing from the host")
-            check(r["replay_trace_kernels"] == TRAIN_FORWARD, f"(a) {mode}: a replay ran K1, K2, K4, K5")
+            check(r["replay_trace_kernels"] == RANKS_FORWARD, f"(a) {mode}: a replay ran K1, K2, K4, K5")
         t0 = time.perf_counter()
         port = _free_port()
         procs = [subprocess.Popen(
@@ -3976,7 +4021,7 @@ def ranks_phase(seed: int) -> None:
                   f"(b) {mode}: the change of the parameters within {lim['state_rms']} relative RMS per group")
             check(r0["param_max_lr"] <= lim["param_lr"], f"(b) {mode}: each parameter within {lim['param_lr']} lr")
             check(r0["replicated"] == r1["replicated"], f"(b) {mode}: replicated tensors bitwise across ranks")
-            want = {k: v * RANKS_STEPS for k, v in TRAIN_FORWARD.items()}
+            want = {k: v * RANKS_STEPS for k, v in RANKS_FORWARD.items()}
             check(r0["launches"] == r1["launches"] == want, f"(b) {mode}: each rank launched K1, K2, K4, K5 each step")
         ddp, fsdp = (sum(b[0][m]["held_bytes"].values()) for m in ("ddp float32", "fsdp float32"))
         print(f"[ranks] (b) fsdp holds {fsdp / ddp!r} of ddp's bytes per rank")
@@ -3999,8 +4044,8 @@ def devices_phase(seed: int, root: str, world: dict, argv: list) -> None:
     the CSV's rows and order, scene, image, object, score, R and t equal,
     and no replica of the model made on the card it sits on.  The
     reference runs at the parts' batch: a bf16 run at 16 rows came out
-    otherwise than two parts of 8 (PERF.md).  The template views are
-    decoded once for the phase."""
+    otherwise than two parts of 8 (PERF.md).  The template views are the
+    ones phase 7 decoded (``world["templates"]``)."""
     import csv
     import warnings
 
@@ -4023,9 +4068,9 @@ def devices_phase(seed: int, root: str, world: dict, argv: list) -> None:
     rgb, K = ds.load_raw(0)
     dets = ds.dets(0)
     two = ["cuda:0", "cuda:0"]
-    views, load = {}, runner.load_template_views
+    views, load = dict(world.get("templates", {})), runner.load_template_views
 
-    def cached(*a):  # each object's 162 views decoded once for the phase
+    def cached(*a):  # each object's 162 views as phase 7 decoded them
         if a not in views:
             views[a] = load(*a)
         return views[a]
@@ -4108,13 +4153,22 @@ AR_TAGS = ("random", "trained", "trained_int8", "trained_topk1", "trained_quant"
 AR_KEYS = ("AR_MSSD", "AR_MSPD", "AR_mssd_mspd", "AR_VSD", "AR_bop19")
 
 
+# the accuracy loop's evaluation batches: run_test --batch 4 with 2
+# hypotheses, so stage 3 runs 8 fp32 streams over 4 query maps; argument
+# sets rotated per call at each grid (> 50 MB of L2 in fp32)
+AR_B2, AR_GROUP = 4, 2
+AR_SETS = {16: 18, 32: 5, 64: 2}
+
+
 def ar_loop_kernel_checks(g: torch.Generator) -> dict:
-    """K1, K2 and K3 at the accuracy loop's shapes (ViT-S, fp32): K1 on a
-    bank chunk's and a training batch's rows (32 and 16 crops, 257 tokens,
-    width 384), K2 on their qkv views (6 heads), K3 for the evaluation's 4
+    """K1-K5 at the accuracy loop's shapes (ViT-S, fp32): K1 on a bank
+    chunk's and a training batch's rows (32 and 16 crops, 257 tokens, width
+    384), K2 on their qkv views (6 heads), K3 for the evaluation's 4
     queries against a 42-view bank (S = 256, C = 384) in fp32 and its int8
-    branch on the same operands quantised.  Returns the fp32 rows of K2 (a
-    bank chunk's 32 crops) and K3."""
+    branch on the same operands quantised, K4 and K5 at the evaluation's
+    stage 3 (AR_B2 query maps x AR_GROUP hypotheses, C = 256, fp32, lookup
+    radius 2; one launch per decoder level and grid, on wild centres).
+    Returns the fp32 rows of K2 (a bank chunk's 32 crops), K3, K4 and K5."""
     out = {}
     for rows in (32, 16):
         layernorm_row(g, rows, "ar", width=384, dtype=torch.float32)
@@ -4122,6 +4176,11 @@ def ar_loop_kernel_checks(g: torch.Generator) -> dict:
         out.setdefault("attention", r)
     out["match_scores"], q32, qm, t32 = match_row(g, 4, 42, 256, 384, torch.float32, "ar")
     match_int8_checks(q32, qm, t32, "ar")
+    what = f"at the loop's shapes ({AR_B2} x {AR_GROUP} streams, fp32, wild centres)"
+    out["corr_window"] = corr_timing(what, wild_corr_args(g, 2, AR_SETS, AR_B2, AR_GROUP, torch.float32))
+    out["warp"] = warp_timing(what, [
+        [(random_rows(g, AR_B2, G * G, dtype=torch.float32), wild_centres(g, AR_B2 * AR_GROUP, G), G, G, AR_GROUP)
+         for _ in range(AR_SETS[G])] for G in (16, 32, 64)])
     return out
 
 
@@ -4142,7 +4201,8 @@ def ar_loop_runs(seed: int) -> dict:
     epochs of 5 steps), the trained arm and the three serving-mode arms, each
     scored by ``score_csv --vsd --bootstrap 2000``; every child run under
     RUN_COUNTED, so each prints its kernel launches.  Checks: the training
-    loss falls (the last epoch's mean below the first's), every
+    rolls over from epoch 0 to epoch 1 within its one run (the log's epoch
+    lines) and its loss falls (the last epoch's mean below the first's), every
     arm's CSV has one row per detection, every AR finite and in [0, 1] over
     the same GT instances, every run launched K1, K2, K4 and K5, each
     evaluation K3's fp32 branch, except the ``PICOPOSE_MATCH_INT8`` arm,
@@ -4178,12 +4238,16 @@ def ar_loop_runs(seed: int) -> dict:
             seconds = json.load(f)
         print(f"[ar] train_to_ar {wall!r} s; stage seconds {seconds!r}")
 
-        epochs = []
+        epochs, heads = [], []
         with open(os.path.join(tmp, "log", "picopose", "version_910", "training_logger.log")) as f:
             for line in f:
                 if " done at iter " in line:
+                    heads.append(line.split("] ", 1)[1].split(" |")[0])
                     epochs.append(float(line.split("loss(avg): ")[1].split(",")[0]))
-        print(f"[ar] training: {len(epochs)} epochs, loss(avg) per epoch {epochs!r}")
+        print(f"[ar] training: {heads!r}, loss(avg) per epoch {epochs!r}")
+        half = AR_STEPS // 2
+        check(heads == [f"epoch 0 done at iter {half}", f"epoch 1 done at iter {AR_STEPS}"],
+              "run_train rolled over from epoch 0 to epoch 1 in one run")
         check(len(epochs) == 2 and np.isfinite(epochs).all() and epochs[-1] < epochs[0], "the training loss falls")
 
         with open(os.path.join(root, "dets", "fakeds.json")) as f:
@@ -4285,6 +4349,160 @@ def ar_loop_phase(seed: int, proc: subprocess.Popen, log: str) -> tuple[dict, di
     return json.loads(out.split("FRESH_RESULT ", 1)[1].splitlines()[0]), rows
 
 
+# ---------------------------------------------------------------- phase 15: demos, per-item banks, export_torch
+
+PER_ITEM = (16, 162, 16, 1024)  # queries, views, grid side, channels: the main path's (ViT-L, 162 views)
+DEMOS = (("synthetic_demo", ()), ("serve_demo", ("--vit", "dinov2_vitl14")))
+
+
+def start_demos(tmp: str) -> dict:
+    """The two demos as users call them (``python -m``; the synthetic one
+    with its defaults), each under RUN_COUNTED in a process of its own,
+    started together, output to ``<tmp>/<name>.log``; no serving-mode
+    variable is passed on.  Returns name -> (process, log path)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if not k.startswith("PICOPOSE_MATCH_")}
+    env["PYTHONPATH"] = here
+    procs = {}
+    for name, args in DEMOS:
+        log = os.path.join(tmp, f"{name}.log")
+        with open(log, "w") as f:
+            procs[name] = (subprocess.Popen([sys.executable, "-c", RUN_COUNTED, f"picopose_tpu_torch.{name}", *args],
+                                            cwd=here, env=env, stdout=f, stderr=subprocess.STDOUT, text=True,
+                                            start_new_session=True), log)
+    return procs
+
+
+def read_demo(name: str, proc: subprocess.Popen, log: str, card: str) -> None:
+    """Wait for a demo, print its lines, check its exit code, its poses and
+    its launches (K1-K5)."""
+    rc = proc.wait(timeout=900)
+    with open(log) as f:
+        out = f.read()
+    lines = out.splitlines()
+    if rc != 0:
+        print(out[-8000:], file=sys.stderr)
+    check(rc == 0, f"{name} exits 0")
+    for line in lines:
+        if not line.startswith("[counts] "):
+            print(f"[demos] {name} ({card}): {line}")
+    launches = json.loads([ln for ln in lines if ln.startswith("[counts] ")][-1][len("[counts] "):])["launches"]
+    check(all(launches.get(k, 0) > 0 for k in DEFAULT_PATH_KERNELS), f"{name} launched K1-K5: {launches}")
+    if name == "synthetic_demo":
+        poses = [json.loads(ln.split("[demo] best pose: ", 1)[1]) for ln in lines if "[demo] best pose: " in ln]
+        poses = [np.array(p["R"] + [p["t_mm"]]) for p in poses]
+    else:
+        poses = [json.loads(ln.split(" pose: ", 1)[1]) for ln in lines if re.match(r"frame \d+ pose: ", ln)]
+        poses = [np.array(p["R"] + [p["t"]]) for p in poses]
+        check("objects=[1]" in out, "serve_demo's second estimator reloads object 1")
+    want = 1 if name == "synthetic_demo" else 3
+    check(len(poses) == want and all(p.shape == (4, 3) and np.isfinite(p).all() for p in poses),
+          f"{name} prints {want} finite pose(s)")
+    print(f"[demos] {name}: exit 0, {len(poses)} finite pose(s), launches {launches}")
+
+
+@torch.inference_mode()
+def per_item_check(seed: int) -> None:
+    """Per-item banks at full width: B copies of a shared fp32 bank of N
+    views (PER_ITEM; 2.7 GB) through ``match_templates``' per-item path
+    (plain fp32 products, no TF32, views in chunks; no kernel) against K3
+    fp32 on the shared bank (one launch): every view's score within 1e-5;
+    where the two id orders differ, the swapped views' K3 scores lie
+    within 2e-5 of each other (a near tie), counted."""
+    from picopose_tpu_torch import kernels
+    from picopose_tpu_torch.ops import matching as M
+
+    B, N, h, C = PER_ITEM
+    g = torch.Generator(device="cuda").manual_seed(seed + 15)
+    bank = torch.randn(N, h, h, C, generator=g, device="cuda")
+    q = torch.randn(B, h, h, C, generator=g, device="cuda") + 0.5 * bank[:B]  # planted best views
+    mask = (torch.rand(B, 224, 224, generator=g, device="cuda") > 0.3).float()
+    kernels.reset_launches()
+    ref_s, ref_i = M.match_templates(bank, q, mask, topk=N, mode=None)
+    torch.cuda.synchronize()
+    check(dict(kernels.LAUNCHES) == {"match_scores": 1}, f"the shared fp32 bank launched K3 once: {kernels.LAUNCHES}")
+    per_item = bank[None].repeat(B, 1, 1, 1, 1)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    got_s, got_i = M.match_templates(per_item, q, mask, topk=N)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(not kernels.LAUNCHES, f"per-item banks launch no kernel: {kernels.LAUNCHES}")
+    by_view = lambda s, i: torch.empty_like(s).scatter_(1, i, s)
+    ref_table = by_view(ref_s, ref_i)
+    err = (by_view(got_s, got_i) - ref_table).abs().max().item()
+    differ = got_i != ref_i
+    gap = (ref_table.gather(1, got_i) - ref_s).abs()[differ]
+    print(f"[demos] per-item banks {tuple(per_item.shape)} fp32 ({per_item.numel() * 4 / 2**30!r} GiB) against K3 "
+          f"fp32 on the shared bank: max score error {err!r} (tolerance 1e-5), {int(differ.sum())} of {B * N} ranks "
+          f"ordered otherwise (near ties: K3 scores at most {gap.max().item() if gap.numel() else 0.0!r} apart), "
+          f"top-1 equal for {int((got_i[:, 0] == ref_i[:, 0]).sum())} of {B} queries; first call {wall!r} s, host "
+          f"clock (phase 14's process shares the card)")
+    check(err <= 1e-5, "per-item scores within 1e-5 of K3 fp32 on the shared bank")
+    check(bool((gap <= 2e-5).all()), "per-item ids equal K3's except at near ties")
+    check(bool((got_i[:, 0] == torch.arange(B, device="cuda")).all()), "each query finds its planted view")
+
+
+def export_check(seed: int, tmp: str) -> None:
+    """``python -m picopose_tpu_torch.export_torch`` on a ViT-S train state
+    saved by utils/checkpoint.py::save, in a process with no card visible
+    (it runs on the host): the file holds ``export_state_dict`` of the
+    state's model, bitwise."""
+    from picopose_tpu_torch.train.step import init_state, make_optimizer
+    from picopose_tpu_torch.utils import checkpoint as ckpt
+    from picopose_tpu_torch.utils.torch_export import export_state_dict
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    state = init_state(make_optimizer(), seed, vit_type="dinov2_vits14", blocks_to_take=(2, 5, 8, 11),
+                       compute_dtype=torch.float32)
+    path = ckpt.save(tmp, 1, state, epoch=0)
+    out = os.path.join(tmp, "vits.ckpt")
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "picopose_tpu_torch.export_torch", path, out, "--depth", "12"],
+                       cwd=here, env=dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=here),
+                       capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if p.returncode != 0:
+        print(p.stdout[-4000:], p.stderr[-4000:], file=sys.stderr)
+    check(p.returncode == 0, "export_torch exits 0 with no card visible")
+    got = torch.load(out, map_location="cpu", weights_only=True)["state_dict"]
+    ref = export_state_dict(state.model.state_dict())
+    check(sorted(got) == sorted(f"network.{k}" for k in ref), "export_torch writes export_state_dict's keys")
+    bad = [k for k, v in ref.items() if not torch.equal(got[f"network.{k}"], torch.from_numpy(v))]
+    check(not bad, f"export_torch writes export_state_dict's values: {bad[:3]}")
+    print(f"[demos] export_torch: a ViT-S train state ({os.path.getsize(path) / 2**20!r} MiB) -> "
+          f"{os.path.getsize(out) / 2**20!r} MiB, {len(ref)} tensors bitwise export_state_dict, in {wall!r} s "
+          f"(a fresh interpreter, no card visible)")
+
+
+def demos_phase(seed: int, card: str) -> None:
+    """Phase 15: the demos in their processes while the per-item check
+    and the export run here; a temporary directory in the checkout, removed
+    after; a phase that fails stops the demos' processes."""
+    import shutil
+    import signal
+    import tempfile
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="demos_", dir=here)
+    procs = start_demos(tmp)
+    try:
+        t0 = time.perf_counter()
+        per_item_check(seed)
+        print(f"[demos] per-item check {time.perf_counter() - t0!r} s")
+        t0 = time.perf_counter()
+        export_check(seed, tmp)
+        print(f"[demos] export check {time.perf_counter() - t0!r} s")
+        for name, (proc, log) in procs.items():
+            read_demo(name, proc, log, card)
+    finally:
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU", file=sys.stderr)
@@ -4373,6 +4591,9 @@ def main() -> int:
     ranks_phase(SEED)
     print(f"[phase] ranks (phase 13a, 13b) {time.perf_counter() - t0!r} s")
     t0 = time.perf_counter()
+    demos_phase(SEED, card)
+    print(f"[phase] demos, per-item banks, export_torch (phase 15) {time.perf_counter() - t0!r} s")
+    t0 = time.perf_counter()
     ar_launches, ar_rows = ar_loop_phase(SEED, ar_proc, ar_log_path)
     print(f"[phase] accuracy loop (phase 14, its runs started before phase 7) {time.perf_counter() - t0!r} s")
 
@@ -4386,11 +4607,12 @@ def main() -> int:
         "warp": "picopose_tpu/ops/pallas/warp.py:102",
     }
     def brief(r: dict) -> dict:
-        return {"max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+        return {"max_abs_err": r["err"], "tol": r["tol"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                 "bound_by": r["bound"][1], "library_ms": r["library_ms"], "timed_by": r["timed_by"]}
 
     fp32 = {"attention": {"loop": brief(ar_rows["attention"])},
-            "match_scores": {"main": brief(checks["match_scores_fp32"]), "loop": brief(ar_rows["match_scores"])}}
+            "match_scores": {"main": brief(checks["match_scores_fp32"]), "loop": brief(ar_rows["match_scores"])},
+            "corr_window": {"loop": brief(ar_rows["corr_window"])}, "warp": {"loop": brief(ar_rows["warp"])}}
     rows = []
     for name, (source, _, _) in kernels.KERNELS.items():
         r = checks[name]

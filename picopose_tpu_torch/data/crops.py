@@ -16,8 +16,8 @@ written out with cv2's semantics as separable row matrices:
   * mask, cv2.INTER_NEAREST: src = floor(dst * (1 / (out / size))),
     clamped to size - 1, in float64 as cv2 computes it.
 
-The rgb crop is flipped to BGR and CLIP-normalised, as the reference
-network consumes it.
+The rgb crop is flipped to BGR (unless ``bgr_flip=False``) and
+CLIP-normalised, as the reference network consumes it.
 """
 
 from __future__ import annotations
@@ -30,22 +30,23 @@ CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
 CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
 
 
-def mask_square_bbox(mask: np.ndarray) -> tuple[int, int, int, int]:
+def mask_square_bbox(mask: np.ndarray, size_ratio: float = 1.0) -> tuple[int, int, int, int]:
     """(y1, y2, x1, x2) square bbox around the mask, y2/x2 exclusive."""
     rows = np.any(mask, axis=1)
     cols = np.any(mask, axis=0)
     rmin, rmax = np.where(rows)[0][[0, -1]]
     cmin, cmax = np.where(cols)[0][[0, -1]]
-    return square_bbox((rmin, rmax + 1, cmin, cmax + 1), mask.shape)
+    return square_bbox((rmin, rmax + 1, cmin, cmax + 1), mask.shape, size_ratio)
 
 
-def square_bbox(bbox, img_hw) -> tuple[int, int, int, int]:
-    """Square a (y1, y2, x1, x2) box: side = min(max(h, w), min(H, W)),
-    centred, then shifted inside the image in y-then-x order (the JAX
-    package's ``_squareize`` at size ratio 1, the only one it uses)."""
+def square_bbox(bbox, img_hw, size_ratio: float = 1.0) -> tuple[int, int, int, int]:
+    """Square a (y1, y2, x1, x2) box: side = min(max(h, w), min(H, W)) *
+    ``size_ratio``, centred, then shifted inside the image in y-then-x
+    order, once (the JAX package's ``_squareize``: a side past the image's
+    stays past it)."""
     H, W = img_hw
     rmin, rmax, cmin, cmax = bbox
-    b = min(max(rmax - rmin, cmax - cmin), min(H, W))
+    b = min(max(rmax - rmin, cmax - cmin), min(H, W)) * size_ratio
     cy, cx = int((rmin + rmax) / 2), int((cmin + cmax) / 2)
     rmin, rmax = cy - int(b / 2), cy + int(b / 2)
     cmin, cmax = cx - int(b / 2), cx + int(b / 2)
@@ -97,23 +98,28 @@ def nearest_index(size: int, out: int) -> np.ndarray:
 
 
 def crop_and_normalize_rgb(
-    rgb: np.ndarray, bbox, out: int, mask: np.ndarray | None = None, mask_rgb: bool = False
+    rgb: np.ndarray, bbox, out: int, mask: np.ndarray | None = None, mask_rgb: bool = False,
+    bgr_flip: bool = True,
 ) -> np.ndarray:
-    """(H, W, 3) RGB frame -> (out, out, 3) float32 BGR crop,
-    CLIP-normalised: in C++ for a uint8 frame (native/fastpath.py) unless
-    ``PICOPOSE_NO_FASTPATH=1``, else ``crop_and_normalize_rgb_py``."""
+    """(H, W, 3) RGB frame -> (out, out, 3) float32 crop, CLIP-normalised,
+    flipped to BGR unless ``bgr_flip=False``: in C++ for a uint8 frame
+    (native/fastpath.py) unless ``PICOPOSE_NO_FASTPATH=1``, else
+    ``crop_and_normalize_rgb_py``."""
     if rgb.dtype == np.uint8 and fastpath.accelerated():
-        return fastpath.crop_resize_normalize(rgb[..., :3], bbox, out, mask=mask, mask_rgb=mask_rgb)
-    return crop_and_normalize_rgb_py(rgb, bbox, out, mask, mask_rgb)
+        return fastpath.crop_resize_normalize(rgb[..., :3], bbox, out, mask=mask, mask_rgb=mask_rgb,
+                                              bgr_flip=bgr_flip)
+    return crop_and_normalize_rgb_py(rgb, bbox, out, mask, mask_rgb, bgr_flip)
 
 
 def crop_and_normalize_rgb_py(
-    rgb: np.ndarray, bbox, out: int, mask: np.ndarray | None = None, mask_rgb: bool = False
+    rgb: np.ndarray, bbox, out: int, mask: np.ndarray | None = None, mask_rgb: bool = False,
+    bgr_flip: bool = True,
 ) -> np.ndarray:
     """The numpy crop with cv2.INTER_LINEAR's semantics (the C++ path's
     oracle)."""
     y1, y2, x1, x2 = bbox
-    patch = rgb[y1:y2, x1:x2, 2::-1] / 255.0
+    channels = slice(2, None, -1) if bgr_flip else slice(0, 3)
+    patch = rgb[y1:y2, x1:x2, channels] / 255.0
     if mask_rgb and mask is not None:
         patch = patch * (mask[y1:y2, x1:x2, None] > 0)
     Ry, Rx = linear_rows(y2 - y1, out), linear_rows(x2 - x1, out)

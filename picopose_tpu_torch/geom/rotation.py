@@ -1,6 +1,6 @@
 """Rotation helpers: 2D rotations from cos/sin, in-plane angle extraction.
 
-Counterpart of picopose_tpu/geom/rotation.py:12-41.
+Counterpart of picopose_tpu/geom/rotation.py.
 """
 
 from __future__ import annotations
@@ -28,3 +28,11 @@ def inplane_angle_zxy(R: torch.Tensor) -> torch.Tensor:
     a = atan2(R[1,0], R[1,1]).
     """
     return torch.atan2(R[..., 1, 0], R[..., 1, 1])
+
+
+def geodesic_distance(pred_cos_sin: torch.Tensor, gt_cos_sin: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
+    """Mean angle between (..., 2) cos/sin pairs, their dot clamped to
+    [-1 + eps, 1 - eps] (eps 1e-6 gives arccos a finite gradient at +-1,
+    as the in-plane loss uses it)."""
+    dot = torch.clamp((pred_cos_sin * gt_cos_sin).sum(-1), -1.0 + eps, 1.0 - eps)
+    return torch.arccos(dot).mean()

@@ -2,9 +2,10 @@
 
 The port's own copy of picopose_tpu/geom/templates.py: ``_icosahedron``,
 ``_subdivide``, ``icosphere_cam_positions``, ``look_at_opengl``,
-``template_camera_poses``, ``template_object_poses`` (:25-170) and
-``load_pose_table``, the same numpy arithmetic, so the tables are equal
-bit for bit.  They regenerate the reference's pose tables
+``opencv_from_opengl``, ``template_camera_poses``,
+``template_object_poses``, ``load_pose_table`` and
+``upper_hemisphere_index``, the same numpy arithmetic, so the tables are
+equal bit for bit.  They regenerate the reference's pose tables
 (utils/predefined_poses/{cam,obj}_poses_levelN.npy): a Blender-oriented
 icosahedron subdivided ``level + 1`` times (42/162/642 views), vertices
 sorted by (elevation rounded to 1e-6 rad, azimuth), cameras looking at the
@@ -108,6 +109,13 @@ def look_at_opengl(cam_location: np.ndarray, point: np.ndarray) -> np.ndarray:
     return mat
 
 
+def opencv_from_opengl(cam_matrix_world: np.ndarray) -> np.ndarray:
+    """Flip the y and z axes: an OpenGL camera pose to OpenCV's convention
+    (an involution, so the same matrix converts back)."""
+    flip = np.diag([1.0, -1.0, -1.0, 1.0])
+    return flip @ cam_matrix_world
+
+
 @functools.lru_cache(maxsize=None)
 def template_camera_poses(level: int, radius: float = 1000.0) -> np.ndarray:
     """(N, 4, 4) camera-to-world poses, byte-identical (to fp tolerance) with
@@ -141,3 +149,10 @@ def load_pose_table(path: str) -> np.ndarray:
     if table.ndim != 3 or table.shape[-2:] != (4, 4):
         raise ValueError(f"pose table {path} must be (N, 4, 4), got {table.shape}")
     return table
+
+
+def upper_hemisphere_index(level: int) -> np.ndarray:
+    """Indices of the views whose camera sits at z >= 0 (the reference's
+    pose_distribution 'upper')."""
+    cams = template_camera_poses(level)
+    return np.arange(len(cams))[cams[:, 2, 3] >= 0]

@@ -108,6 +108,18 @@ def load_library() -> ctypes.CDLL:
     return _lib
 
 
+def available() -> bool:
+    """Whether the host library loads (built now if it is not yet built),
+    as the JAX package's ``native.available`` answers it.  No path of the
+    port asks this to pick a route: a failed build raises where the
+    library is used."""
+    try:
+        load_library()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
 def call(name: str, *args):
     """Call C entry point ``name`` and count the call."""
     result = getattr(load_library(), name)(*args)

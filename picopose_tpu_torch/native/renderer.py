@@ -12,7 +12,9 @@ imageio: a texture in another format raises, naming the file.  Banks are
 written with data/png.py::write_png in the reference's on-disk layout
 ({view:06d}.png RGBA, {view:06d}_depth.png 16-bit mm,
 object_poses/{obj:06d}.npy), so they decode to the arrays of the JAX
-package's banks of the same mesh.
+package's banks of the same mesh.  ``make_cube_ply`` writes the
+vertex-coloured cube the demos render (the JAX demos take theirs from
+tests/test_native.py, which the port does not import).
 
 For each CAD model the viewpoints are the icosphere poses at z = the
 model's diameter, rendered as RGBA + depth at 640x480 with the fixed
@@ -433,6 +435,35 @@ def render_mesh_views(
         mesh.verts, mesh.colors, mesh.faces, poses, K=K, hw=hw,
         n_threads=n_threads, uv=mesh.uv, texture=mesh.texture,
     )
+
+
+def make_cube_ply(path: str, size: float = 50.0) -> tuple[np.ndarray, list]:
+    """Write a cube of side ``size`` (mm) centred at the origin, with
+    vertex colours, as an ascii PLY: the bytes the JAX package's demos
+    write (their cube comes from tests/test_native.py::make_cube_ply).
+    Returns (verts, faces)."""
+    s = size / 2
+    verts = np.array([[x, y, z] for x in (-s, s) for y in (-s, s) for z in (-s, s)], np.float32)
+    colors = ((verts / size + 0.5) * 255).astype(np.uint8)
+    quads = [(0, 1, 3, 2), (4, 6, 7, 5), (0, 4, 5, 1), (2, 3, 7, 6), (0, 2, 6, 4), (1, 5, 7, 3)]
+    faces = [tri for a, b, c, d in quads for tri in ((a, b, c), (a, c, d))]
+    hdr = [
+        "ply",
+        "format ascii 1.0",
+        f"element vertex {len(verts)}",
+        "property float x", "property float y", "property float z",
+        "property uchar red", "property uchar green", "property uchar blue",
+        f"element face {len(faces)}",
+        "property list uchar int vertex_indices",
+        "end_header",
+    ]
+    with open(path, "wb") as f:
+        f.write(("\n".join(hdr) + "\n").encode())
+        for v, c in zip(verts, colors):
+            f.write(f"{v[0]} {v[1]} {v[2]} {c[0]} {c[1]} {c[2]}\n".encode())
+        for tri in faces:
+            f.write(f"3 {tri[0]} {tri[1]} {tri[2]}\n".encode())
+    return verts, faces
 
 
 def render_object_bank(

@@ -22,6 +22,10 @@ rounding; the JAX package's XLA path rounds the correlation to the feature
 dtype first, so in bf16 the two differ).  Channel order is the
 reference's: k = kx*(2r+1) + ky, the outer window index walks x.
 
+``correlation_pyramid`` and ``corr_lookup_pyramid`` are the reference's
+dataflow (the whole all-pairs volume, pooled, then sampled), which the
+JAX package keeps as its lookups' oracle; nothing on a path calls them.
+
 Gradients (ops/vjp.py): ``corr_lookup`` is differentiable in both feature
 maps and the flow through an autograd Function whose backward recomputes
 ``corr_lookup_reference``, the port's copy of
@@ -39,9 +43,10 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from picopose_tpu_torch import kernels
+from picopose_tpu_torch.device import full_fp32
 from picopose_tpu_torch.geom.grids import pixel_coords_grid
 from picopose_tpu_torch.ops.resize import avg_pool2d
-from picopose_tpu_torch.ops.sample import _gather_rows, _taps
+from picopose_tpu_torch.ops.sample import _gather_rows, _taps, bilinear_sample
 from picopose_tpu_torch.ops.vjp import needs_grad, recompute_grads
 
 
@@ -192,6 +197,39 @@ def corr_lookup_reference(
         rows = (w(1.0 - fy) * cell[:, :, :-1] + w(fy) * cell[:, :, 1:]).to(dt).float()  # (B, P, ky, n+1)
         win = (w(1.0 - fx) * rows[..., :-1] + w(fx) * rows[..., 1:]).to(dt)              # (B, P, ky, kx)
         outs.append(win.transpose(-1, -2).reshape(B, H, W, n * n))
+    return torch.cat(outs, dim=-1)
+
+
+@full_fp32()
+def correlation_pyramid(feat1: torch.Tensor, feat2: torch.Tensor, num_levels: int) -> list[torch.Tensor]:
+    """The all-pairs correlation pyramid of the reference's dataflow
+    (picopose_tpu/ops/corr.py::correlation_pyramid; tests and debugging
+    only, the oracle of the lookups above): feat1, feat2 (B, H, W, C) ->
+    [(B*H*W, H/2^i, W/2^i, 1)], f1 . f2 / sqrt(C) avg-pooled i times."""
+    B, H, W, C = feat1.shape
+    corr = torch.matmul(feat1.reshape(B, H * W, C), feat2.reshape(B, H * W, C).transpose(1, 2))
+    corr = corr / torch.sqrt(torch.tensor(C, dtype=corr.dtype, device=corr.device))
+    pyramid = [corr.reshape(B * H * W, H, W, 1)]
+    for _ in range(num_levels - 1):
+        pyramid.append(avg_pool2d(pyramid[-1], 2))
+    return pyramid
+
+
+def corr_lookup_pyramid(pyramid: list[torch.Tensor], flow: torch.Tensor, radius: int) -> torch.Tensor:
+    """The lookup over a materialised pyramid (picopose_tpu/ops/corr.py::
+    corr_lookup_pyramid): each level's (2r+1)^2 window sampled by
+    ``bilinear_sample`` around (coords + flow) / 2^i, flow (B, H, W, 2) ->
+    (B, H, W, L*(2r+1)^2), the outer window index walking x."""
+    B, H, W, _ = flow.shape
+    grid = pixel_coords_grid(H, W, flow.dtype, flow.device) + flow
+    d = torch.arange(-radius, radius + 1, dtype=flow.dtype, device=flow.device)
+    ox, oy = torch.meshgrid(d, d, indexing="ij")  # outer = x
+    offsets = torch.stack([ox.reshape(-1), oy.reshape(-1)], dim=-1)
+    K = offsets.shape[0]
+    outs = []
+    for i, corr in enumerate(pyramid):
+        coords = grid.reshape(B * H * W, 1, 1, 2) / (2.0**i) + offsets.reshape(1, 1, K, 2)
+        outs.append(bilinear_sample(corr, coords).reshape(B, H, W, K))
     return torch.cat(outs, dim=-1)
 
 

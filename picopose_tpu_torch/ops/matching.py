@@ -16,7 +16,10 @@ row/column maxima and sim[:,0], sim[0,:] per (query, view).
 The serving modes of picopose_tpu/ops/matching.py:116-143 carry over:
 PICOPOSE_MATCH_INT8=1 scores int8 operands (the kernel's s8 wgmma branch,
 counted as ``match_scores_int8``), PICOPOSE_MATCH_FP32=1 keeps fp32
-operands on a bf16 bank.
+operands on a bf16 bank.  Per-item (B, N, h, w, C) banks, which no
+caller of either package passes, take the JAX package's XLA path in plain
+PyTorch (fp32 operands, views in chunks; there is no kernel for them
+there either), and the serving modes do not apply to them.
 
 Two reference quirks are kept on purpose:
   * the similarity volume's query-spatial unflattening is TRANSPOSED: the
@@ -34,6 +37,7 @@ import os
 import torch
 
 from picopose_tpu_torch import kernels
+from picopose_tpu_torch.device import full_fp32
 from picopose_tpu_torch.ops.resize import resize_nearest
 
 
@@ -103,26 +107,47 @@ def _sim(q: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bsc,ntc->bnst", q.float(), t.float())
 
 
+def _fold(sim: torch.Tensor, q_mask: torch.Tensor) -> torch.Tensor:
+    """(B, n, S, S) sims (rows query patches, columns view patches) and
+    the (B, S) query mask -> (B, n) scores: the masked rows' maxima summed
+    over the rows whose row and column argmax (first index) are not 0."""
+    S = sim.shape[-1]
+    sim = sim * q_mask.float()[:, None, :, None]
+    rowmax = sim.amax(dim=3)
+    t_valid = sim[..., 0] < rowmax
+    colmax = sim.amax(dim=2)
+    s_valid = sim[:, :, 0, :] < colmax
+    w = ((q_mask > 0)[:, None, :] & t_valid & s_valid).float()
+    count = w.sum(-1)
+    total = (rowmax * w).sum(-1)
+    return torch.where(count > 0, total / S, torch.zeros_like(total))
+
+
 def match_scores_plain(
     q_norm: torch.Tensor, q_mask: torch.Tensor, t_norm: torch.Tensor
 ) -> torch.Tensor:
     """The kernel's arithmetic in PyTorch ops: (B, S, C), (B, S), (N, S, C)
     -> (B, N) scores, 8 views at a time (the (B, 8, S, S) fp32 block is
     34 MB at B = 16, S = 256)."""
-    B, S, _ = q_norm.shape
-    qm = q_mask.float()[:, None, :, None]  # rows of sim are query patches
-    qv = (q_mask > 0)[:, None, :]
+    out = [_fold(_sim(q_norm, t_norm[s0 : s0 + 8]), q_mask) for s0 in range(0, t_norm.shape[0], 8)]
+    return torch.cat(out, dim=1)
+
+
+@full_fp32()
+def match_scores_per_item(
+    q_norm: torch.Tensor, q_mask: torch.Tensor, tem_feats: torch.Tensor, view_chunk: int = 8
+) -> torch.Tensor:
+    """Scores of per-item banks, the JAX package's XLA path for them
+    (picopose_tpu/ops/matching.py:139-178; no kernel there either): fp32
+    q (B, S, C) and (B, S) mask against (B, N, S, C) bank features, which
+    are normalised here ``view_chunk`` views at a time, so the
+    (B, chunk, S, S) fp32 table is all that is materialised (the whole one
+    is 2.7 GB at (16, 162, 256, 256)).  fp32 products in full fp32 on the
+    card (no TF32).  Returns (B, N)."""
     out = []
-    for s0 in range(0, t_norm.shape[0], 8):
-        sim = _sim(q_norm, t_norm[s0 : s0 + 8]) * qm
-        rowmax = sim.amax(dim=3)
-        t_valid = sim[..., 0] < rowmax
-        colmax = sim.amax(dim=2)
-        s_valid = sim[:, :, 0, :] < colmax
-        w = (qv & t_valid & s_valid).float()
-        count = w.sum(-1)
-        total = (rowmax * w).sum(-1)
-        out.append(torch.where(count > 0, total / S, torch.zeros_like(total)))
+    for s0 in range(0, tem_feats.shape[1], view_chunk):
+        t = l2_normalize(tem_feats[:, s0 : s0 + view_chunk].float())
+        out.append(_fold(torch.einsum("btc,bnsc->bnts", q_norm.float(), t), q_mask))
     return torch.cat(out, dim=1)
 
 
@@ -190,32 +215,43 @@ def match_templates(
     query_mask: torch.Tensor,
     topk: int = 5,
     mode: str | None = "env",
+    view_chunk: int = 8,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Score every view of a shared (N, h, w, C) bank against each query;
-    return top-k (scores, ids), both (B, topk).
+    """Score every template view against each query; return top-k
+    (scores, ids), both (B, topk).
 
-    Per view: sim[t, s] = cos(query[t], tem[s]) * query_mask[t]; the score
-    is sum_t max_s sim[t, s] * valid[t] / (h*w), valid combining the query
-    mask with the argmax-nonzero consistency terms.  Features are
-    normalised in fp32.  The operands, as the JAX package's kernel path
-    picks them: by default those of the bank's dtype (a bf16 bank rounds
-    the normalised operands to bf16); ``mode="fp32"`` keeps fp32 operands
-    on a bf16 bank; ``mode="int8"`` quantises the fp32 normalised q and t
-    to int8 at scale 127, whatever the bank's dtype.  ``mode="env"`` (the
-    default) reads the serving mode from PICOPOSE_MATCH_INT8 /
-    PICOPOSE_MATCH_FP32 (``match_mode_from_env``).
+    tem_feats: a shared (N, h, w, C) bank, or (B, N, h, w, C) per-item
+    banks.  Per view: sim[t, s] = cos(query[t], tem[s]) * query_mask[t];
+    the score is sum_t max_s sim[t, s] * valid[t] / (h*w), valid combining
+    the query mask with the argmax-nonzero consistency terms.  Features are
+    normalised in fp32.
+
+    A shared bank goes to the kernel (``match_scores``), with the operands
+    the JAX package's kernel path picks: by default those of the bank's
+    dtype (a bf16 bank rounds the normalised operands to bf16);
+    ``mode="fp32"`` keeps fp32 operands on a bf16 bank; ``mode="int8"``
+    quantises the fp32 normalised q and t to int8 at scale 127, whatever
+    the bank's dtype.  ``mode="env"`` (the default) reads the serving mode
+    from PICOPOSE_MATCH_INT8 / PICOPOSE_MATCH_FP32
+    (``match_mode_from_env``).  Per-item banks take the JAX package's XLA
+    path (``match_scores_per_item``, fp32 operands, ``view_chunk`` views
+    at a time) whatever the mode, as there: the modes are the kernel's.
     """
-    if tem_feats.ndim != 4:
-        raise ValueError("match_templates takes a shared (N, h, w, C) bank")
     if mode == "env":
         mode = match_mode_from_env()
     if mode not in (None, "int8", "fp32"):
         raise ValueError(f"unknown matching mode {mode!r}")
-    N, h, w, C = tem_feats.shape
+    if tem_feats.ndim not in (4, 5):
+        raise ValueError(f"match_templates takes an (N, h, w, C) or (B, N, h, w, C) bank, got {tuple(tem_feats.shape)}")
+    h, w, C = tem_feats.shape[-3:]
     B, S = query_feat.shape[0], h * w
     q = l2_normalize(query_feat.float()).reshape(B, S, C)
     qm = _mask_to_grid(query_mask, (h, w)).reshape(B, S).float()
-    t = l2_normalize(tem_feats.float()).reshape(N, S, C)
+    if tem_feats.ndim == 5:
+        if tem_feats.shape[0] != B:
+            raise ValueError(f"per-item banks for {tem_feats.shape[0]} items, {B} queries")
+        return top_k(match_scores_per_item(q, qm, tem_feats.reshape(B, -1, S, C), view_chunk), topk)
+    t = l2_normalize(tem_feats.float()).reshape(-1, S, C)
     if mode == "int8":
         q, t = quantize_int8(q), quantize_int8(t)
     elif mode is None and tem_feats.dtype == torch.bfloat16:

@@ -103,6 +103,7 @@ def preprocess_frame(
     out: int = 224,
     pts: int = 64,
     mask_rgb: bool = False,
+    bgr_flip: bool = True,
 ) -> dict[str, torch.Tensor]:
     """(H, W, 3) uint8 frame + (B, H, W) masks -> the model's crop batch.
 
@@ -111,11 +112,14 @@ def preprocess_frame(
     few pixels); both kinds of box are squared here.  Returns real_rgb
     (B, out, out, 3) CLIP-normalised, real_mask (B, out, out), real_M
     (B, 3, 3) and real_pts2d (B, pts, pts, 2), all fp32, on the frame's
-    device.
+    device.  The crops are BGR, as the network takes them, unless
+    ``bgr_flip=False``.
     """
     H, W = frame.shape[:2]
     dev = frame.device
-    ff = frame[..., :3].flip(-1).float() / 255.0  # BGR, as the network takes it
+    ff = frame[..., :3].float() / 255.0
+    if bgr_flip:
+        ff = ff.flip(-1)
     raw = _bbox_from_mask(masks)
     if bboxes is not None:
         use = torch.ones(len(bboxes), dtype=torch.bool, device=dev) if use_bbox is None else use_bbox
@@ -161,8 +165,12 @@ def preprocess_frame_graphed(
     out: int = 224,
     pts: int = 64,
     mask_rgb: bool = False,
+    bgr_flip: bool = True,
 ) -> dict[str, torch.Tensor]:
     """``preprocess_frame`` as one program of ``graphs``, keyed on the
-    frame's shape, the mask count, ``out``, ``pts`` and ``mask_rgb``."""
-    program = lambda f, m, b, u: preprocess_frame(f, m, b, u, out=out, pts=pts, mask_rgb=mask_rgb)
-    return graphs.run("preprocess_frame", program, (frame, masks, bboxes, use_bbox), static=(out, pts, mask_rgb))
+    frame's shape, the mask count, ``out``, ``pts``, ``mask_rgb`` and
+    ``bgr_flip``."""
+    program = lambda f, m, b, u: preprocess_frame(f, m, b, u, out=out, pts=pts, mask_rgb=mask_rgb,
+                                                  bgr_flip=bgr_flip)
+    return graphs.run("preprocess_frame", program, (frame, masks, bboxes, use_bbox),
+                      static=(out, pts, mask_rgb, bgr_flip))

@@ -17,8 +17,10 @@ Gradients (ops/vjp.py): ``warp_by_flow`` is differentiable in the features
 and the flow through an autograd Function whose backward recomputes
 ``warp_by_flow_reference``, the port's copy of
 picopose_tpu/ops/sample.py::_warp_by_flow_xla (the JAX custom_vjp's
-backward form).  That form lerps in x then in y in the feature dtype, so in
-bf16 the plain version cannot serve.
+backward form), which is ``bilinear_sample`` (the JAX package's gather
+form, also the lookup of ``corr_lookup_pyramid``) at the pixel grid plus
+flow.  That form lerps in x then in y in the feature dtype, so in bf16 the
+plain version cannot serve.
 """
 
 from __future__ import annotations
@@ -100,20 +102,22 @@ def warp(feat: torch.Tensor, cen: torch.Tensor, H: int, W: int, group: int = 1) 
     return warp_cuda(feat, cen, H, W, group)
 
 
-def warp_by_flow_reference(feat: torch.Tensor, flow: torch.Tensor, group: int = 1) -> torch.Tensor:
-    """``_warp_by_flow_xla`` (``bilinear_sample`` at the pixel grid plus
-    flow): weights rounded to the feature dtype, the four taps lerped in x,
-    then in y, in that dtype; the backward's form."""
+def bilinear_sample(feat: torch.Tensor, grid: torch.Tensor, group: int = 1) -> torch.Tensor:
+    """Sample (B/group, H, W, C) ``feat`` at the (x, y) pixel coordinates
+    ``grid`` (B, Ho, Wo, 2) -> (B, Ho, Wo, C): map b // group for stream b,
+    align_corners=True pixel space, zero padding (F.grid_sample's
+    semantics there).  The JAX package's ``bilinear_sample``: weights
+    rounded to the feature dtype, the four taps lerped in x, then in y, in
+    that dtype; differentiable, the gathers' backward summing in a fixed
+    order (ops/vjp.py)."""
     B2, H, W, C = feat.shape
-    grid = pixel_coords_grid(H, W, device=flow.device) + flow.float()
     x, y = grid[..., 0], grid[..., 1]
     x0, y0 = torch.floor(x), torch.floor(y)
     wx, wy = (x - x0).to(feat.dtype)[..., None], (y - y0).to(feat.dtype)[..., None]
-    b2 = (torch.arange(flow.shape[0], device=feat.device) // group)[:, None, None]
+    b2 = (torch.arange(grid.shape[0], device=feat.device) // group).reshape(-1, *[1] * (grid.ndim - 2))
     rows = feat.reshape(B2 * H * W, C)
 
     def tap(yi, xi):
-        # a gather whose backward sums in a fixed order (ops/vjp.py)
         ok = (xi >= 0) & (xi <= W - 1) & (yi >= 0) & (yi <= H - 1)
         idx = (b2 * H + yi.clamp(0, H - 1).long()) * W + xi.clamp(0, W - 1).long()
         v = index_select(rows, 0, idx.reshape(-1)).reshape(*idx.shape, C)
@@ -122,6 +126,13 @@ def warp_by_flow_reference(feat: torch.Tensor, flow: torch.Tensor, group: int = 
     top = tap(y0, x0) * (1 - wx) + tap(y0, x0 + 1) * wx
     bot = tap(y0 + 1, x0) * (1 - wx) + tap(y0 + 1, x0 + 1) * wx
     return top * (1 - wy) + bot * wy
+
+
+def warp_by_flow_reference(feat: torch.Tensor, flow: torch.Tensor, group: int = 1) -> torch.Tensor:
+    """``_warp_by_flow_xla``: ``bilinear_sample`` at the pixel grid plus
+    flow; the backward's form."""
+    H, W = feat.shape[1:3]
+    return bilinear_sample(feat, pixel_coords_grid(H, W, device=flow.device) + flow.float(), group)
 
 
 def _warp_by_flow(feat, flow, group):

@@ -1,10 +1,10 @@
 """The port's ``PicoPose`` -> a reference PyTorch checkpoint.
 
-Counterpart of picopose_tpu/utils/torch_export.py (``export_picopose``
-:164, ``save_torch_checkpoint`` :192): the weights become a state dict
-keyed like the reference ``Net``, optionally wrapped as a Lightning
-checkpoint (``{"state_dict": {"network.<k>": ...}}``), with the keys and
-values the JAX exporter emits for the same weights.
+Counterpart of picopose_tpu/utils/torch_export.py (``export_dinov2`` :69,
+``export_picopose`` :164, ``save_torch_checkpoint`` :192): the weights
+become a state dict keyed like the reference ``Net``, optionally wrapped
+as a Lightning checkpoint (``{"state_dict": {"network.<k>": ...}}``),
+with the keys and values the JAX exporter emits for the same weights.
 
 The port's parameters already have the reference's layouts (utils/
 weights.py turns flax kernels into torch ones: Dense (out, in), Conv OIHW,
@@ -72,16 +72,36 @@ def export_state_dict(state: dict) -> dict[str, np.ndarray]:
     return out
 
 
+def export_dinov2(vit: nn.Module | dict, prefix: str = "") -> dict[str, np.ndarray]:
+    """The port's DINOv2 trunk (``models/dinov2.py::DinoViT`` or its state
+    dict) -> the reference DINOv2 state dict under ``prefix``, the keys
+    and values picopose_tpu/utils/torch_export.py::export_dinov2 gives for
+    the same weights (SwiGLU blocks' ``mlp.w12`` / ``mlp.w3`` included):
+    the patch embedding's conv becomes ``patch_embed.proj``, every other
+    key is the reference's already."""
+    state = vit.state_dict() if isinstance(vit, nn.Module) else vit
+    return {
+        prefix + re.sub(r"^patch_embed\.", "patch_embed.proj.", key): np.ascontiguousarray(
+            value.detach().float().cpu().numpy())
+        for key, value in state.items()
+    }
+
+
 def export_picopose(model: nn.Module) -> dict[str, np.ndarray]:
     """The port's ``PicoPose`` -> reference ``Net`` state dict."""
     return export_state_dict(model.state_dict())
 
 
-def save_torch_checkpoint(model: nn.Module, path: str, lightning: bool = True) -> None:
-    """Write ``model`` as a reference-loadable file: a Lightning ``.ckpt``
-    (keys ``network.<k>`` under ``state_dict``) or, with
-    ``lightning=False``, a raw ``Net`` state dict (``.pth``)."""
-    sd = {k: torch.from_numpy(v) for k, v in export_picopose(model).items()}
+def write_checkpoint(state: dict[str, np.ndarray], path: str, lightning: bool = True) -> None:
+    """Write a reference ``Net`` state dict (numpy values) as a Lightning
+    ``.ckpt`` (keys ``network.<k>`` under ``state_dict``) or, with
+    ``lightning=False``, as a raw state dict (``.pth``)."""
+    sd = {k: torch.from_numpy(v) for k, v in state.items()}
     if lightning:
         sd = {"state_dict": {f"network.{k}": v for k, v in sd.items()}}
     torch.save(sd, path)
+
+
+def save_torch_checkpoint(model: nn.Module, path: str, lightning: bool = True) -> None:
+    """Write ``model`` as a reference-loadable file (``write_checkpoint``)."""
+    write_checkpoint(export_picopose(model), path, lightning)

@@ -89,7 +89,7 @@ def _affine_regressor(out: dict, t: Mapping, p: str) -> None:
             _dense(out, f"{p}.{head}.{j}", t[f"{head}_{j}"])
 
 
-def _dpt(out: dict, params: Mapping, stats: Mapping, p: str) -> None:
+def _dpt(out: dict, params: Mapping, stats: Mapping, p: str, dead_units: bool = False) -> None:
     for i in range(4):
         _conv(out, f"{p}.projects.{i}", params[f"projects_{i}"])
         _conv(out, f"{p}.layer{i + 1}_rn", params[f"layer{i + 1}_rn"])
@@ -100,7 +100,8 @@ def _dpt(out: dict, params: Mapping, stats: Mapping, p: str) -> None:
         rp, rs = params[f"refinenet{rn}"], stats[f"refinenet{rn}"]
         # refinenet4 takes one input: a resConfUnit1 there (present in trees
         # ported from the reference) is never called and is not built here
-        units = ("resConfUnit2",) if rn == 4 else ("resConfUnit1", "resConfUnit2")
+        dead = rn == 4 and not (dead_units and "resConfUnit1" in rp)
+        units = ("resConfUnit2",) if dead else ("resConfUnit1", "resConfUnit2")
         for unit in units:
             base = f"{p}.refinenet{rn}.{unit}"
             for c in ("conv1", "conv2"):
@@ -122,15 +123,19 @@ def _flow_decoder(out: dict, params: Mapping, stats: Mapping, p: str) -> None:
                 _conv(out, f"{p}.{head}.{l}.{name}", tree)
 
 
-def state_dict_from_flax(variables: Mapping[str, Any]) -> dict[str, np.ndarray]:
+def state_dict_from_flax(variables: Mapping[str, Any], dead_units: bool = False) -> dict[str, np.ndarray]:
     """The JAX package's PicoPose variables (``params`` and ``batch_stats``,
-    as arrays) -> the port's PicoPose state dict, as fp32 numpy arrays."""
+    as arrays) -> the port's PicoPose state dict, as fp32 numpy arrays.
+    ``dead_units``: keep refinenet4's resConfUnit1 where the variables
+    carry it (those ported from a reference checkpoint do), a module that
+    never runs and that no model builds, for exporting back to the
+    reference."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     out: dict[str, np.ndarray] = {}
     _dinov2(out, params["feature_extractor"]["dinov2"], "feature_extractor.dinov2.")
     _affine_regressor(out, params["affine_regressor"], "affine_regressor")
-    _dpt(out, params["dpt_head"], stats["dpt_head"], "dpt_head")
+    _dpt(out, params["dpt_head"], stats["dpt_head"], "dpt_head", dead_units)
     _flow_decoder(out, params["flow_decoder"], stats["flow_decoder"], "flow_decoder")
     return out
 

@@ -1,0 +1,237 @@
+"""The port's demos (``python -m picopose_tpu_torch.synthetic_demo`` and
+``serve_demo``) against the JAX package's examples, on the CPU.
+
+* The port's cube PLY is byte for byte the one the JAX demos write
+  (tests/test_native.py::make_cube_ply), and its rendered 42-view bank
+  decodes to the JAX ``render_object_bank``'s (poses bitwise).
+* The synthetic demo's function at vit_tiny_test, fp32, 6 views, with
+  seeded flax variables carried across by ``load_flax_variables`` (the
+  stage-3 heads calmed as in tests/test_torch_run_batch.py: predict
+  kernels x0.01, mask bias 4), against the JAX demo's chain (its renderer,
+  crops, ``load_template_views``, ``build_bank``, ``run_batch_jit``): the
+  bank's views and the crop (rgb, mask, the crop affine M, K, pts2d)
+  bitwise; the template ids equal and their scores within 1e-5 [3.7e-8;
+  the closest two scores are 1.6e-6 apart]; stage 3's flows and
+  certainties within 1e-3 + 1e-4 relative, valid masks and integer target
+  cells equal (the run_batch test's bounds).  PnP: the JAX and the port's
+  ``ransac_pnp`` on the demo's correspondences with the JAX package's
+  draws; where their inlier ratios agree within 1e-3 (4 of 5 hypotheses
+  measured; at least 3 required), success equal, R within 5e-3 [9.6e-4]
+  and t within 1e-3 [2.4e-4], the run_batch test's bounds.  RANSAC on
+  this cube is chaotic: near-tied candidates flip with the last bits of
+  the solve (one hypothesis's ratio moves 0.0087 between the packages on
+  identical inputs and draws), and the JAX package's own ``run_batch``
+  eagerly and jitted ranks this input differently (best ratio 0.84368 and
+  0.84325, R up to 1.78 apart), so the two packages' ranked poses are not
+  compared.  The demo's outputs are the eager ``run_batch``'s with the
+  demo's seeded generator, bitwise.
+* The serve demo's function runs end to end on the CPU at vit_tiny_test
+  (``max_batch=1`` for the test's time; the demo batches 4) and the
+  second estimator reloads the bank of object 1.
+* ``--help`` of both modules lists the JAX demos' flags.
+"""
+
+import os
+import re
+import subprocess
+import sys
+import tempfile
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from scipy.spatial.transform import Rotation
+from test_native import make_cube_ply as jax_make_cube_ply
+from test_torch_run_batch import FLOW_TOL, jax_stage3
+from torch_parity import SMALL, assert_close, jax_pnp_draws, random_flax_variables
+
+from picopose_tpu.data import bop as jbop
+from picopose_tpu.data import crops as jcrops
+from picopose_tpu.eval import pipeline as jp
+from picopose_tpu.models import PicoPose as JaxPicoPose
+from picopose_tpu.native import renderer as jrender
+from picopose_tpu.ops.pnp import ransac_pnp as jax_ransac_pnp
+from picopose_tpu_torch import serve_demo, synthetic_demo
+from picopose_tpu_torch.data.png import read_png
+from picopose_tpu_torch.eval import pipeline as tp
+from picopose_tpu_torch.native import renderer as trender
+from picopose_tpu_torch.ops.pnp import ransac_pnp
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+VIEWS, HYP = 6, 5
+BATCH_KEYS = ("real_rgb", "real_mask", "real_M", "real_K", "real_pts2d")
+
+
+@pytest.mark.parametrize("size", [50.0, 60.0])  # the helpers' default and the demos' cube
+def test_cube_ply_is_the_jax_demos(size, tmp_path):
+    got, ref = tmp_path / "port.ply", tmp_path / "jax.ply"
+    trender.make_cube_ply(str(got), size=size)
+    jax_make_cube_ply(str(ref), size=size)
+    assert got.read_bytes() == ref.read_bytes()
+
+
+def test_cube_bank_is_the_jax_demos(tmp_path):
+    cad = str(tmp_path / "obj_000001.ply")
+    trender.make_cube_ply(cad, size=60.0)
+    got = trender.render_object_bank(cad, str(tmp_path / "port"), level=0, obj_id=1)
+    ref = jrender.render_object_bank(cad, str(tmp_path / "jax"), level=0, obj_id=1)
+    np.testing.assert_array_equal(got, ref)
+    names = sorted(os.listdir(tmp_path / "jax" / "000001"))
+    assert len(names) == 84 and names == sorted(os.listdir(tmp_path / "port" / "000001"))
+    for name in names:
+        np.testing.assert_array_equal(read_png(str(tmp_path / "port" / "000001" / name)),
+                                      read_png(str(tmp_path / "jax" / "000001" / name)), err_msg=name)
+    assert (tmp_path / "port" / "object_poses" / "000001.npy").read_bytes() == (
+        tmp_path / "jax" / "object_poses" / "000001.npy").read_bytes()
+
+
+def _jax_demo_chain(jmodel, variables):
+    """examples/synthetic_demo.py's steps, at VIEWS views."""
+    with tempfile.TemporaryDirectory() as tmp:
+        cad = os.path.join(tmp, "obj_000001.ply")
+        jax_make_cube_ply(cad, size=60.0)
+        jrender.render_object_bank(cad, os.path.join(tmp, "bank"), level=0, obj_id=1)
+        gt = np.eye(4, dtype=np.float32)
+        gt[:3, :3] = Rotation.from_euler("xyz", [0.5, 0.2, 0.9]).as_matrix()
+        gt[:3, 3] = [15.0, -8.0, 420.0]
+        verts, colors, faces = jrender.load_ply(cad)
+        rgba, _ = jrender.render_views(verts, colors, faces, gt[None], jrender.TEMPLATES_K)
+        tem = jbop.load_template_views(os.path.join(tmp, "bank"), 1, n_views=VIEWS)
+    mask = (rgba[0, :, :, 3] > 0).astype(np.float32)
+    bbox = jcrops.mask_square_bbox(mask)
+    M = jcrops.crop_matrix(bbox, 224)
+    batch = {
+        "real_rgb": jcrops.crop_and_normalize_rgb(rgba[0, :, :, :3], bbox, 224)[None],
+        "real_mask": jcrops.crop_mask(mask, bbox, 224)[None],
+        "real_M": M[None],
+        "real_K": np.asarray(jnp.asarray(jrender.TEMPLATES_K))[None],
+        "real_pts2d": jcrops.grid_pts2d(M)[None],
+    }
+    bank = jp.build_bank(jmodel, variables, *(jnp.asarray(tem[k]) for k in (
+        "tem_rgb", "tem_mask", "tem_pts3d", "tem_pose", "tem_K", "tem_M")))
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    out = jp.run_batch_jit(jmodel, variables, jbatch, bank, jax.random.PRNGKey(0))
+    return tem, batch, jbatch, bank, out
+
+
+@pytest.fixture(scope="module")
+def synthetic():
+    jmodel = JaxPicoPose(**SMALL, compute_dtype=jnp.float32)
+    variables = random_flax_variables(jmodel, seed=0)
+    fd = variables["params"]["flow_decoder"]
+    for l in range(3):
+        fd[f"flow_pred_{l}"]["predict"]["kernel"] *= 0.01
+        fd[f"mask_pred_{l}"]["predict"]["bias"][:] = 4.0
+    port = synthetic_demo.demo(VIEWS, variables=variables, device="cpu", **SMALL, compute_dtype=torch.float32)
+    tem, batch, jbatch, jbank, jout = _jax_demo_chain(jmodel, variables)
+    return dict(port=port, jmodel=jmodel, variables=variables, tem=tem, batch=batch, jbatch=jbatch,
+                jbank=jbank, jout=jout)
+
+
+def test_synthetic_demo_renders_and_crops_the_jax_demos_inputs(synthetic):
+    port = synthetic["port"]
+    assert port["tem"].keys() == synthetic["tem"].keys()
+    for k, ref in synthetic["tem"].items():
+        np.testing.assert_array_equal(port["tem"][k], ref, err_msg=k)
+    for k in BATCH_KEYS:  # real_M is the crop affine
+        assert port["batch"][k].dtype == np.float32
+        np.testing.assert_array_equal(port["batch"][k], synthetic["batch"][k], err_msg=k)
+
+
+def test_synthetic_demo_selects_the_jax_demos_templates(synthetic):
+    port, jmodel = synthetic["port"], synthetic["jmodel"]
+    _, _, ids = tp.select_templates(port["model"], port["batch"], port["bank"], hyp=HYP)
+    feats = jmodel.apply(synthetic["variables"], synthetic["jbatch"]["real_rgb"], method=jmodel.features)
+    _, ref_ids = jp.match_templates(synthetic["jbank"].feats[-1], feats[-1], synthetic["jbatch"]["real_mask"],
+                                    topk=HYP)
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(ref_ids))
+    assert_close(port["out"].template_score.numpy(), np.asarray(synthetic["jout"].template_score), atol=1e-5,
+                 what="template scores")
+
+
+@pytest.fixture(scope="module")
+def correspondences(synthetic):
+    port = synthetic["port"]
+    model, batch, bank = port["model"], port["batch"], port["bank"]
+    feats, _, ids = tp.select_templates(model, batch, bank, hyp=HYP)
+    pred_Ms, _ = tp.stage2_poses(model, batch, bank, feats, ids)
+    got = tp.stage3_correspondences(model, batch, bank, feats, ids, pred_Ms)
+    ref = jax_stage3(synthetic["jmodel"], synthetic["variables"], synthetic["jbatch"], synthetic["jbank"], HYP, HYP)
+    return got, jax.tree_util.tree_map(np.asarray, ref)
+
+
+def test_synthetic_demo_stage3_matches_the_jax_chain(correspondences):
+    got, (_, r_flows, r_certs, r_tar, r_valid) = correspondences
+    for level in range(3):
+        assert_close(got.flows[level].numpy(), r_flows[level], what=f"flow {level}", **FLOW_TOL)
+        assert_close(got.certs[level].numpy(), r_certs[level], what=f"cert {level}", **FLOW_TOL)
+    np.testing.assert_array_equal(got.valid.numpy(), r_valid)
+    cells = lambda t: np.clip(t.astype(np.int32), 0, 63)
+    v = r_valid
+    np.testing.assert_array_equal(cells(got.tar_pts.numpy())[v], cells(r_tar)[v])
+    assert v.sum(1).min() > 2000  # the calmed heads leave PnP thousands of points
+
+
+# The hypotheses on which the JAX package's RANSAC gives another inlier
+# ratio (by more than 1e-3) eagerly (jax.disable_jit) than jitted, on the
+# same correspondences and key: 0.7663 against 0.7638 on hypothesis 0.  The
+# eager run takes about 70 s on the CPU, so its answer is recorded here.
+JAX_EAGER_DIFFERS = (0,)
+
+
+def test_synthetic_demo_pnp_matches_where_ransac_agrees(synthetic, correspondences):
+    """The port's RANSAC (the JAX draws) against the JAX package's jitted
+    one on identical correspondences: they agree on every hypothesis but
+    those on which JAX's own eager and jitted runs part."""
+    got, _ = correspondences
+    key = jax.random.PRNGKey(0)
+    K = np.repeat(synthetic["batch"]["real_K"], HYP, 0)
+    ref = jax_ransac_pnp(jnp.asarray(got.model_pts.numpy()), jnp.asarray(got.pts2d.numpy()), jnp.asarray(K),
+                         jnp.asarray(got.valid.numpy()), key)
+    sample_idx, subset_idx = (torch.from_numpy(a).long() for a in jax_pnp_draws(key, got.valid.numpy(), 150))
+    pnp = ransac_pnp(got.model_pts, got.pts2d, torch.from_numpy(K), got.valid, sample_idx=sample_idx,
+                     subset_idx=subset_idx)
+    agree = np.abs(pnp.inlier_ratio.numpy() - np.asarray(ref.inlier_ratio)) <= 1e-3
+    assert np.flatnonzero(~agree).tolist() == list(JAX_EAGER_DIFFERS), (pnp.inlier_ratio, ref.inlier_ratio)
+    np.testing.assert_array_equal(pnp.success.numpy()[agree], np.asarray(ref.success)[agree])
+    assert_close(pnp.R.numpy()[agree], np.asarray(ref.R)[agree], atol=5e-3, what="R")
+    assert_close(pnp.t.numpy()[agree], np.asarray(ref.t)[agree], atol=1e-3, what="t")
+
+
+def test_synthetic_demo_runs_run_batch_with_its_generator(synthetic):
+    port = synthetic["port"]
+    eager = tp.run_batch(port["model"], port["batch"], port["bank"], generator=torch.Generator().manual_seed(0))
+    for a, b in zip(port["out"], eager):
+        assert torch.equal(a, b)
+    R = port["out"].R.numpy()
+    assert R.shape == (1, HYP, 3, 3) and np.isfinite(R).all() and np.isfinite(port["out"].t.numpy()).all()
+    np.testing.assert_allclose(R @ np.swapaxes(R, -1, -2), np.broadcast_to(np.eye(3), R.shape), atol=1e-4)
+    assert set(port["summary"]) == {"rot_err_deg_mean", "rot_err_deg_median", "trans_err_mean", "trans_err_median"}
+    assert all(np.isfinite(v) for v in port["summary"].values())
+    np.testing.assert_allclose(port["pose"]["t_mm"], port["out"].t[0, 0].numpy() * 1000.0)
+
+
+def test_serve_demo_runs_and_reloads_its_bank(capsys):
+    out = serve_demo.demo(VIEWS, "vit_tiny_test", device="cpu", blocks_to_take=SMALL["blocks_to_take"], max_batch=1)
+    lines = capsys.readouterr().out.splitlines()
+    assert out["reloaded"] == [1]
+    assert len(out["results"]) == serve_demo.FRAMES == len(out["gt"])
+    for res in out["results"]:
+        assert res.obj_id == 1 and np.isfinite(res.R).all() and np.isfinite(res.t).all()
+        np.testing.assert_allclose(res.R @ res.R.T, np.eye(3), atol=1e-4)
+    assert lines[0].startswith("bank built in ") and lines[-1].endswith("objects=[1]")
+    assert sum(line.startswith("frame ") for line in lines) == 2 * serve_demo.FRAMES
+
+
+@pytest.mark.parametrize("name", ["synthetic_demo", "serve_demo"])
+def test_help_lists_the_jax_demos_flags(name):
+    with open(os.path.join(ROOT, "examples", f"{name}.py")) as f:
+        flags = re.findall(r'add_argument\(\s*"(--[a-z_]+)"', f.read())
+    assert flags
+    p = subprocess.run([sys.executable, "-m", f"picopose_tpu_torch.{name}", "--help"], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert p.returncode == 0, p.stderr
+    for flag in [*flags, "--device"]:
+        assert re.search(rf"(^|\s|\[){flag}\b", p.stdout), (flag, p.stdout)

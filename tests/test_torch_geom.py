@@ -98,3 +98,56 @@ def test_stage2_affine_and_pose_match(inputs):
     np.testing.assert_allclose(got_pose, ref_pose, **TOL)
     R = got_pose[:, :3, :3]
     np.testing.assert_allclose(R.transpose(0, 2, 1) @ R, np.broadcast_to(np.eye(3), R.shape), atol=1e-5)
+
+
+# ---- public helpers and the package's re-exports -----------------------------
+
+
+@pytest.mark.parametrize("eps", [0.0, 1e-6])
+def test_geodesic_distance_matches(inputs, eps):
+    """Pairs at dot +-1 exactly (where eps keeps arccos finite in the
+    gradient) among random ones; the mean within 1e-5."""
+    rng = np.random.default_rng(8)
+    pred = inputs["cos_sin"]
+    gt = rng.normal(size=pred.shape).astype(np.float32)
+    gt /= np.linalg.norm(gt, axis=-1, keepdims=True)
+    gt[0], gt[1] = pred[0], -pred[1]
+    got = tr.geodesic_distance(torch.from_numpy(pred), torch.from_numpy(gt), eps)
+    ref = jr.geodesic_distance(jnp.asarray(pred), jnp.asarray(gt), eps)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("level", [0, 1])
+def test_template_helpers_are_the_jax_ones(level):
+    """opencv_from_opengl and upper_hemisphere_index: the same numpy
+    arithmetic, equal bit for bit."""
+    from picopose_tpu.geom import templates as jt
+    from picopose_tpu_torch.geom import templates as tt
+
+    cams = tt.template_camera_poses(level)
+    np.testing.assert_array_equal(tt.opencv_from_opengl(cams), jt.opencv_from_opengl(cams))
+    np.testing.assert_array_equal(tt.opencv_from_opengl(tt.opencv_from_opengl(cams)), cams)
+    up = tt.upper_hemisphere_index(level)
+    np.testing.assert_array_equal(up, jt.upper_hemisphere_index(level))
+    assert 0 < len(up) < len(cams)
+
+
+def _exported(package) -> set:
+    import types
+
+    return {n for n, v in vars(package).items() if not n.startswith("_") and not isinstance(v, types.ModuleType)}
+
+
+@pytest.mark.parametrize("name", ["geom", "ops"])
+def test_packages_reexport_the_jax_packages_names(name):
+    """picopose_tpu_torch.geom and .ops export what picopose_tpu.geom and
+    .ops do, each name the port module's function of that name."""
+    import importlib
+
+    jpkg = importlib.import_module(f"picopose_tpu.{name}")
+    tpkg = importlib.import_module(f"picopose_tpu_torch.{name}")
+    assert set(tpkg.__all__) == _exported(jpkg)
+    for n in tpkg.__all__:
+        fn = getattr(tpkg, n)
+        assert callable(fn) and fn.__name__ == n
+        assert fn.__module__.replace("picopose_tpu_torch", "picopose_tpu") == getattr(jpkg, n).__module__

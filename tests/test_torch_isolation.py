@@ -52,10 +52,12 @@ def test_port_files_import_no_host_library_of_the_jax_package(library):
     assert not bad, bad
 
 
-@pytest.mark.parametrize("module", ["synthetic_world.py", "train_to_ar.py"])
+@pytest.mark.parametrize("module", ["synthetic_world.py", "train_to_ar.py", "synthetic_demo.py", "serve_demo.py",
+                                    "export_torch.py"])
 def test_accuracy_loop_modules_import_neither_jax_nor_an_image_library(module):
-    """The closed accuracy loop's world builder and driver write and read
-    their images with the port's own PNG and JPEG codecs."""
+    """The closed accuracy loop's world builder and loop, the demos and
+    the exporter write and read their images and checkpoints with the
+    port's own code."""
     path = os.path.join(PACKAGE, module)
     assert path in _port_files()
     roots = set(_imported_roots(path))
@@ -84,7 +86,9 @@ def test_import_leaves_jax_out_of_sys_modules():
         "picopose_tpu_torch.data.tiff, picopose_tpu_torch.parallel, "
         "picopose_tpu_torch.parallel.distributed, picopose_tpu_torch.parallel.mesh, "
         "picopose_tpu_torch.parallel.shardings, picopose_tpu_torch.parallel.collectives, "
-        "picopose_tpu_torch.synthetic_world, picopose_tpu_torch.train_to_ar; "
+        "picopose_tpu_torch.synthetic_world, picopose_tpu_torch.train_to_ar, "
+        "picopose_tpu_torch.synthetic_demo, picopose_tpu_torch.serve_demo, picopose_tpu_torch.export_torch, "
+        "picopose_tpu_torch.ops, picopose_tpu_torch.geom; "
         "print(sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN + HOST_LIBRARIES!r}))"
     )

@@ -256,6 +256,23 @@ def test_missing_compiler_raises(tmp_path, monkeypatch):
         native.load_library()
 
 
+def test_available_is_the_jax_packages_answer():
+    from picopose_tpu import native as jnative
+
+    assert native.available() is True
+    assert native.available() == jnative.available()
+
+
+def test_available_is_false_without_a_compiler(tmp_path, monkeypatch):
+    """As the JAX package's: a library that cannot be built is not available."""
+    csrc, build = _copy_sources(tmp_path)
+    monkeypatch.setattr(native, "CSRC_DIR", csrc)
+    monkeypatch.setattr(native, "BUILD_DIR", build)
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setenv("CXX", "no-such-compiler-here")
+    assert native.available() is False
+
+
 def test_importing_the_package_builds_nothing(tmp_path):
     code = ("import picopose_tpu_torch.native.fastpath, picopose_tpu_torch.native.renderer, "
             "picopose_tpu_torch.data.crops, picopose_tpu_torch.data.rle; "

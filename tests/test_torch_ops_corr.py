@@ -256,3 +256,27 @@ def test_corr_lookup_matches_xla_at_any_radius(radius, levels, group):
     assert got.shape == (f1.shape[0], G, G, levels * (2 * radius + 1) ** 2)
     assert_close(got.numpy(), ref, atol=2e-5, what=f"corr lookup, radius {radius}")
     assert_close(C.corr_lookup_reference(*args).numpy(), ref, atol=2e-5, what=f"reference form, radius {radius}")
+
+
+@pytest.mark.parametrize("levels", [1, 3])
+def test_correlation_pyramid_and_its_lookup_match_jax(levels):
+    """The reference dataflow's two steps against the JAX package's, fp32:
+    the pyramid within 1e-5 [rounding order] and its lookup within 2e-5;
+    and the port's lookup against the pyramid's, the oracle relation the
+    JAX tests pin (2e-5)."""
+    from picopose_tpu.ops.corr import corr_lookup_pyramid, correlation_pyramid
+
+    G = 16
+    f1, f2, flow = _inputs(30 + levels, 2, 1, G, 32)
+    ref_pyr = correlation_pyramid(jnp.asarray(f1), jnp.asarray(f2), levels)
+    pyr = C.correlation_pyramid(torch.from_numpy(f1), torch.from_numpy(f2), levels)
+    assert len(pyr) == levels
+    for i, (got, ref) in enumerate(zip(pyr, ref_pyr)):
+        assert got.shape == (2 * G * G, G >> i, G >> i, 1)
+        assert_close(got.numpy(), np.asarray(ref), atol=1e-5, what=f"pyramid level {i}")
+    ref = np.asarray(corr_lookup_pyramid(ref_pyr, jnp.asarray(flow), R))
+    got = C.corr_lookup_pyramid(pyr, torch.from_numpy(flow), R)
+    assert got.shape == (2, G, G, levels * (2 * R + 1) ** 2)
+    assert_close(got.numpy(), ref, atol=2e-5, what="lookup over the pyramid")
+    lookup = C.corr_lookup(torch.from_numpy(f1), torch.from_numpy(f2), torch.from_numpy(flow), R, levels)
+    assert_close(lookup.numpy(), got.numpy(), atol=2e-5, what="corr_lookup vs the pyramid's lookup")

@@ -138,3 +138,83 @@ def test_plain_scores_match_pallas_at_the_loops_shape_fp32():
     np.testing.assert_allclose(got, ref, atol=1e-5)
     assert (got[1] == 0).all() and (ref[1] == 0).all()
     np.testing.assert_array_equal(got[[0, 2, 3]].argmax(1), [0, 2, 3])
+
+
+# ---- per-item (B, N, h, w, C) banks -----------------------------------------
+
+
+def _per_item(B, N, h, C, seed=17):
+    """Per-item banks whose view v of item b is noise plus (0.1 + v / N)
+    times the item's query: the scores rise with v in steps far above
+    the 1e-5 tolerance, so the whole top-N order is fixed."""
+    rng = np.random.default_rng(seed)
+    qry = rng.normal(size=(B, h, h, C)).astype(np.float32)
+    tem = rng.normal(size=(B, N, h, h, C)).astype(np.float32)
+    tem += (0.1 + np.arange(N) / N)[None, :, None, None, None].astype(np.float32) * 2.0 * qry[:, None]
+    mask = (rng.random((B, 224, 224)) > 0.4).astype(np.float32)
+    return tem, qry, mask
+
+
+@pytest.mark.parametrize("h", [4, 16])
+def test_per_item_banks_match_xla(h):
+    """(B = 3, N = 13) per-item banks (13 views: one whole chunk of 8 and a
+    part) against the JAX XLA path: every score within 1e-5 and the whole
+    id order equal."""
+    B, N, C = 3, 13, 64
+    tem, qry, mask = _per_item(B, N, h, C)
+    ref_s, ref_i = jm.match_templates(jnp.asarray(tem), jnp.asarray(qry), jnp.asarray(mask), topk=N, impl="xla")
+    got_s, got_i = tm.match_templates(torch.from_numpy(tem), torch.from_numpy(qry), torch.from_numpy(mask), topk=N)
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(ref_s), atol=1e-5)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(ref_i))
+    assert (np.diff(np.asarray(ref_s), axis=1) < -1e-4).all()  # no near ties decide the order
+
+
+@pytest.mark.parametrize("view_chunk", [1, 5, 8, 13, 32])
+def test_per_item_scores_do_not_depend_on_the_chunk(view_chunk):
+    """N = 13 with chunks that do and do not divide it: the same scores
+    (the chunk only bounds the table held at once) and ids."""
+    tem, qry, mask = (torch.from_numpy(a) for a in _per_item(2, 13, 16, 32, seed=4))
+    ref_s, ref_i = tm.match_templates(tem, qry, mask, topk=13)
+    got_s, got_i = tm.match_templates(tem, qry, mask, topk=13, view_chunk=view_chunk)
+    np.testing.assert_allclose(got_s.numpy(), ref_s.numpy(), atol=1e-6)
+    assert torch.equal(got_i, ref_i)
+
+
+def test_repeated_shared_bank_gives_the_shared_scores():
+    """B copies of a shared fp32 bank, as a per-item bank, score as the
+    shared bank does (the plain version of the kernel there): 1e-5."""
+    B, N, h, C = 3, 11, 16, 64
+    tem, qry, mask = _features(B, N, h, C, seed=9, shared=0.8)
+    shared_s, shared_i = tm.match_templates(torch.from_numpy(tem), torch.from_numpy(qry), torch.from_numpy(mask),
+                                            topk=N)
+    per_item = torch.from_numpy(tem)[None].expand(B, *tem.shape)
+    got_s, got_i = tm.match_templates(per_item, torch.from_numpy(qry), torch.from_numpy(mask), topk=N)
+    table = lambda s, i: np.take_along_axis(s.numpy(), np.argsort(i.numpy(), 1), 1)
+    np.testing.assert_allclose(table(got_s, got_i), table(shared_s, shared_i), atol=1e-5)
+    np.testing.assert_array_equal(got_i[:, :2].numpy(), shared_i[:, :2].numpy())  # the planted matches
+
+
+@pytest.mark.parametrize("env", ["PICOPOSE_MATCH_INT8", "PICOPOSE_MATCH_FP32"])
+def test_serving_modes_leave_per_item_banks_alone(env, monkeypatch):
+    """The serving modes pick the kernel's operands (a shared bank's); a
+    per-item bank, bf16 included, takes fp32 operands under either, as the
+    JAX package's XLA path does, and matches that path (1e-5)."""
+    tem, qry, mask = _per_item(2, 9, 16, 32, seed=6)
+    tem16 = torch.from_numpy(tem).to(torch.bfloat16)
+    args = (torch.from_numpy(qry), torch.from_numpy(mask))
+    plain_s, plain_i = tm.match_templates(tem16, *args, topk=9, mode=None)
+    monkeypatch.setenv(env, "1")
+    got_s, got_i = tm.match_templates(tem16, *args, topk=9)
+    assert torch.equal(got_s, plain_s) and torch.equal(got_i, plain_i)
+    ref_s, _ = jm.match_templates(jnp.asarray(tem16.float().numpy()).astype(jnp.bfloat16), jnp.asarray(qry),
+                                  jnp.asarray(mask), topk=9, impl="xla")
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(ref_s), atol=1e-5)
+    kernels.reset_launches()
+    tm.match_templates(tem16, *args, topk=9)
+    assert not kernels.LAUNCHES
+
+
+def test_per_item_banks_need_one_bank_per_query():
+    tem, qry, mask = _per_item(3, 4, 4, 16)
+    with pytest.raises(ValueError, match="per-item banks for 3 items, 2 queries"):
+        tm.match_templates(torch.from_numpy(tem), torch.from_numpy(qry[:2]), torch.from_numpy(mask[:2]))

@@ -63,3 +63,35 @@ def test_warp_by_flow_matches_xla_fp32(group):
 def test_warp_by_flow_needs_matching_batches():
     with pytest.raises(ValueError, match="flow batch"):
         S.warp_by_flow(torch.zeros(2, 4, 4, 8), torch.zeros(5, 4, 4, 2), group=2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bilinear_sample_matches_jax(dtype):
+    """``bilinear_sample`` at off-grid points, some past the edges, against
+    the JAX function: fp32 within 1e-5; bf16 lerps in bf16 on both sides,
+    where the order of the CPU's roundings may move a value by a step:
+    rtol 2^-7 (plus 1e-6 for values that cancel to near zero)."""
+    from picopose_tpu.ops.sample import bilinear_sample
+
+    rng = np.random.default_rng(21)
+    feat = rng.normal(size=(2, 12, 10, 8)).astype(np.float32)
+    grid = np.stack([rng.uniform(-2, 11, (2, 5, 7)), rng.uniform(-2, 13, (2, 5, 7))], -1).astype(np.float32)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    ref = bilinear_sample(jnp.asarray(feat, jd), jnp.asarray(grid))
+    got = S.bilinear_sample(torch.from_numpy(feat).to(td), torch.from_numpy(grid))
+    assert got.shape == (2, 5, 7, 8) and got.dtype == td
+    ref = np.asarray(ref.astype(jnp.float32))
+    if dtype == "float32":
+        assert_close(got.numpy(), ref, atol=1e-5, what="bilinear_sample fp32")
+    else:
+        assert_close(got.float().numpy(), ref, atol=1e-6, rtol=2**-7, what="bilinear_sample bf16")
+
+
+def test_bilinear_sample_shares_maps_over_groups():
+    """Stream b reads map b // group: the sample of the repeated maps,
+    bitwise."""
+    rng = np.random.default_rng(3)
+    feat = torch.from_numpy(rng.normal(size=(2, 6, 6, 4)).astype(np.float32))
+    grid = torch.from_numpy(rng.uniform(-1, 6, (6, 3, 3, 2)).astype(np.float32))
+    got = S.bilinear_sample(feat, grid, group=3)
+    assert torch.equal(got, S.bilinear_sample(feat.repeat_interleave(3, 0), grid))
