@@ -217,7 +217,20 @@ Phases (any failure exits non-zero before the result line):
      width (PER_ITEM) in ``match_templates`` against K3 fp32 on the shared
      bank they repeat (every score within 1e-5, ids equal except at near
      ties, counted), and ``python -m picopose_tpu_torch.export_torch`` on a
-     ViT-S train state with no card visible, bitwise ``export_state_dict``.
+     ViT-S train state with no card visible, bitwise ``export_state_dict``;
+ 16. the image formats PIL reads (``formats_phase``, run after phase 13c
+     on phase 7's tree): phase 7's two frames rewritten, with the writers
+     of tests/torch_image_files.py, as an Adam7-interlaced PNG, LZW and
+     Deflate TIFFs with the horizontal predictor, a tiled TIFF and a
+     planar one (two trees, two variants each), beside a third scene whose
+     frame is tests/data/frame_progressive.jpg in one tree and its
+     baseline twin tests/data/frame_baseline.jpg in the other (PIL, q75
+     4:2:0, the same pixels); host decode ms of each variant beside its
+     plain twin on the host's CPU; ``run_test.main`` on each tree through
+     K1-K5 (phase 7's decoded template views): every frame decoded
+     bitwise as written, the wrappers' launches ``EVAL_LAUNCHES``, every
+     CSV row of phase 7's frames (all but ``time``) bitwise phase 7's, and
+     the progressive frame's rows bitwise its twin's.
 Launch counts are the wrappers' (``kernels.LAUNCHES``), which count a
 kernel where they launch it: an eager call and a program's warm-up, not
 a capture or a replay.  What a replay ran is counted by kernel name in a
@@ -1953,8 +1966,9 @@ def bop_world(root: str, seed: int) -> dict:
     detections with RLE masks (one per slot, ten per object and frame,
     one of them carrying only 6 mask pixels, so its box is used, plus a
     low-scored one past ``inst_count``), scene cameras and the bop19
-    targets.  Returns the paths, a digest of every image written and the
-    view pasted under each detection's box."""
+    targets.  Returns the paths, a digest of every image written, the
+    view pasted under each detection's box, the frames, K, detections and
+    targets."""
     import concurrent.futures as cf
     import json
     import os
@@ -1992,7 +2006,7 @@ def bop_world(root: str, seed: int) -> dict:
         os.makedirs(os.path.join(tem_dir, "smoke", "object_poses"), exist_ok=True)
         np.save(os.path.join(tem_dir, "smoke", "object_poses", f"{obj:06d}.npy"), poses)
 
-    dets, targets, pasted, cams = [], [], {}, {}
+    dets, targets, pasted, cams, frames = [], [], {}, {}, {}
     K = [1000.0, 0.0, 640.0, 0.0, 1000.0, 480.0, 0.0, 0.0, 1.0]
     for fi, (scene, im) in enumerate(EVAL_FRAMES):
         frame = rng.integers(0, 256, (*EVAL_FRAME_HW, 3), dtype=np.uint8)
@@ -2013,6 +2027,7 @@ def bop_world(root: str, seed: int) -> dict:
         dets.append(dict(dets[-20], score=0.01))
         targets += [{"scene_id": scene, "im_id": im, "obj_id": obj, "inst_count": 10} for obj in EVAL_OBJECTS]
         write(os.path.join(data_dir, "smoke", "test", f"{scene:06d}", "rgb", f"{im:06d}.png"), frame)
+        frames[scene, im] = frame
         cams.setdefault(scene, {})[str(im)] = {"cam_K": K}
     for scene, cam in cams.items():
         with open(os.path.join(data_dir, "smoke", "test", f"{scene:06d}", "scene_camera.json"), "w") as f:
@@ -2026,7 +2041,7 @@ def bop_world(root: str, seed: int) -> dict:
         for w in writes:
             w.result()
     return dict(data_dir=data_dir, template_root=tem_dir, det_dir=det_dir, digests=digests, pasted=pasted,
-                n_instances=20 * len(EVAL_FRAMES))
+                n_instances=20 * len(EVAL_FRAMES), frames=frames, K=K, dets=dets, targets=targets)
 
 
 # K1-K5 in one eval CLI run: two 162-view banks (6 chunks each: 5 of 32
@@ -2148,6 +2163,7 @@ def eval_cli_phase(seed: int, then=None) -> None:
             def load(model, variables):
                 fns["load_flax_variables"](model, variables)
                 rec["loaded"].append({k: v.detach().clone() for k, v in model.state_dict().items()})
+                world["variables"] = variables  # phase 16 loads them again, unread
 
             def decoder(name):  # template views go through read_png, frames through read_image
                 def decode(path):
@@ -2316,9 +2332,195 @@ def eval_cli_phase(seed: int, then=None) -> None:
               f"captures): in the runner "
               f"{first['rb_ms']!r} (second run {second['rb_ms']!r}); alone, 5 calls after one warm-up "
               f"median {float(np.median(alone[1:]))!r} ({alone[1:]!r})")
+        world["rows"] = first["rows"]  # for phase 16
         del a, kw, first, second
         if then is not None:
             then(root, world, argv)
+
+FORMAT_SCENE = 3  # the JPEG twins' scene: one detection of each object, after phase 7's scenes
+FORMAT_TREES = {  # tree -> (scene, image) -> (variant, file under the scene)
+    "a": {(1, 3): ("interlaced PNG", "rgb/000003.png"), (2, 7): ("LZW TIFF, predictor 2", "gray/000007.tif"),
+          (FORMAT_SCENE, 1): ("progressive JPEG", "rgb/000001.jpg")},
+    "b": {(1, 3): ("Deflate TIFF, predictor 2, 256 x 256 tiles", "gray/000003.tif"),
+          (2, 7): ("Deflate TIFF, planar", "gray/000007.tif"), (FORMAT_SCENE, 1): ("baseline JPEG", "rgb/000001.jpg")},
+}
+FORMAT_JPEGS = {"progressive JPEG": "frame_progressive.jpg", "baseline JPEG": "frame_baseline.jpg"}
+
+
+def format_bytes(variant: str, frame: np.ndarray, data_dir: str) -> bytes:
+    """The file of ``variant`` holding ``frame`` (the JPEGs: the committed
+    files, whatever ``frame`` is)."""
+    from torch_image_files import png_bytes, tiff_bytes
+
+    if variant in FORMAT_JPEGS:
+        with open(os.path.join(data_dir, FORMAT_JPEGS[variant]), "rb") as f:
+            return f.read()
+    if variant == "interlaced PNG":
+        return png_bytes(frame, 2, 8, interlace=True)
+    if variant == "LZW TIFF, predictor 2":
+        return tiff_bytes(frame, 2, 5, 2, rows_per_strip=64)
+    if variant == "Deflate TIFF, planar":
+        return tiff_bytes(frame, 2, 8, planar=True, rows_per_strip=64)
+    return tiff_bytes(frame, 2, 8, 2, tile=(256, 256))  # Deflate, predictor 2, tiles
+
+
+def formats_phase(seed: int, root: str, world: dict, argv: list) -> None:
+    """Phase 16: the image formats PIL reads, end to end (module
+    docstring).  Two BOP trees beside phase 7's (``FORMAT_TREES``), its
+    frames rewritten in the new variants and a third scene holding the
+    committed progressive JPEG or its baseline twin, with one detection
+    of each object; ``run_test.main`` on each, in this process, with phase
+    7's checkpoint as phase 7's run read and ported it, and its decoded
+    template views.  Per object the batches stay phase 7's (16, then 4 of
+    phase 7's instances and the third scene's, padded), and the PnP draws
+    are drawn per batch row, so phase 7's rows must come back bitwise and
+    the twins' rows equal each other."""
+    import concurrent.futures as cf
+    import csv
+    import json
+    import warnings
+
+    import picopose_tpu_torch.data.bop as bop_module
+    from picopose_tpu_torch import kernels, run_test
+    from picopose_tpu_torch.data.jpeg import decode_image
+    from picopose_tpu_torch.data.tiff import encode_tiff
+    from picopose_tpu_torch.eval import runner
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(here, "tests"))
+    data = os.path.join(here, "tests", "data")
+    t_phase = time.perf_counter()
+    frames = dict(world["frames"])
+    frames[FORMAT_SCENE, 1] = decode_image(format_bytes("baseline JPEG", None, data))
+    H, W = frames[FORMAT_SCENE, 1].shape[:2]
+    dets, targets = list(world["dets"]), list(world["targets"])
+    for obj, (y0, x0) in zip(EVAL_OBJECTS, ((200, 240), (420, 760))):
+        mask = np.zeros((H, W), np.uint8)
+        mask[y0 : y0 + 224, x0 : x0 + 224] = 1
+        dets.append({"scene_id": FORMAT_SCENE, "image_id": 1, "category_id": obj, "bbox": [x0, y0, 224, 224],
+                     "score": 0.9, "time": 0.05, "segmentation": rle_string(mask)})
+        targets.append({"scene_id": FORMAT_SCENE, "im_id": 1, "obj_id": obj, "inst_count": 1})
+
+    # the trees, their files encoded in threads (zlib and numpy release the GIL; LZW is Python)
+    t0 = time.perf_counter()
+    written, trees = {}, {}
+    with cf.ThreadPoolExecutor(4) as pool:
+        jobs = {(tree, key): pool.submit(format_bytes, variant, frames[key], data)
+                for tree, files in FORMAT_TREES.items() for key, (variant, _) in files.items()}
+        for tree, files in FORMAT_TREES.items():
+            base = os.path.join(root, f"formats_{tree}")
+            trees[tree] = base
+            cams = {}
+            for (scene, im), (variant, rel) in files.items():
+                path = os.path.join(base, "bop", "smoke", "test", f"{scene:06d}", rel)
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                blob = jobs[tree, (scene, im)].result()
+                with open(path, "wb") as f:
+                    f.write(blob)
+                written[path] = (variant, (scene, im), blob)
+                cams.setdefault(scene, {})[str(im)] = {"cam_K": world["K"]}
+            for scene, cam in cams.items():
+                with open(os.path.join(base, "bop", "smoke", "test", f"{scene:06d}", "scene_camera.json"), "w") as f:
+                    json.dump(cam, f)
+            with open(os.path.join(base, "bop", "smoke", "test_targets_bop19.json"), "w") as f:
+                json.dump(targets, f)
+            os.makedirs(os.path.join(base, "dets"))
+            with open(os.path.join(base, "dets", "smoke.json"), "w") as f:
+                json.dump(dets, f)
+    print(f"[formats] two trees written in {time.perf_counter() - t0!r} s: "
+          f"{sorted({v for v, _, _ in written.values()})}; file bytes "
+          f"{ {v: len(b) for v, _, b in written.values()}!r}")
+
+    # host decode ms of each variant beside its plain twin (the same pixels), one decode each
+    try:
+        lscpu = subprocess.run(["lscpu"], capture_output=True, text=True).stdout
+    except OSError:
+        lscpu = ""
+    field = dict(line.split(":", 1) for line in lscpu.splitlines() if ":" in line)
+    field = {k.strip(): v.strip() for k, v in field.items()}
+    cpu = field.get("Model name", "unknown")
+    if cpu == "unknown":  # a VM may hide the name: vendor, family and model
+        cpu = f"{field.get('Vendor ID', '?')} CPU family {field.get('CPU family', '?')} model {field.get('Model', '?')}"
+    cpu += f", {field.get('CPU(s)', '?')} CPUs"
+    twins = {"plain PNG (filters 0-4)": (png_bytes(frames[1, 3]), (1, 3)),
+             "uncompressed TIFF": (encode_tiff(frames[2, 7]), (2, 7)),
+             "baseline JPEG": (format_bytes("baseline JPEG", None, data), (FORMAT_SCENE, 1))}
+    files = [*twins.items()] + [(v, (b, key)) for v, key, b in written.values() if v != "baseline JPEG"]
+    decode_ms = {}
+    for name, (blob, key) in files:
+        t = time.perf_counter()
+        arr = decode_image(blob, name)
+        decode_ms[name] = (time.perf_counter() - t) * 1e3
+        check(np.array_equal(arr, frames[key]), f"{name} decodes bitwise as written")
+    print(f"[formats] host decode ms at {H} x {W} RGB, one decode each, on the host's {cpu}: {decode_ms!r}")
+
+    # run_test on each tree
+    rows, wall = {}, {}
+    for tree, base in trees.items():
+        decoded = {}
+        real = bop_module.read_image
+
+        def read(path):
+            arr = real(path)
+            decoded[path] = arr
+            return arr
+
+        parts = {}
+
+        def timed(name, fn):
+            def call(*a, **kw):
+                t = time.perf_counter()
+                out = fn(*a, **kw)
+                parts[name] = parts.get(name, 0.0) + time.perf_counter() - t
+                return out
+            return call
+
+        cli = ["--version_id", str(16 + len(rows)), *argv]
+        cli = [a.replace(world["data_dir"], os.path.join(base, "bop")).replace(world["det_dir"], os.path.join(base, "dets"))
+               for a in cli]
+        cwd = os.getcwd()
+        os.chdir(root)
+        try:
+            with warnings.catch_warnings(), patched((bop_module, "read_image", read),
+                                                    (runner, "load_template_views", lambda *a: world["templates"][a]),
+                                                    (run_test, "load_any", lambda *a, **kw: world["variables"]),
+                                                    (run_test, "load_flax_variables",
+                                                     timed("weights", run_test.load_flax_variables)),
+                                                    (run_test, "evaluate_dataset",
+                                                     timed("evaluate_dataset", run_test.evaluate_dataset)),
+                                                    (runner, "build_bank_graphed",
+                                                     timed("build_bank", runner.build_bank_graphed)),
+                                                    (runner, "run_batch_graphed",
+                                                     timed("run_batch", runner.run_batch_graphed))):
+                warnings.simplefilter("ignore")
+                kernels.reset_launches()
+                t0 = time.perf_counter()
+                (path,) = run_test.main(cli)
+                torch.cuda.synchronize()
+                wall[tree] = {"run_test.main": time.perf_counter() - t0, **parts}
+                launches = dict(kernels.LAUNCHES)
+        finally:
+            os.chdir(cwd)
+        check(launches == EVAL_LAUNCHES, f"tree {tree}: the wrappers launched K1-K5 as phase 7's run: {EVAL_LAUNCHES}")
+        check(decoded.keys() == {p for p in written if p.startswith(base)}, f"tree {tree}: every frame was decoded")
+        for p, arr in decoded.items():
+            check(np.array_equal(arr, frames[written[p][1]]), f"tree {tree}: {written[p][0]} decoded bitwise")
+        with open(os.path.join(root, path)) as f:
+            rows[tree] = [r[:6] for r in csv.reader(f)]
+
+    phase7 = [r[:6] for r in world["rows"]]
+    for tree in trees:
+        old = [r for r in rows[tree] if int(r[0]) != FORMAT_SCENE]
+        new = [r for r in rows[tree] if int(r[0]) == FORMAT_SCENE]
+        check(old == phase7, f"tree {tree}: phase 7's frames give phase 7's CSV rows bitwise (all but time)")
+        check(len(new) == len(EVAL_OBJECTS), f"tree {tree}: one row per detection of scene {FORMAT_SCENE}")
+    del world["variables"]
+    twin = [[r for r in rows[t] if int(r[0]) == FORMAT_SCENE] for t in ("a", "b")]
+    check(twin[0] == twin[1], "the progressive JPEG's rows are bitwise its baseline twin's")
+    print(f"[formats] s per tree (run_test.main and parts: the weights loaded, evaluate_dataset, its "
+          f"build_bank and run_batch calls) {wall!r}; rows: {len(phase7)} of phase 7's bitwise in each tree, "
+          f"the twins' {len(twin[0])} rows equal; phase {time.perf_counter() - t_phase!r} s")
+
 
 DECODER_RADII = (1, 2, 3, 4)  # lookup radii: config radius 2, 4 (the default), 6 and 8 (RAFT's published 4)
 
@@ -4503,6 +4705,9 @@ def demos_phase(seed: int, card: str) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+T_START = time.perf_counter()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU", file=sys.stderr)
@@ -4574,10 +4779,13 @@ def main() -> int:
         t = time.perf_counter()
         devices_phase(SEED, *a)
         t_dec.append(time.perf_counter() - t)
+        t = time.perf_counter()
+        formats_phase(SEED, *a)
+        t_dec.append(time.perf_counter() - t)
 
     eval_cli_phase(SEED, then=decoder)
     print(f"[phase] eval CLI {time.perf_counter() - t0 - sum(t_dec)!r} s; configurable decoder (phase 11) "
-          f"{t_dec[0]!r} s; devices (phase 13c) {t_dec[1]!r} s")
+          f"{t_dec[0]!r} s; devices (phase 13c) {t_dec[1]!r} s; image formats (phase 16) {t_dec[2]!r} s")
     t0 = time.perf_counter()
     train_launches, step_ms = train_phase(SEED)
     print(f"[phase] training step {time.perf_counter() - t0!r} s")
@@ -4627,6 +4835,7 @@ def main() -> int:
             "library_ms": r["library_ms"], "timed_by": r["timed_by"],
             **({"fp32": fp32[name]} if name in fp32 else {}),
         })
+    print(f"[total] chip_smoke.py {time.perf_counter() - T_START!r} s")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

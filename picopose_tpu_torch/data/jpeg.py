@@ -1,40 +1,54 @@
-"""Baseline JPEG decoding and encoding on numpy, and ``read_image``.
+"""JPEG decoding and encoding on numpy, and ``read_image``.
 
 The port's counterpart of what picopose_tpu/data/bop.py::_load_im (:56-67)
 gets from PIL for a ``.jpg``: the MegaPose shards' ``rgb.jpg`` frames and
 BOP test frames stored as ``rgb/*.jpg``.  The arrays are those
 ``np.asarray(PIL.Image.open(path))`` gives with PIL's libjpeg-turbo:
-(H, W, 3) uint8 RGB, or (H, W) for greyscale.
+(H, W, 3) uint8 RGB, (H, W) for greyscale, (H, W, 4) for CMYK.
 
-Read: sequential Huffman JPEG (SOF0, and SOF1 at 8 bits), 1 or 3
-components, sampling factors up to 2 x 2 (4:4:4, 4:2:2, 4:2:0, 4:4:0),
-interleaved or one scan per component, restart intervals, APPn and COM
-segments skipped, an Adobe APP14 transform flag honoured.  Progressive,
-arithmetic, lossless and hierarchical files, 12-bit samples and CMYK
-raise ``NotImplementedError`` naming the file; a truncated or corrupt
-stream raises ``ValueError`` naming it.
+Read: sequential Huffman JPEG (SOF0, and SOF1 at 8 bits) and progressive
+Huffman JPEG (SOF2: DC and AC first and refinement scans, spectral
+selection, successive approximation, EOB runs); 1, 3 or 4 components;
+sampling factors 1 to 4 (4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1, 4:1:0 and
+the rest libjpeg-turbo upsamples by whole factors); interleaved or one
+scan per component; restart intervals; APPn and COM segments skipped; an
+Adobe APP14 transform flag honoured.  Four components are Adobe CMYK
+(transform 0, or no Adobe segment) or YCCK (transform 2), returned as PIL
+returns them: inverted, the Adobe convention.  Arithmetic-coded,
+lossless and hierarchical files, 12-bit samples, fractional sampling
+ratios, and progressive files that libjpeg-turbo would block-smooth
+(some of the first ten coefficients left unsent or unrefined by the last
+scan) raise ``NotImplementedError`` naming the file; a truncated or
+corrupt stream raises ``ValueError`` naming it.
 
 The arithmetic is libjpeg-turbo's at its defaults (jpeg-6b semantics):
 
   * the islow integer IDCT (jidctint.c: 13-bit constants, 2 extra bits
     between the passes, the result wrapped to 10 bits and clamped through
     the range-limit table);
-  * "fancy" triangular upsampling (jdsample.c): h2v1 (3a + b + 1) >> 2 and
-    (3a + b + 2) >> 2; h1v2 the same vertically; h2v2 a vertical 3a + b
-    pass, then (3s + t + 8) >> 4 and (3s + t + 7) >> 4, with the first
-    and last column (4s + 8) >> 4 and (4s + 7) >> 4; rows above the first
-    and below the last repeat them; a component 2 samples wide or less
-    is replicated instead;
+  * "fancy" triangular upsampling (jdsample.c) where a component is
+    downsampled by exactly 2: h2v1 (3a + b + 1) >> 2 and (3a + b + 2) >> 2;
+    h1v2 the same vertically; h2v2 a vertical 3a + b pass, then
+    (3s + t + 8) >> 4 and (3s + t + 7) >> 4, with the first and last
+    column (4s + 8) >> 4 and (4s + 7) >> 4; rows above the first and below
+    the last repeat them; a component 2 samples wide or less, and every
+    other whole ratio (int_upsample), is replicated instead;
   * YCbCr -> RGB by jdcolor.c's 16-bit fixed-point tables, rounding with
-    ONE_HALF, clamped.
+    ONE_HALF, clamped; YCCK -> CMYK as ycck_cmyk_convert does (255 minus
+    that RGB, K as it is), then PIL's inversion.
 
 Entropy decoding is serial.  The 16-bit window at every bit position of
 a scan is computed in numpy, and per Huffman table a 65536-entry list
 gives each window's bit count (code and value bits) and, for AC tables,
 the step it adds to the coefficient index; the Python loop then only
-chases symbol positions.  Coefficient values,
-dequantisation, the IDCT, upsampling and colour conversion run vectorised
-over all blocks at once.
+chases symbol positions.  A progressive refinement scan's loop also
+needs each block's coefficients that were non-zero before the scan
+(their correction bits sit between the symbols): per block, the zero
+positions of the band and the non-zero count behind each position are
+laid out in numpy before the loop, which records where each run of
+correction bits and each new coefficient's sign bit starts.  Coefficient
+values, the corrections, dequantisation, the IDCT, upsampling and colour
+conversion run vectorised over all blocks at once.
 
 Write: ``encode_jpeg`` / ``write_jpeg``, the counterpart of what PIL's
 libjpeg-turbo writes at its defaults (``PIL.Image.save(..., quality=q)``,
@@ -67,20 +81,24 @@ NATURAL_ORDER = np.array([
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
 ])
-_SOF_NAMES = {0xC2: "progressive", 0xC3: "lossless", 0xC5: "hierarchical", 0xC6: "hierarchical",
+_SOF_NAMES = {0xC3: "lossless", 0xC5: "hierarchical", 0xC6: "hierarchical",
               0xC7: "hierarchical", 0xC9: "arithmetic", 0xCA: "arithmetic", 0xCB: "arithmetic",
               0xCD: "arithmetic", 0xCE: "arithmetic", 0xCF: "arithmetic"}
 _END_OF_SCAN = re.compile(rb"\xff[^\x00]")
 _EOB = 64  # AC step of an end-of-block symbol: ends the block whatever k is
 _SHIFT = 7  # AC step entries pack bits << 7 | step
 _FAR = 1 << 40  # the bits an invalid code "takes"
+_MAX_BLOCKS_IN_MCU = 10  # libjpeg's D_MAX_BLOCKS_IN_MCU
+_SMOOTHED = 10  # libjpeg-turbo block-smooths unless zigzag 1..9 are exact (SAVED_COEFS)
 
 
 class _Component:
     def __init__(self, cid: int, h: int, v: int, tq: int):
         self.cid, self.h, self.v, self.tq = cid, h, v, tq
         self.w = self.hgt = 0  # downsampled size, set with the frame
-        self.coefs: np.ndarray | None = None  # (rows, cols, 64) zigzag, int16
+        self.coefs: np.ndarray | None = None  # (rows, cols, 64) zigzag, set with the frame
+        self.qtable: np.ndarray | None = None  # latched at the component's first scan
+        self.coef_bits = np.full(64, -1)  # progressive: each coefficient's Al so far, -1 unsent
 
 
 def _huffman_table(counts: bytes, symbols: bytes, path: str) -> tuple[np.ndarray, np.ndarray]:
@@ -200,6 +218,8 @@ class _Decoder:
         self.adobe: int | None = None
         self.comps: list[_Component] = []
         self.height = self.width = 0
+        self.progressive = False
+        self.prog_ac: dict[int, tuple[list[int], list[int], list[int]]] = {}
 
     def fail(self, what: str):
         raise ValueError(f"{self.path}: corrupt JPEG ({what})")
@@ -234,15 +254,21 @@ class _Decoder:
                 pos = self.scan(seg, pos)
             else:
                 self.segment(marker, seg)
-        if not self.comps or any(c.coefs is None for c in self.comps):
+        if not self.comps or any(c.qtable is None for c in self.comps):
             raise ValueError(f"{self.path}: truncated JPEG (a component has no scan)")
+        if self.progressive and any(c.coef_bits[0] >= 0 and np.any(c.coef_bits[1:_SMOOTHED] != 0)
+                                    for c in self.comps):
+            raise NotImplementedError(
+                f"{self.path}: progressive JPEG whose scans leave some of the first {_SMOOTHED} coefficients "
+                "unsent or unrefined is not supported (libjpeg-turbo block-smooths it)")
         return self.output()
 
     def segment(self, marker: int, seg: bytes) -> None:
-        if marker in (0xC0, 0xC1):
-            self.frame(seg)
+        if marker in (0xC0, 0xC1, 0xC2):
+            self.frame(seg, progressive=marker == 0xC2)
         elif marker in _SOF_NAMES:
-            raise NotImplementedError(f"{self.path}: {_SOF_NAMES[marker]} JPEG is not supported (baseline only)")
+            raise NotImplementedError(
+                f"{self.path}: {_SOF_NAMES[marker]} JPEG is not supported (baseline and progressive Huffman only)")
         elif marker == 0xC4:
             self.define_huffman(seg)
         elif marker == 0xDB:
@@ -256,19 +282,20 @@ class _Decoder:
         elif marker == 0xEE and seg[:5] == b"Adobe" and len(seg) >= 12:
             self.adobe = seg[11]
         elif marker == 0xCC:
-            raise NotImplementedError(f"{self.path}: arithmetic-coded JPEG is not supported (baseline only)")
+            raise NotImplementedError(f"{self.path}: arithmetic-coded JPEG is not supported (Huffman only)")
         elif marker == 0xDC:
             raise NotImplementedError(f"{self.path}: JPEG with a DNL marker is not supported")
         # other APPn, COM and unknown segments are skipped
 
-    def frame(self, seg: bytes) -> None:
+    def frame(self, seg: bytes, progressive: bool = False) -> None:
         if len(seg) < 6:
             self.fail("SOF")
         precision, self.height, self.width, n = struct.unpack(">BHHB", seg[:6])
+        self.progressive = progressive
         if precision != 8:
             raise NotImplementedError(f"{self.path}: {precision}-bit JPEG is not supported (8-bit only)")
-        if n not in (1, 3):
-            raise NotImplementedError(f"{self.path}: JPEG with {n} components is not supported (grey or 3 only)")
+        if n not in (1, 3, 4):
+            raise NotImplementedError(f"{self.path}: JPEG with {n} components is not supported (1, 3 or 4 only)")
         if self.height == 0:
             raise NotImplementedError(f"{self.path}: JPEG with a DNL marker is not supported")
         if self.width == 0 or len(seg) < 6 + 3 * n:
@@ -276,18 +303,24 @@ class _Decoder:
         for i in range(n):
             cid, hv, tq = seg[6 + 3 * i : 9 + 3 * i]
             h, v = hv >> 4, hv & 15
-            if not (1 <= h <= 2 and 1 <= v <= 2):
-                raise NotImplementedError(f"{self.path}: sampling factors {h}x{v} are not supported (up to 2x2)")
+            if not (1 <= h <= 4 and 1 <= v <= 4):
+                self.fail(f"sampling factors {h}x{v}")
             self.comps.append(_Component(cid, h, v, tq))
         if n == 1:  # a lone component's factors are ignored (its plane is the image)
             self.comps[0].h = self.comps[0].v = 1
         self.hmax = max(c.h for c in self.comps)
         self.vmax = max(c.v for c in self.comps)
+        if any(self.hmax % c.h or self.vmax % c.v for c in self.comps):
+            factors = ", ".join(f"{c.h}x{c.v}" for c in self.comps)
+            raise NotImplementedError(f"{self.path}: JPEG sampling factors {factors} have a fractional ratio")
         self.mcux = -(-self.width // (8 * self.hmax))
         self.mcuy = -(-self.height // (8 * self.vmax))
         for c in self.comps:
             c.w = -(-self.width * c.h // self.hmax)
             c.hgt = -(-self.height * c.v // self.vmax)
+            # zigzag coefficients, libjpeg's 16-bit JCOEF, zero until a scan
+            # sets them (a progressive scan adds to them)
+            c.coefs = np.zeros((self.mcuy * c.v, self.mcux * c.h, 64), np.int16)
 
     def define_huffman(self, seg: bytes) -> None:
         pos = 0
@@ -300,6 +333,8 @@ class _Decoder:
             if tc > 1 or th > 3 or pos + 17 + n > len(seg):
                 self.fail("DHT")
             L, S = self.huff[tc, th] = _huffman_table(counts, seg[pos + 17 : pos + 17 + n], self.path)
+            if tc:
+                self.prog_ac.pop(th, None)  # progressive files redefine tables between scans
             # per window, the bits its symbol takes (code and value) and, for
             # AC, the step it adds to the coefficient index; a window that
             # starts no code jumps past any scan (IndexError when decoding)
@@ -333,13 +368,27 @@ class _Decoder:
         ns = seg[0] if seg else 0
         if ns < 1 or len(seg) < 1 + 2 * ns + 3:
             self.fail("SOS")
+        Ss, Se, Ah, Al = seg[1 + 2 * ns], seg[2 + 2 * ns], seg[3 + 2 * ns] >> 4, seg[3 + 2 * ns] & 15
+        # the tables the scan reads: both in a sequential scan; a progressive
+        # DC first scan the DC table, an AC scan the AC table, a DC
+        # refinement none
+        need_dc = not self.progressive or (Ss == 0 and Ah == 0)
+        need_ac = not self.progressive or Ss > 0
         by_id = {c.cid: c for c in self.comps}
         members = []
         for i in range(ns):
             cid, t = seg[1 + 2 * i : 3 + 2 * i]
-            if cid not in by_id or (0, t >> 4) not in self.huff or (1, t & 15) not in self.huff:
+            if (cid not in by_id or (need_dc and (0, t >> 4) not in self.huff)
+                    or (need_ac and (1, t & 15) not in self.huff)):
                 self.fail("SOS names an unknown component or table")
             members.append((by_id[cid], t >> 4, t & 15))
+        if len(members) > 1 and sum(c.h * c.v for c, _, _ in members) > _MAX_BLOCKS_IN_MCU:
+            self.fail("more than 10 blocks in an MCU")
+        for c, _, _ in members:  # jdinput.c latch_quant_tables
+            if c.qtable is None:
+                if c.tq not in self.qt:
+                    self.fail("missing quantisation table")
+                c.qtable = self.qt[c.tq].copy()
         # the entropy-coded data, split at restart markers
         segments, start = [], pos
         while True:
@@ -353,37 +402,53 @@ class _Decoder:
                 continue
             segments.append(self.buf[start:pos].replace(b"\xff\x00", b"\xff"))
             break
-        self.entropy_decode(members, segments)
+        if not self.progressive:
+            self.entropy_decode(members, segments)
+            return pos
+        # jdphuff.c start_pass_phuff_decoder's checks
+        if Ss == 0:
+            bad = Se != 0
+        else:
+            bad = Se < Ss or Se > 63 or len(members) != 1
+        if bad or (Ah != 0 and Al != Ah - 1) or Al > 13:
+            self.fail(f"progressive scan Ss={Ss} Se={Se} Ah={Ah} Al={Al}")
+        if Ss == 0:
+            (self.dc_refine if Ah else self.dc_first)(members, segments, Al)
+        else:
+            c, _, ta = members[0]
+            (self.ac_refine if Ah else self.ac_first)(c, ta, segments, Ss, Se, Al)
+        for c, _, _ in members:
+            c.coef_bits[Ss : Se + 1] = Al
         return pos
 
-    def entropy_decode(self, members, segments) -> None:
-        if len(members) == 1:  # non-interleaved: an MCU is one block of the component's own grid
-            c = members[0][0]
-            rows, cols = -(-c.hgt // 8), -(-c.w // 8)
-            pattern = [0]
-        else:  # each member's v x h blocks, row by row
-            rows, cols = self.mcuy, self.mcux
-            pattern = [i for i, (c, _, _) in enumerate(members) for _ in range(c.v * c.h)]
-        n_mcu = rows * cols
+    def _segments(self, segments, n_mcu: int):
+        """(MCUs per restart interval, intervals, the 16-bit window at every
+        bit position of the intervals' data joined (zero bits past the
+        end), each interval's first bit and its end)."""
         ri = self.restart or n_mcu
         n_seg = -(-n_mcu // ri)
         if len(segments) < n_seg:
             raise ValueError(f"{self.path}: truncated JPEG (restart intervals missing)")
-        data = b"".join(segments[:n_seg])
         seg_bits = np.cumsum([0] + [8 * len(s) for s in segments[:n_seg]])
-        # the 16-bit window at every bit position (zero bits past the end)
-        b = np.frombuffer(data + bytes(8), np.uint8).astype(np.int32)
+        b = np.frombuffer(b"".join(segments[:n_seg]) + bytes(8), np.uint8).astype(np.int32)
         w24 = (b[:-2] << 16) | (b[1:-1] << 8) | b[2:]
         win = ((w24[:, None] >> np.arange(8, 0, -1, dtype=np.int32)) & 0xFFFF).astype(np.uint16).ravel()
-        plan = [(self.steps[0, members[i][1]], self.steps[1, members[i][2]]) for i in pattern]
+        return ri, n_seg, win, seg_bits[:-1].tolist(), seg_bits[1:].tolist()
+
+    def _truncated(self):
+        raise ValueError(f"{self.path}: truncated or corrupt JPEG (scan data ends inside an MCU)")
+
+    def entropy_decode(self, members, segments) -> None:
+        n_mcu, nper, comp, flat = self._scan_blocks(members)
+        ri, n_seg, win, seg_start, seg_end = self._segments(segments, n_mcu)
+        plan = [(self.steps[0, members[i][1]], self.steps[1, members[i][2]]) for i in comp[:nper]]
         # the serial part: chase symbol positions
         dcpos, acpos, ends = [], [], []
         dap, aap, eap = dcpos.append, acpos.append, ends.append
         w = memoryview(win)
-        seg_end = seg_bits[1:].tolist()
         try:
             for s in range(n_seg):
-                q = int(seg_bits[s])
+                q = seg_start[s]
                 for _ in range(min(ri, n_mcu - s * ri)):
                     for dct, act in plan:
                         dap(q)
@@ -398,16 +463,13 @@ class _Decoder:
                 if q > seg_end[s]:
                     raise IndexError
         except IndexError:
-            raise ValueError(f"{self.path}: truncated or corrupt JPEG (scan data ends inside an MCU)") from None
-        self.coefficients(members, pattern, (rows, cols), ri, win, np.array(dcpos), np.array(acpos), np.array(ends))
+            self._truncated()
+        self.coefficients(members, comp, flat, ri * nper, win, dcpos, np.array(acpos), np.array(ends))
 
-    def coefficients(self, members, pattern, grid, ri, win, dcpos, acpos, ends) -> None:
+    def coefficients(self, members, comp_of_block, flat, per_interval, win, dcpos, acpos, ends) -> None:
         """Values at the recorded symbol positions -> each component's
-        zigzag coefficient blocks."""
-        rows, cols = grid
-        nper = len(pattern)
+        zigzag coefficient blocks (``_scan_blocks``' block order)."""
         n_blocks = len(dcpos)
-        comp_of_block = np.tile(np.array(pattern), n_blocks // nper)
         counts = np.diff(np.concatenate([[0], ends]))
         block_of_sym = np.repeat(np.arange(n_blocks), counts)
         zz = np.zeros((n_blocks, 64), np.int64)
@@ -431,7 +493,15 @@ class _Decoder:
         if np.any(k[hit] > 63):
             self.fail("AC coefficients past index 63")
         zz[block_of_sym[hit], k[hit]] = val[hit]
-        # DC differences, accumulated per component and restart interval
+        zz[:, 0] = self.dc_values(members, comp_of_block, np.array(dcpos), win, per_interval)
+        for i, (c, _, _) in enumerate(members):
+            sel = comp_of_block == i
+            c.coefs.reshape(-1, 64)[flat[sel]] = zz[sel].astype(np.int16)
+
+    def dc_values(self, members, comp_of_block, dcpos, win, per_interval: int) -> np.ndarray:
+        """Each block's DC value: its coded difference, accumulated per
+        component within each restart interval (``per_interval`` blocks)."""
+        n_blocks = len(dcpos)
         diffs = np.zeros(n_blocks, np.int64)
         for i, (_, td, _) in enumerate(members):
             sel = comp_of_block == i
@@ -439,38 +509,250 @@ class _Decoder:
             w = win[dcpos[sel]]
             ln, sz = L[w], S[w]
             diffs[sel] = _extend(win[dcpos[sel] + ln] >> (16 - sz), sz)
-        interval = np.arange(n_blocks) // (ri * nper)
-        for i, (c, _, _) in enumerate(members):
+        interval = np.arange(n_blocks) // per_interval
+        dc = np.zeros(n_blocks, np.int64)
+        for i in range(len(members)):
             sel = comp_of_block == i
             d, grp = diffs[sel], interval[sel]
             cs = np.cumsum(d)
             starts = np.flatnonzero(np.diff(np.concatenate([[-1], grp])))
             base = np.repeat(cs[starts] - d[starts], np.diff(np.concatenate([starts, [len(d)]])))
-            zz[sel, 0] = cs - base
-            # place the blocks on the component's grid
-            blocks = zz[sel].astype(np.int16)
-            if c.coefs is None:
-                c.coefs = np.zeros((self.mcuy * c.v, self.mcux * c.h, 64), np.int16)
-            if len(members) == 1:
-                c.coefs[:rows, :cols] = blocks.reshape(rows, cols, 64)
-            else:
-                c.coefs[:] = blocks.reshape(rows, cols, c.v, c.h, 64).transpose(0, 2, 1, 3, 4).reshape(
-                    rows * c.v, cols * c.h, 64)
+            dc[sel] = cs - base
+        return dc
+
+    def _scan_blocks(self, members):
+        """A scan's blocks in coding order: (MCUs, blocks per MCU, each
+        block's member index, each block's row in its component's
+        coefficients reshaped to (-1, 64)).  A one-component scan codes
+        the component's own block grid, an interleaved one each member's
+        v x h blocks of every MCU, row by row."""
+        if len(members) == 1:  # non-interleaved: the component's own block grid
+            c = members[0][0]
+            rows, cols = -(-c.hgt // 8), -(-c.w // 8)
+            flat = (np.arange(rows)[:, None] * c.coefs.shape[1] + np.arange(cols)).ravel()
+            return rows * cols, 1, np.zeros(rows * cols, np.int64), flat
+        my, mx = np.meshgrid(np.arange(self.mcuy), np.arange(self.mcux), indexing="ij")
+        comp, flat = [], []
+        for i, (c, _, _) in enumerate(members):
+            for dy in range(c.v):
+                for dx in range(c.h):
+                    comp.append(np.full(my.size, i))
+                    flat.append(((my * c.v + dy) * c.coefs.shape[1] + mx * c.h + dx).ravel())
+        # (block of the MCU, MCU) -> MCU-major
+        comp, flat = np.stack(comp, 1).ravel(), np.stack(flat, 1).ravel()
+        return my.size, len(flat) // my.size, comp, flat
+
+    # ------------------------------------------------------ progressive scans
+    def dc_first(self, members, segments, Al: int) -> None:
+        """DC first scan: each block's difference, as a sequential scan codes
+        it, accumulated and shifted up by ``Al``."""
+        n_mcu, nper, comp, flat = self._scan_blocks(members)
+        ri, n_seg, win, seg_start, seg_end = self._segments(segments, n_mcu)
+        plan = [self.steps[0, members[i][1]] for i in comp[:nper]]
+        dcpos = []
+        dap = dcpos.append
+        w = memoryview(win)
+        try:
+            for s in range(n_seg):
+                q = seg_start[s]
+                for _ in range(min(ri, n_mcu - s * ri)):
+                    for dct in plan:
+                        dap(q)
+                        q += dct[w[q]]
+                if q > seg_end[s]:
+                    raise IndexError
+        except IndexError:
+            self._truncated()
+        dc = self.dc_values(members, comp, np.array(dcpos), win, ri * nper) << Al
+        for i, (c, _, _) in enumerate(members):
+            c.coefs.reshape(-1, 64)[flat[comp == i], 0] = dc[comp == i]
+
+    def dc_refine(self, members, segments, Al: int) -> None:
+        """DC refinement: one raw bit per block, its bit ``Al``."""
+        n_mcu, nper, comp, flat = self._scan_blocks(members)
+        ri, n_seg, win, seg_start, seg_end = self._segments(segments, n_mcu)
+        blk = np.arange(len(flat))
+        seg = blk // (ri * nper)
+        pos = np.array(seg_start)[seg] + blk - seg * ri * nper
+        if np.any(pos >= np.array(seg_end)[seg]):
+            self._truncated()
+        bit = (win[pos].astype(np.int32) >> 15) << Al
+        for i, (c, _, _) in enumerate(members):
+            c.coefs.reshape(-1, 64)[flat[comp == i], 0] |= bit[comp == i]
+
+    def _progressive_ac(self, ta: int):
+        """AC table ``ta`` for the progressive loops: per window (first
+        scans) the bits taken (code and value or EOB-run bits) << 7 | the
+        coefficient step (run + 1, 16 for ZRL, 64 for an EOB run);
+        (refinement scans) code length << 8 | symbol; and the symbols."""
+        if ta not in self.prog_ac:
+            L, S = self.huff[1, ta]
+            size, run = S & 15, S >> 4
+            eob = (size == 0) & (run != 15)
+            bits = L + np.where(eob, run, size)
+            step = np.where(eob, 64, np.where(size > 0, run + 1, 16))
+            first = np.where(L > 0, (bits << 7) | step, (_FAR << 7) | 64)
+            refine = np.where(L > 0, (L << 8) | S, _FAR << 8)
+            self.prog_ac[ta] = (first.tolist(), refine.tolist(), S.tolist())
+        return self.prog_ac[ta]
+
+    def ac_first(self, c: _Component, ta: int, segments, Ss: int, Se: int, Al: int) -> None:
+        """AC first scan of band Ss..Se: run/size symbols as in a sequential
+        scan, values shifted up by ``Al``, and EOB runs that end this block
+        and the next (1 << r) + (r bits) - 1."""
+        n, _, _, flat = self._scan_blocks([(c, 0, ta)])
+        ri, n_seg, win, seg_start, seg_end = self._segments(segments, n)
+        tab, _, sym = self._progressive_ac(ta)
+        pos, blk = [], []
+        pap, bap = pos.append, blk.append
+        w = memoryview(win)
+        try:
+            for s in range(n_seg):
+                q, eobrun = seg_start[s], 0
+                for b in range(s * ri, min(n, (s + 1) * ri)):
+                    if eobrun:
+                        eobrun -= 1
+                        continue
+                    k = Ss
+                    while k <= Se:
+                        v = tab[w[q]]
+                        if v & 127 == 64:
+                            r = sym[w[q]] >> 4
+                            q += v >> 7
+                            if r:
+                                eobrun = (1 << r) - 1 + (w[q - r] >> (16 - r))
+                            break
+                        pap(q)
+                        bap(b)
+                        k += v & 127
+                        q += v >> 7
+                if q > seg_end[s]:
+                    raise IndexError
+        except IndexError:
+            self._truncated()
+        if not pos:
+            return
+        pos, blk = np.array(pos), np.array(blk)
+        L, S = self.huff[1, ta]
+        wv = win[pos]
+        ln, rs = L[wv], S[wv]
+        size, run = rs & 15, rs >> 4
+        step = np.where(size > 0, run + 1, 16)
+        # a symbol's zigzag index: Ss + the steps before it in its block + its run
+        first = np.flatnonzero(np.r_[True, blk[1:] != blk[:-1]])
+        counts = np.diff(np.r_[first, len(blk)])
+        before = np.cumsum(step) - step
+        k = Ss + before - np.repeat(before[first], counts) + run
+        hit = size > 0
+        if np.any(k[hit] > Se):
+            self.fail(f"AC coefficients past index {Se}")
+        val = _extend(win[pos + ln] >> (16 - size), size) << Al
+        c.coefs.reshape(-1, 64)[flat[blk[hit]], k[hit]] = val[hit]
+
+    def ac_refine(self, c: _Component, ta: int, segments, Ss: int, Se: int, Al: int) -> None:
+        """AC refinement of band Ss..Se (jdphuff.c decode_mcu_AC_refine):
+        each symbol makes one zero coefficient +-(1 << Al) (its sign bit
+        follows the code) after skipping ``run`` zeros, and every
+        coefficient that was non-zero before the scan and is passed over,
+        by a symbol, a ZRL or an EOB run, takes one correction bit, which
+        adds 1 << Al away from zero where that bit is still clear."""
+        n, _, _, flat = self._scan_blocks([(c, 0, ta)])
+        ri, n_seg, win, seg_start, seg_end = self._segments(segments, n)
+        _, tab, _ = self._progressive_ac(ta)
+        nb = Se - Ss + 1
+        band = c.coefs.reshape(-1, 64)[flat, Ss : Se + 1]
+        nz = band != 0
+        zeros_before = np.zeros((n, nb + 1), np.int64)  # zeros of the band before index k
+        np.cumsum(~nz, axis=1, out=zeros_before[:, 1:])
+        nz_from = nz.sum(1)[:, None] - (np.arange(nb + 1) - zeros_before)  # non-zeros at k and after
+        rr, kk = np.nonzero(~nz)
+        zero_at = np.full((n, nb + 16), nb)  # the band's zeros in order, then past-the-end
+        zero_at[rr, zeros_before[rr, kk]] = kk
+        zb, nf, za = zeros_before.ravel().tolist(), nz_from.ravel().tolist(), zero_at.ravel().tolist()
+        runs, new = [], []  # (block, band index, count, first bit) of correction bits; (block, index, sign bit)
+        rap, nap = runs.append, new.append
+        w = memoryview(win)
+        try:
+            for s in range(n_seg):
+                q, eobrun = seg_start[s], 0
+                for b in range(s * ri, min(n, (s + 1) * ri)):
+                    o = b * (nb + 1)
+                    if eobrun:
+                        cnt = nf[o]
+                        if cnt:
+                            rap((b, 0, cnt, q))
+                            q += cnt
+                        eobrun -= 1
+                        continue
+                    oz, k = b * (nb + 16), 0
+                    while k < nb:
+                        e = tab[w[q]]
+                        q += e >> 8
+                        r = (e >> 4) & 15
+                        if e & 15:
+                            sign = q
+                            q += 1
+                        elif r != 15:  # an EOB run from this block on
+                            eobrun = 1 << r
+                            if r:
+                                eobrun += w[q] >> (16 - r)
+                                q += r
+                            cnt = nf[o + k]
+                            if cnt:
+                                rap((b, k, cnt, q))
+                                q += cnt
+                            eobrun -= 1
+                            break
+                        t = za[oz + zb[o + k] + r]  # the zero the symbol lands on
+                        cnt = t - k - r if t < nb else nf[o + k]
+                        if cnt:
+                            rap((b, k, cnt, q))
+                            q += cnt
+                        if e & 15:
+                            if t >= nb:
+                                raise IndexError
+                            nap((b, t, sign))
+                        k = t + 1
+                if q > seg_end[s]:
+                    raise IndexError
+        except IndexError:
+            self._truncated()
+        p1 = 1 << Al
+        if runs:
+            rb, rk, rc, rq = np.array(runs).T
+            i = np.arange(rc.sum()) - np.repeat(np.cumsum(rc) - rc, rc)
+            b = np.repeat(rb, rc)
+            nz_at = np.full((n, nb), nb)  # the band's non-zeros in order
+            rr, kk = np.nonzero(nz)
+            nz_at[rr, kk - zeros_before[rr, kk]] = kk
+            k = nz_at[b, np.repeat(rk - zeros_before[rb, rk], rc) + i]
+            bit = win[np.repeat(rq, rc) + i] >> 15
+            cur = band[b, k]
+            fix = (bit == 1) & ((cur & p1) == 0)
+            band[b[fix], k[fix]] = cur[fix] + np.where(cur[fix] >= 0, p1, -p1)
+        if new:
+            nb_, nk, nq = np.array(new).T
+            band[nb_, nk] = np.where(win[nq] >> 15, p1, -p1)
+        c.coefs.reshape(-1, 64)[flat, Ss : Se + 1] = band
 
     def output(self) -> np.ndarray:
         planes = []
         for c in self.comps:
-            if c.tq not in self.qt:
+            if c.qtable is None:
                 self.fail("missing quantisation table")
             nat = np.zeros(c.coefs.shape, np.int64)
             nat[..., NATURAL_ORDER] = c.coefs
-            nat *= self.qt[c.tq]
+            nat *= c.qtable
             br, bc = nat.shape[:2]
             samples = _idct_islow(nat.reshape(-1, 8, 8)).reshape(br, bc, 8, 8)
             plane = samples.transpose(0, 2, 1, 3).reshape(br * 8, bc * 8)[: c.hgt, : c.w]
             planes.append(_upsample(plane, self.vmax // c.v, self.hmax // c.h)[: self.height, : self.width])
         if len(planes) == 1:
             return planes[0]
+        if len(planes) == 4:  # libjpeg's CMYK out, inverted as PIL's "CMYK;I" reads it
+            if self.adobe is not None and self.adobe != 0:  # YCCK
+                return np.concatenate([_ycc_to_rgb(*planes[:3]), 255 - planes[3][..., None]], axis=-1)
+            return 255 - np.stack(planes, axis=-1)
         if self.jfif:
             rgb = False
         elif self.adobe is not None:
@@ -483,29 +765,43 @@ class _Decoder:
 
 
 def read_jpeg(path: str) -> np.ndarray:
-    """Decode a baseline JPEG file to (H, W, 3) uint8 RGB or (H, W) uint8
-    grey, as PIL with libjpeg-turbo does (module docstring)."""
+    """Decode a JPEG file to (H, W, 3) uint8 RGB, (H, W) uint8 grey or
+    (H, W, 4) uint8 CMYK, as PIL with libjpeg-turbo does (module
+    docstring)."""
     with open(path, "rb") as f:
         buf = f.read()
     return _Decoder(buf, str(path)).decode()
 
 
-def decode_image(buf: bytes, path: str = "<bytes>") -> np.ndarray:
-    """PNG, JPEG or uncompressed TIFF bytes, told apart by their signature,
-    decoded as ``np.asarray(PIL.Image.open(...))`` gives them; anything
-    else raises ValueError, naming ``path``."""
+# PIL's other image families, told apart by their signature: refused
+_OTHER_FAMILIES = ((b"BM", "BMP"), (b"GIF87a", "GIF"), (b"GIF89a", "GIF"))
+
+
+def decode_image(buf: bytes, path: str = "<bytes>", palette: bool = False) -> np.ndarray:
+    """PNG, JPEG or TIFF bytes, told apart by their signature, decoded as
+    ``np.asarray(PIL.Image.open(...))`` gives them; with ``palette``,
+    palette PNGs as RGB through their palette, as imageio reads them (the
+    renderer's textures; imageio reads a ``.tif`` texture with tifffile,
+    which keeps the indices, as PIL does).  BMP, GIF and WebP (which PIL
+    also reads) raise ``NotImplementedError``, anything else
+    ``ValueError``, naming ``path``."""
     if buf[:8] == PNG_SIGNATURE:
-        return decode_png(buf, path)
+        return decode_png(buf, path, palette)
     if buf[:3] == SIGNATURE:
         return _Decoder(buf, path).decode()
     if buf[:2] in (b"II", b"MM"):
         return decode_tiff(buf, path)
+    family = next((name for sig, name in _OTHER_FAMILIES if buf.startswith(sig)), None)
+    if buf[:4] == b"RIFF" and buf[8:12] == b"WEBP":
+        family = "WebP"
+    if family is not None:
+        raise NotImplementedError(f"{path}: {family} images are not supported (PNG, JPEG and TIFF only)")
     raise ValueError(f"{path}: neither a PNG, a JPEG nor a TIFF file")
 
 
 def read_image(path: str) -> np.ndarray:
-    """The port's ``_load_im``: a PNG, JPEG or TIFF file (data/tiff.py:
-    baseline uncompressed), decoded by ``decode_image``."""
+    """The port's ``_load_im``: a PNG, JPEG or TIFF file (data/png.py,
+    this module, data/tiff.py), decoded by ``decode_image``."""
     with open(path, "rb") as f:
         return decode_image(f.read(), str(path))
 

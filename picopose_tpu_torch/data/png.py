@@ -1,18 +1,23 @@
 """PNG decoding and encoding on the standard library's zlib and numpy.
 
 The port's counterpart of picopose_tpu/data/bop.py::_load_im (:56), which
-decodes through PIL; the port does not depend on PIL.  Read: 8-bit grey,
-RGB and RGBA, and 16-bit grey (big-endian samples, returned as native
-``uint16``): BOP frames, template RGBA views and 16-bit depth maps.  The
-arrays are those ``np.asarray(PIL.Image.open(path))`` gives: (H, W) for
-grey, (H, W, 3|4) for colour.  Interlaced, palette, grey+alpha, 16-bit
-colour and sub-byte files raise ``NotImplementedError`` naming the file, and
-so do JPEG and TIFF paths; a bad CRC or a truncated stream raises
-``ValueError``.
+decodes through PIL; the port does not depend on PIL.  Read: every colour
+type at every bit depth the PNG spec allows, interlaced (Adam7) or not:
+BOP frames, template RGBA views and 16-bit depth maps among them.  The
+arrays are those ``np.asarray(PIL.Image.open(path))`` gives, with PIL's
+modes: grey (H, W) uint8, 1-bit grey as bool (mode "1"), 2- and 4-bit
+grey scaled to 0-255 (x 85, x 17), 16-bit grey native ``uint16``;
+palette files (H, W) uint8 indices (mode "P"); grey+alpha (H, W, 2)
+uint8, and at 16 bits (H, W, 4) RGBA (grey repeated); RGB (H, W, 3) and
+RGBA (H, W, 4) uint8, 16-bit samples cut to their high byte.  Ancillary
+chunks (PLTE, tRNS, gAMA, ...) change no sample.  JPEG and TIFF paths
+raise ``NotImplementedError`` naming the file; a bad CRC or a truncated
+stream raises ``ValueError``.
 
-Write (``encode_png``, ``write_png``): the same four formats, every row
-with filter 0 (None) in one zlib stream, in the port's stead of the JAX
-package's ``imageio.imwrite`` (picopose_tpu/native/renderer.py:484-485).
+Write (``encode_png``, ``write_png``): 8-bit grey, RGB and RGBA and 16-bit
+grey, every row with filter 0 (None) in one zlib stream, in the port's
+stead of the JAX package's ``imageio.imwrite``
+(picopose_tpu/native/renderer.py:484-485).
 
 Scanline filters (PNG spec 9.2, per byte, ``a`` the byte one pixel to the
 left, ``b`` the byte above, ``c`` the byte above ``a``): None, Sub (+a),
@@ -26,7 +31,9 @@ the rows stored skewed by ``d`` and steps outermost, each step reads and
 writes contiguous (H, bpp) slices, and the image takes W + max(d) steps
 of whole-array numpy operations instead of W x H per-pixel ones.  Each
 step looks the predictors of all five filters up in one table keyed by
-(type, b - c, a - c).
+(type, b - c, a - c).  An interlaced file's seven Adam7 passes are seven
+such images, unfiltered one after another and scattered into place;
+sub-byte samples are filtered as bytes (bpp 1) and unpacked after.
 """
 
 from __future__ import annotations
@@ -39,9 +46,11 @@ import zlib
 import numpy as np
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
-# (colour type, bit depth) -> channels, for the formats read here
-_CHANNELS = {(0, 8): 1, (2, 8): 3, (6, 8): 4, (0, 16): 1}
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type -> samples per pixel
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}  # PNG spec 11.2.2
 _COLOUR_NAMES = {0: "grey", 2: "RGB", 3: "palette", 4: "grey+alpha", 6: "RGBA"}
+# Adam7: (first row, first column, row step, column step) of each pass
+ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4), (2, 0, 4, 2), (0, 1, 2, 2), (1, 0, 2, 1))
 
 
 def _chunks(buf: bytes, path: str):
@@ -121,40 +130,87 @@ def _unfilter(ftype: np.ndarray, f: np.ndarray) -> np.ndarray:
     return out
 
 
-def decode_png(buf: bytes, path: str = "<bytes>") -> np.ndarray:
-    """PNG bytes -> the array PIL gives for them (module docstring)."""
-    header, idat = None, []
+def _pass_pixels(raw: np.ndarray, H: int, W: int, depth: int, spp: int, path: str) -> np.ndarray:
+    """One (pass) image's filtered rows -> (H, W, spp) samples: uint8, or
+    uint16 at 16 bits; sub-byte samples unpacked, unscaled."""
+    row_bytes = -(-W * spp * depth // 8)
+    bpp = max(1, spp * depth // 8)
+    rows = raw.reshape(H, 1 + row_bytes)
+    ftype = rows[:, 0]
+    if ftype.max(initial=0) > 4:
+        raise ValueError(f"{path}: unknown scanline filter {int(ftype.max())}")
+    f = rows[:, 1:].reshape(H, row_bytes // bpp, bpp)
+    # every row None (what encode_png writes): the bytes are the pixels
+    px = (_unfilter(ftype, f) if ftype.any() else f.copy()).reshape(H, row_bytes)
+    if depth == 16:
+        return px.view(">u2").astype(np.uint16).reshape(H, W, spp)
+    if depth < 8:  # MSB-first samples, each row padded to a byte
+        bits = np.unpackbits(px, axis=1)[:, : W * depth].reshape(H, W, depth)
+        px = (bits.astype(np.uint8) << np.arange(depth - 1, -1, -1, dtype=np.uint8)).sum(-1, dtype=np.uint8)
+    return px.reshape(H, W, spp)
+
+
+def decode_png(buf: bytes, path: str = "<bytes>", palette: bool = False) -> np.ndarray:
+    """PNG bytes -> the array PIL gives for them (module docstring); with
+    ``palette``, a palette file's (H, W, 3) uint8 colours through its PLTE
+    (entries past it black), as imageio reads it."""
+    header, idat, plte = None, [], b""
     for kind, data in _chunks(buf, path):
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", data)
         elif kind == b"IDAT":
             idat.append(data)
+        elif kind == b"PLTE":
+            plte = data
     if header is None:
         raise ValueError(f"{path}: no IHDR chunk")
     W, H, depth, colour, _compression, _filter, interlace = header
-    if interlace:
-        raise NotImplementedError(f"{path}: interlaced PNG is not supported")
-    if (colour, depth) not in _CHANNELS:
-        raise NotImplementedError(
-            f"{path}: {depth}-bit {_COLOUR_NAMES.get(colour, colour)} PNG is not supported"
-        )
-    bpp = _CHANNELS[colour, depth] * depth // 8
+    if depth not in _DEPTHS.get(colour, ()):
+        raise ValueError(f"{path}: {depth}-bit {_COLOUR_NAMES.get(colour, colour)} PNG is not a valid PNG")
+    if interlace > 1:
+        raise ValueError(f"{path}: unknown interlace method {interlace}")
+    spp = _CHANNELS[colour]
     try:
-        raw = zlib.decompress(b"".join(idat))
+        raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     except zlib.error as e:
         raise ValueError(f"{path}: corrupt image data ({e})") from None
-    if len(raw) < H * (1 + W * bpp):
+    passes = ADAM7 if interlace else ((0, 0, 1, 1),)
+    sizes = [(-(-(H - y0) // dy), -(-(W - x0) // dx)) for y0, x0, dy, dx in passes]
+    sizes = [(h, w) if h > 0 and w > 0 else (0, 0) for h, w in sizes]  # an empty pass has no bytes
+    need = [h * (1 + -(-w * spp * depth // 8)) for h, w in sizes]
+    if len(raw) < sum(need):
         raise ValueError(f"{path}: image data too short")
-    rows = np.frombuffer(raw, np.uint8, H * (1 + W * bpp)).reshape(H, 1 + W * bpp)
-    ftype = rows[:, 0]
-    if ftype.max(initial=0) > 4:
-        raise ValueError(f"{path}: unknown scanline filter {int(ftype.max())}")
-    f = rows[:, 1:].reshape(H, W, bpp)
-    # every row None (what encode_png writes): the bytes are the pixels
-    px = _unfilter(ftype, f) if ftype.any() else f.copy()
-    if depth == 16:
-        return px.reshape(H, W * 2).view(">u2").astype(np.uint16)
-    return px[..., 0] if bpp == 1 else px
+    if interlace:
+        px = np.zeros((H, W, spp), np.uint16 if depth == 16 else np.uint8)
+        at = 0
+        for (y0, x0, dy, dx), (h, w), n in zip(passes, sizes, need):
+            if n:
+                px[y0::dy, x0::dx] = _pass_pixels(raw[at : at + n], h, w, depth, spp, path)
+            at += n
+    else:
+        px = _pass_pixels(raw[: need[0]], H, W, depth, spp, path)
+    if colour == 3 and palette:
+        return colours(plte, px[..., 0])
+    # PIL's modes (module docstring)
+    if colour in (0, 3) and depth < 8:
+        px = px[..., 0]
+        if colour == 3:
+            return px
+        return px.astype(bool) if depth == 1 else px * np.uint8(255 // ((1 << depth) - 1))
+    if depth == 16 and colour != 0:
+        px = (px >> 8).astype(np.uint8)
+        if colour == 4:
+            return px[..., [0, 0, 0, 1]]
+    return px[..., 0] if spp == 1 else px
+
+
+def colours(rgb: bytes, index: np.ndarray) -> np.ndarray:
+    """Palette indices -> (..., 3) uint8 colours of the palette ``rgb``
+    (R, G, B bytes per entry), entries past its end black, as PIL pads it."""
+    table = np.zeros((256, 3), np.uint8)
+    n = min(len(rgb) // 3, 256)
+    table[:n] = np.frombuffer(rgb[: 3 * n], np.uint8).reshape(n, 3)
+    return table[index]
 
 
 def read_png(path: str) -> np.ndarray:

@@ -1,7 +1,7 @@
 """Device selection: CUDA unless the caller names the CPU, never a silent
 fallback, and a rank's own card under ``torchrun``; the fp32 precision the
-port's fp32 stages need; and cuDNN's deterministic algorithms for the
-training step."""
+port's fp32 stages need; cuDNN's deterministic algorithms for the
+training step; and ATen's CPU convolutions for it, in oneDNN's stead."""
 
 from __future__ import annotations
 
@@ -84,3 +84,29 @@ def deterministic_cudnn():
         yield
     finally:
         torch.backends.cudnn.deterministic = saved
+
+
+@contextlib.contextmanager
+def aten_cpu_convs():
+    """Run the CPU's convolutions on ATen's own kernels, not oneDNN's;
+    restore the caller's ``torch.backends.mkldnn.enabled`` on every exit.
+
+    On an AVX-512 host (an AMD EPYC, torch 2.13 at CPU capability AVX512;
+    tests/torch_float64_distances.py) oneDNN's fp32 convolutions on
+    channels-last maps round about four times coarser than ATen's: 1.18e-6
+    against 2.79e-7 relative RMS from float64 for the DPT head's 3 x 3
+    stride-2 resize (1024 channels, 16^2 -> 8^2).  The training step
+    amplifies that through its train-mode BatchNorms: at
+    ``vit_tiny_test`` the DPT head's gradient came out 2.12e-3 (relative
+    RMS) from a float64 evaluation of the same step with oneDNN, 5.19e-5
+    with ATen's kernels, where the JAX package's CPU step is 5.43e-5 from
+    it.  The flag governs CPU operators
+    only: the card's work and its CUDA graphs do not change.
+    Process-global, as ``full_fp32``; usable as a decorator.
+    """
+    saved = torch.backends.mkldnn.enabled
+    torch.backends.mkldnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.mkldnn.enabled = saved

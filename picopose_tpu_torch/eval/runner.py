@@ -65,12 +65,17 @@ _BATCH_KEYS = ("rgb", "mask", "M", "K", "pts2d")
 
 class RawImageCache:
     """Byte-capped LRU of decoded frames (uint8 RGB + K), shared by the
-    decode threads."""
+    decode threads.  A frame is decoded once: threads that ask for it
+    while another decodes it wait for that decode (the decode threads of a
+    batch mostly ask for the same few frames, and a Python-bound decoder,
+    LZW TIFF or progressive JPEG, run by eight threads at once took eight
+    times as long)."""
 
     def __init__(self, dataset: BOPTestDataset, budget_bytes: int = 2 << 30):
         self.dataset = dataset
         self.budget = budget_bytes
         self._store: OrderedDict[int, tuple] = OrderedDict()
+        self._pending: dict[int, cf.Future] = {}
         self._bytes = 0
         self._lock = threading.Lock()
         self.hits = 0
@@ -82,16 +87,30 @@ class RawImageCache:
                 self._store.move_to_end(index)
                 self.hits += 1
                 return self._store[index]
-        rgb, K = self.dataset.load_raw(index)  # decode outside the lock
+            pending = self._pending.get(index)
+            if pending is not None:
+                self.hits += 1
+            else:
+                mine = self._pending[index] = cf.Future()
+        if pending is not None:
+            return pending.result()  # the decoding thread's frame, or its error
+        try:
+            value = self.dataset.load_raw(index)  # decode outside the lock
+        except BaseException as e:
+            with self._lock:
+                del self._pending[index]
+            mine.set_exception(e)
+            raise
         with self._lock:
-            if index not in self._store:
-                self.misses += 1
-                self._store[index] = (rgb, K)
-                self._bytes += rgb.nbytes
-                while self._bytes > self.budget and len(self._store) > 1:
-                    _, (old, _k) = self._store.popitem(last=False)
-                    self._bytes -= old.nbytes
-            return self._store[index]
+            del self._pending[index]
+            self.misses += 1
+            self._store[index] = value
+            self._bytes += value[0].nbytes
+            while self._bytes > self.budget and len(self._store) > 1:
+                _, (old, _k) = self._store.popitem(last=False)
+                self._bytes -= old.nbytes
+        mine.set_result(value)
+        return value
 
 
 def _stream_batches(

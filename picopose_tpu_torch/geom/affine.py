@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from picopose_tpu_torch.geom.fma import apply_rows
 from picopose_tpu_torch.geom.rotation import cos_sin, inplane_angle_zxy, rotation_2d
 
 # 2D translations predicted by the stage-2 head are in units of TRANS_SCALE px
@@ -41,8 +42,8 @@ def homogenize(points: torch.Tensor) -> torch.Tensor:
 
 def apply_affine(M: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     """Apply (..., 3, 3) affine(s) to (..., N, 2) points -> (..., N, 2),
-    dividing by the homogeneous coordinate."""
-    out = torch.matmul(homogenize(points), M.transpose(-1, -2))
+    dividing by the homogeneous coordinate (``fma.apply_rows``)."""
+    out = apply_rows(M, homogenize(points))
     return out[..., :2] / out[..., 2:3]
 
 

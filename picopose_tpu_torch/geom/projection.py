@@ -3,17 +3,20 @@
 Counterpart of picopose_tpu/geom/projection.py:13-72.  Points are
 (..., N, 2) pixels or (..., N, 3) camera-frame coordinates; intrinsics
 (..., 3, 3), rigid transforms (..., 4, 4).  fp32 geometry: on the card
-the callers run these under ``device.full_fp32`` (no TF32 products).
+the callers run these under ``device.full_fp32`` (no TF32 products); on
+the CPU the products are XLA's fused multiply-add chains (``fma.apply_rows``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from picopose_tpu_torch.geom.fma import apply_rows
+
 
 def project_points(points3d: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
     """(..., N, 3) camera-frame points -> (..., N, 2) pixels."""
-    p = torch.matmul(points3d, K.transpose(-1, -2))
+    p = apply_rows(K, points3d)
     return p[..., :2] / p[..., 2:3]
 
 
@@ -26,7 +29,7 @@ def unproject_points(points2d: torch.Tensor, K: torch.Tensor, depth: torch.Tenso
     yi = torch.clamp(points2d[..., 1], 0, H - 1).to(torch.int64)
     d = torch.gather(depth.reshape(*depth.shape[:-2], H * W), -1, yi * W + xi)
     ph = torch.cat([points2d, torch.ones_like(points2d[..., :1])], dim=-1)
-    rays = torch.matmul(ph, torch.linalg.inv_ex(K).inverse.transpose(-1, -2))  # inv checks on the host
+    rays = apply_rows(torch.linalg.inv_ex(K).inverse, ph)  # inv checks on the host
     return rays * d[..., None]
 
 
@@ -47,4 +50,4 @@ def depth_to_points(depth: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
 
 def transform_points(T: torch.Tensor, points3d: torch.Tensor) -> torch.Tensor:
     """Apply (..., 4, 4) rigid transform(s) to (..., N, 3) points."""
-    return torch.matmul(points3d, T[..., :3, :3].transpose(-1, -2)) + T[..., None, :3, 3]
+    return apply_rows(T[..., :3, :3], points3d) + T[..., None, :3, 3]

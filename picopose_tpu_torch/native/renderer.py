@@ -7,8 +7,10 @@ The port's copy of picopose_tpu/native/renderer.py: ``Mesh`` (:38),
 ``render_mesh_views`` (:435) and ``render_object_bank`` (:449), over the
 port's own copy of the rasterizer (csrc/rasterizer.cpp, built by
 native/__init__.py).  Textures decode through data/jpeg.py::decode_image
-(PNG, baseline JPEG, uncompressed TIFF) where the JAX package uses
-imageio: a texture in another format raises, naming the file.  Banks are
+(every PNG, JPEG and TIFF variant PIL reads but those data/jpeg.py lists
+as refused; palette PNGs through their palette, as imageio gives them)
+where the JAX package uses imageio: a texture in another format raises,
+naming the file.  Banks are
 written with data/png.py::write_png in the reference's on-disk layout
 ({view:06d}.png RGBA, {view:06d}_depth.png 16-bit mm,
 object_poses/{obj:06d}.npy), so they decode to the arrays of the JAX
@@ -183,7 +185,7 @@ def load_ply_mesh(path: str) -> Mesh:
 def _load_texture_image(path: str) -> np.ndarray:
     """Read a texture to (h, w, 3) uint8 RGB."""
     with open(path, "rb") as f:
-        img = decode_image(f.read(), path)
+        img = decode_image(f.read(), path, palette=True)
     if img.dtype != np.uint8:
         img = np.clip(
             img.astype(np.float64) / max(1.0, float(img.max()) / 255.0), 0, 255
@@ -350,7 +352,7 @@ def load_glb_mesh(path: str) -> Mesh:
             bv = gltf["bufferViews"][img["bufferView"]]
             off = bv.get("byteOffset", 0)
             blob = bin_chunk[off : off + bv["byteLength"]]
-            decoded = decode_image(blob, f"{path} (image {img_idx})")
+            decoded = decode_image(blob, f"{path} (image {img_idx})", palette=True)
             if decoded.ndim == 2:
                 decoded = np.stack([decoded] * 3, axis=-1)
             texture = np.ascontiguousarray(decoded[..., :3].astype(np.uint8))

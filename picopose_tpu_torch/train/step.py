@@ -34,7 +34,7 @@ from typing import Any, Callable
 
 import torch
 
-from picopose_tpu_torch.device import deterministic_cudnn, full_fp32
+from picopose_tpu_torch.device import aten_cpu_convs, deterministic_cudnn, full_fp32
 from picopose_tpu_torch.geom.affine import gt_translation_scale_inplane, mmul, relative_affine
 from picopose_tpu_torch.models.correspondence import init_correspondences
 from picopose_tpu_torch.models.picopose import PicoPose
@@ -305,6 +305,7 @@ def init_state(tx: OptimizerSpec, seed: int = 0, device=None, **model_kwargs) ->
 
 
 @full_fp32()
+@aten_cpu_convs()
 def forward_train(model: PicoPose, batch: dict, noise: AffineNoise | torch.Generator) -> dict:
     """All three stages and their losses on a training batch, in the
     module's mode (``.train()``: BatchNorm on batch statistics, running
@@ -347,6 +348,7 @@ def forward_train(model: PicoPose, batch: dict, noise: AffineNoise | torch.Gener
 
 @full_fp32()
 @deterministic_cudnn()
+@aten_cpu_convs()
 def _step_program(model: PicoPose, optimizer: Optimizer, batch: dict, noise, update: bool) -> dict:
     """The device work of one step: ``forward_train``, the backward into the
     static gradients and, when ``update``, ``optimizer.apply()``.  Returns
@@ -354,7 +356,8 @@ def _step_program(model: PicoPose, optimizer: Optimizer, batch: dict, noise, upd
     ``full_fp32`` too, so a program captured under the caller's TF32 flags
     computes what the eager step does; cuDNN takes deterministic
     algorithms, so two identical steps, and a captured step and its eager
-    step, are bitwise equal."""
+    step, are bitwise equal.  On the CPU the backward's convolutions stay
+    off oneDNN, as the forward's do (``device.aten_cpu_convs``)."""
     losses = forward_train(model, batch, noise)
     losses["loss"].backward()
     if update:
@@ -461,6 +464,7 @@ def _noise_rows(noise: AffineNoise | torch.Generator, rows: slice, global_batch:
 
 @full_fp32()
 @deterministic_cudnn()
+@aten_cpu_convs()
 def _sharded_program(forward: _Forward, optimizer: Optimizer, layout, batch: dict, noise, update: bool) -> dict:
     """The device work of one sharded step: each parameter split over
     'data' gathered from its shards (its gradient reduce-scattered back in

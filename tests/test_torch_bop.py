@@ -96,9 +96,10 @@ def test_template_views_match(tree, obj):
 def test_jpeg_and_tiff_frames_raise(tree, tmp_path):
     """A ``.jpg`` frame (found before the ``.png``) decodes as PIL decodes
     it, and a truncated one raises naming the file; a truncated ``.tif``
-    frame raises ValueError and an LZW-compressed one NotImplementedError,
-    each naming the file, while an uncompressed one loads as the JAX
-    loader loads it (tests/test_torch_tiff.py holds the decoder to PIL)."""
+    frame raises ValueError and a JPEG-in-TIFF one NotImplementedError,
+    each naming the file, while an LZW-compressed and an uncompressed one
+    load as the JAX loader loads them (tests/test_torch_tiff.py and
+    tests/test_torch_formats.py hold the decoder to PIL)."""
     root = tmp_path / "bop"
     shutil.copytree(tree["data_dir"], root)
     ds = bop.BOPTestDataset(str(root), "fakeds", tree["det_path"])
@@ -119,6 +120,8 @@ def test_jpeg_and_tiff_frames_raise(tree, tmp_path):
         ds.load_raw(1)
     grey = np.asarray(Image.fromarray(rgb).convert("L"))
     Image.fromarray(grey).save(scene / "gray" / "000002.tif", compression="tiff_lzw")
+    np.testing.assert_array_equal(ds.load_raw(1)[0], jds.load_raw(1)[0])
+    Image.fromarray(grey).save(scene / "gray" / "000002.tif", compression="jpeg")
     with pytest.raises(NotImplementedError, match="000002.tif"):
         ds.load_raw(1)
     Image.fromarray(grey).save(scene / "gray" / "000002.tif")

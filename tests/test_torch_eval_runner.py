@@ -240,3 +240,56 @@ def test_mesh_branch_matches_the_jax_runner_on_a_two_device_mesh(tree, weights, 
         (R, t), (r_R, r_t) = pose_of(g), pose_of(r)
         np.testing.assert_allclose(R, r_R, atol=5e-3, err_msg=f"R of {g[:3]}")
         np.testing.assert_allclose(t, r_t, atol=1e-3, err_msg=f"t of {g[:3]}")
+
+
+def test_raw_image_cache_decodes_each_frame_once():
+    """Threads asking for frames at once (four times the cores, the
+    interpreter switching threads every microsecond) decode each frame
+    once and all get it; a decode error reaches every thread that waited
+    on it, and the next request decodes again."""
+    import sys
+    import threading
+    import time
+
+    from picopose_tpu_torch.eval.runner import RawImageCache
+
+    class Frames:
+        calls, fail = [], False
+
+        def load_raw(self, index):
+            self.calls.append(index)
+            time.sleep(0.05)
+            if self.fail:
+                raise OSError(f"frame {index}")
+            return np.full((2, 2, 3), index, np.uint8), np.eye(3)
+
+    frames = Frames()
+    cache = RawImageCache(frames)
+    out, errors = [], []
+
+    def ask(index):
+        try:
+            out.append((index, cache.get(index)[0][0, 0, 0]))
+        except OSError as e:
+            errors.append(str(e))
+
+    n = 4 * (os.cpu_count() or 1)
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for fail, indices in ((False, (1, 3, 5)), (True, (2,))):
+            frames.fail = fail
+            threads = [threading.Thread(target=ask, args=(indices[k % len(indices)],)) for k in range(n)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=30)
+            assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(switch)
+    assert sorted(frames.calls) == [1, 2, 3, 5]
+    assert sorted(out) == sorted((i, i) for k in range(n) for i in [(1, 3, 5)[k % 3]])
+    assert errors == ["frame 2"] * n
+    assert cache.misses == 3 and cache.hits == 2 * n - 4
+    frames.fail = False
+    assert cache.get(2)[0][0, 0, 0] == 2 and sorted(frames.calls) == [1, 2, 2, 3, 5]

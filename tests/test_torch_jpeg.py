@@ -1,4 +1,4 @@
-"""The port's baseline JPEG decoder and encoder (picopose_tpu_torch/data/jpeg.py)
+"""The port's JPEG decoder and encoder (picopose_tpu_torch/data/jpeg.py)
 against PIL, which the JAX package decodes with (picopose_tpu/data/bop.py::_load_im)
 and whose libjpeg-turbo encodes the JAX tool's frames (imageio q95).
 
@@ -6,7 +6,9 @@ Files are written here with PIL, imageio and cv2 from seeded numpy images,
 in the forms the data uses (q95 4:2:0 as tools/synthetic_world.py writes
 MegaPose frames, imageio's default quality) and the forms the decoder
 reads besides (4:4:4, 4:2:2, 4:4:0, grey, restart intervals, Adobe RGB,
-optimised Huffman tables, comments, sizes that are not multiples of 16).
+optimised Huffman tables, comments, sizes that are not multiples of 16;
+progressive and 4:1:1 files, which it once refused; the other new
+variants, and those still refused, are in tests/test_torch_formats.py).
 Tolerance: bitwise equal to ``np.asarray(PIL.Image.open(path))``.  The
 encoder's bytes equal PIL's at its defaults for the same quality, so they
 decode, by PIL and by the port, to the arrays of PIL's own
@@ -14,6 +16,7 @@ encode-then-decode.
 """
 
 import os
+import re
 
 import cv2
 import imageio.v2 as imageio
@@ -92,13 +95,21 @@ def test_greyscale_with_restarts(tmp_path):
 
 @pytest.mark.parametrize("kind", ["progressive", "411"])
 def test_unsupported_files_raise_naming_them(tmp_path, kind):
+    """The two kinds this test once saw refused, progressive and 4:1:1
+    files, now decode as PIL decodes them; an arithmetic-coded frame (SOF9)
+    of each still raises, naming the file."""
     path = str(tmp_path / f"{kind}.jpg")
     if kind == "progressive":
         _pil(path, _image((40, 50)), quality=90, progressive=True)
     else:
         _cv2(path, _image((40, 50)), cv2.IMWRITE_JPEG_SAMPLING_FACTOR, cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411)
-    with pytest.raises(NotImplementedError, match=f"{kind}.jpg"):
-        read_jpeg(path)
+    np.testing.assert_array_equal(read_jpeg(path), np.asarray(Image.open(path)))
+    data = open(path, "rb").read()
+    sof = re.search(rb"\xff[\xc0\xc2]", data).start()
+    arith = str(tmp_path / f"{kind}_arithmetic.jpg")
+    open(arith, "wb").write(data[: sof + 1] + b"\xc9" + data[sof + 2 :])
+    with pytest.raises(NotImplementedError, match=f"{kind}_arithmetic.jpg"):
+        read_jpeg(arith)
 
 
 @pytest.mark.parametrize("cut", ["header", "scan", "eoi"])
@@ -137,11 +148,16 @@ def test_read_image_dispatches_on_the_signature(tmp_path):
     Image.fromarray(rgb[..., 0]).save(tmp_path / "c.tif")
     np.testing.assert_array_equal(read_image(str(tmp_path / "c.tif")), rgb[..., 0])
     Image.fromarray(rgb[..., 0]).save(tmp_path / "e.tif", compression="tiff_lzw")
-    with pytest.raises(NotImplementedError, match="e.tif"):
-        read_image(str(tmp_path / "e.tif"))
+    np.testing.assert_array_equal(read_image(str(tmp_path / "e.tif")), rgb[..., 0])
+    Image.fromarray(rgb).save(tmp_path / "f.tif", compression="jpeg")
+    with pytest.raises(NotImplementedError, match="f.tif"):
+        read_image(str(tmp_path / "f.tif"))
     (tmp_path / "d.bin").write_bytes(b"GIF89a......")
-    with pytest.raises(ValueError, match="d.bin"):
+    with pytest.raises(NotImplementedError, match="d.bin"):  # PIL's GIF family, not read
         read_image(str(tmp_path / "d.bin"))
+    (tmp_path / "g.bin").write_bytes(b"\x00\x01......")
+    with pytest.raises(ValueError, match="g.bin"):
+        read_image(str(tmp_path / "g.bin"))
 
 
 def _rendered_frame(tmp_path):

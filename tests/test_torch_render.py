@@ -81,13 +81,22 @@ def test_loaders_give_the_jax_meshes(meshes, name):
 
 
 def test_a_texture_the_port_cannot_read_raises_naming_it(tmp_path):
-    """A palette PNG (imageio reads it; the port's decoder does not)."""
+    """A BMP texture (imageio reads it; the port's decoder does not) raises,
+    naming it; palette PNG and TIFF textures, which it once refused, load
+    as imageio loads them (a PNG's RGB through its palette; a TIFF's
+    indices, as imageio's tifffile reads it)."""
     tex = np.zeros((8, 8, 3), np.uint8)
     tex[:, 4:] = [0, 0, 255]
-    Image.fromarray(tex).convert("P").save(tmp_path / "pal.png")
-    write_textured_ply(str(tmp_path / "obj.ply"), "pal.png")
+    for name in ("pal.png", "pal.tif"):
+        Image.fromarray(tex).convert("P").save(tmp_path / name)
+        write_textured_ply(str(tmp_path / "obj.ply"), name)
+        got, ref = T.load_ply_mesh(str(tmp_path / "obj.ply")), J.load_ply_mesh(str(tmp_path / "obj.ply"))
+        assert got.texture.shape == (8, 8, 3)
+        np.testing.assert_array_equal(got.texture, ref.texture)
+    Image.fromarray(tex).save(tmp_path / "tex.bmp")
+    write_textured_ply(str(tmp_path / "obj.ply"), "tex.bmp")
     assert J.load_ply_mesh(str(tmp_path / "obj.ply")).texture is not None
-    with pytest.raises(NotImplementedError, match="pal.png"):
+    with pytest.raises(NotImplementedError, match="tex.bmp"):
         T.load_ply_mesh(str(tmp_path / "obj.ply"))
 
 

@@ -6,10 +6,12 @@ Files: PIL's uncompressed TIFFs (8-bit grey, 16-bit grey in both byte
 orders, RGB; one strip and 19), and the port's ``encode_tiff`` in both byte
 orders and with 1, 7 and all rows per strip, each read by PIL.  The
 arrays equal PIL's (16-bit values as native ``uint16``; PIL gives
-big-endian files a big-endian dtype).  Compressed files, tiles, planar
-RGB, WhiteIsZero, signed samples, predictors, other bit depths and
-truncated files raise, naming the file.  No tolerance: every comparison
-is exact.
+big-endian files a big-endian dtype).  The kinds the reader once refused
+(compressed files, tiles, planar RGB, WhiteIsZero, signed samples,
+predictors, 1-bit and RGBA files) read as PIL reads them; FillOrder 2 and
+truncated files raise, naming the file (every other variant, read or
+refused, is in tests/test_torch_formats.py).  No tolerance: every
+comparison is exact.
 """
 
 import io
@@ -21,6 +23,7 @@ import numpy as np
 import pytest
 from PIL import Image
 from torch_bop_tree import write_bop_tree
+from torch_image_files import tiff_bytes
 
 from picopose_tpu.data import bop as jbop
 from picopose_tpu_torch.data import bop
@@ -103,6 +106,8 @@ def _with_tag(buf, tag, value=None, kind=3):
 @pytest.mark.parametrize("case", ["lzw", "packbits", "deflate", "tiled", "planar", "white_is_zero", "signed",
                                   "predictor", "bilevel", "rgba", "fill_order"])
 def test_refused_kinds_raise_naming_file_and_tag(tmp_path, case):
+    """FillOrder 2 still raises, naming the file and the tag; every other
+    kind here was refused once and now reads as PIL reads it."""
     arr = arrays()["grey8"][:40, :40]
     plain = tiff.encode_tiff(arr)
     buf, tag = {
@@ -121,6 +126,18 @@ def test_refused_kinds_raise_naming_file_and_tag(tmp_path, case):
     }[case]()
     path = tmp_path / f"{case}.tif"
     path.write_bytes(buf)
+    if case == "planar":  # the tag on chunky strips: one strip for three planes, malformed
+        with pytest.raises(ValueError, match=r"planar\.tif: TIFF with 1 of 3 strips"):
+            read_image(str(path))
+        path = tmp_path / "planar_strips.tif"  # a planar file
+        path.write_bytes(tiff_bytes(arrays()["rgb"][:8, :8], 2, planar=True, rows_per_strip=3))
+    if case != "fill_order":  # read since the reader took them on, as PIL reads them
+        with Image.open(path) as im:
+            ref = np.asarray(im)
+        got = read_image(str(path))
+        assert got.shape == ref.shape and got.dtype == ref.dtype.newbyteorder("="), (tag, got.dtype, ref.dtype)
+        np.testing.assert_array_equal(got, ref)
+        return
     with pytest.raises(NotImplementedError, match=rf"{case}\.tif: TIFF {tag}"):
         read_image(str(path))
 
