@@ -231,6 +231,20 @@ Phases (any failure exits non-zero before the result line):
      bitwise as written, the wrappers' launches ``EVAL_LAUNCHES``, every
      CSV row of phase 7's frames (all but ``time``) bitwise phase 7's, and
      the progressive frame's rows bitwise its twin's.
+ 17. the JAX package's orbax checkpoints (``orbax_phase``, run after
+     phase 16 on phase 7's tree), read without JAX from the committed
+     fixture tests/data/orbax_small/ (tests/make_orbax_fixture.py: the
+     small model's variables and an AdamW ``TrainState`` under
+     grad_accum 2 in the middle of an accumulation, and the leaves as an
+     .npz): every leaf of both step directories bitwise the .npz's; the
+     host library's zstd decoder in MB/s on the fixture's largest frame
+     (one thread; the host's CPU named: a host figure);
+     ``PoseEstimator(checkpoint=<variables dir>)`` and ``run_test.main``
+     on phase 7's tree from the orbax directory against the same
+     variables from the .npz, poses and CSV rows bitwise, the run through
+     K1-K5; the ``TrainState`` restored from the orbax directory and from
+     the .npz, bitwise, and one compiled step from each, the losses and
+     the whole state after it bitwise.
 Launch counts are the wrappers' (``kernels.LAUNCHES``), which count a
 kernel where they launch it: an eager call and a program's warm-up, not
 a capture or a replay.  What a replay ran is counted by kernel name in a
@@ -2364,6 +2378,21 @@ def format_bytes(variant: str, frame: np.ndarray, data_dir: str) -> bytes:
     return tiff_bytes(frame, 2, 8, 2, tile=(256, 256))  # Deflate, predictor 2, tiles
 
 
+def host_cpu() -> str:
+    """The host CPU's model name (or, where a VM hides it, vendor, family
+    and model) and its CPU count, from ``lscpu``."""
+    try:
+        lscpu = subprocess.run(["lscpu"], capture_output=True, text=True).stdout
+    except OSError:
+        lscpu = ""
+    field = dict(line.split(":", 1) for line in lscpu.splitlines() if ":" in line)
+    field = {k.strip(): v.strip() for k, v in field.items()}
+    cpu = field.get("Model name", "unknown")
+    if cpu == "unknown":
+        cpu = f"{field.get('Vendor ID', '?')} CPU family {field.get('CPU family', '?')} model {field.get('Model', '?')}"
+    return cpu + f", {field.get('CPU(s)', '?')} CPUs"
+
+
 def formats_phase(seed: int, root: str, world: dict, argv: list) -> None:
     """Phase 16: the image formats PIL reads, end to end (module
     docstring).  Two BOP trees beside phase 7's (``FORMAT_TREES``), its
@@ -2432,16 +2461,7 @@ def formats_phase(seed: int, root: str, world: dict, argv: list) -> None:
           f"{ {v: len(b) for v, _, b in written.values()}!r}")
 
     # host decode ms of each variant beside its plain twin (the same pixels), one decode each
-    try:
-        lscpu = subprocess.run(["lscpu"], capture_output=True, text=True).stdout
-    except OSError:
-        lscpu = ""
-    field = dict(line.split(":", 1) for line in lscpu.splitlines() if ":" in line)
-    field = {k.strip(): v.strip() for k, v in field.items()}
-    cpu = field.get("Model name", "unknown")
-    if cpu == "unknown":  # a VM may hide the name: vendor, family and model
-        cpu = f"{field.get('Vendor ID', '?')} CPU family {field.get('CPU family', '?')} model {field.get('Model', '?')}"
-    cpu += f", {field.get('CPU(s)', '?')} CPUs"
+    cpu = host_cpu()
     twins = {"plain PNG (filters 0-4)": (png_bytes(frames[1, 3]), (1, 3)),
              "uncompressed TIFF": (encode_tiff(frames[2, 7]), (2, 7)),
              "baseline JPEG": (format_bytes("baseline JPEG", None, data), (FORMAT_SCENE, 1))}
@@ -2520,6 +2540,186 @@ def formats_phase(seed: int, root: str, world: dict, argv: list) -> None:
     print(f"[formats] s per tree (run_test.main and parts: the weights loaded, evaluate_dataset, its "
           f"build_bank and run_batch calls) {wall!r}; rows: {len(phase7)} of phase 7's bitwise in each tree, "
           f"the twins' {len(twin[0])} rows equal; phase {time.perf_counter() - t_phase!r} s")
+
+
+ORBAX_FIXTURE = os.path.join("tests", "data", "orbax_small")  # tests/make_orbax_fixture.py writes it
+ORBAX_MODEL = dict(vit_type="vit_tiny_test", blocks_to_take=(0, 1, 2, 3))  # the fixture's config, fp32
+
+
+def fixture_tree(npz) -> dict:
+    """The fixture's companion .npz -> the TrainState's tree as
+    utils/orbax_read.py reads it: each leaf its tile repeated to its shape
+    (``np.resize``), keys split at "/", a node keyed 0..n-1 a list (an
+    index with no leaf, an empty optax state, None)."""
+    tree: dict = {}
+    for key in npz.files:
+        if key.startswith("tile/"):
+            path = key[5:].split("/")
+            node = tree
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = np.resize(npz[key], tuple(npz["shape/" + key[5:]]))
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        out = {k: lists(v) for k, v in node.items()}
+        if all(k.isdigit() for k in out):
+            return [out.get(str(i)) for i in range(max(int(k) for k in out) + 1)]
+        return out
+    return lists(tree)
+
+
+def leaves_of(tree, prefix: str = "") -> dict:
+    if isinstance(tree, dict):
+        return {k: v for name, sub in tree.items() for k, v in leaves_of(sub, f"{prefix}{name}/").items()}
+    if isinstance(tree, list):
+        return {k: v for i, sub in enumerate(tree) for k, v in leaves_of(sub, f"{prefix}{i}/").items()}
+    return {} if tree is None or isinstance(tree, tuple) else {prefix[:-1]: tree}
+
+
+def orbax_phase(seed: int, root: str, world: dict, argv: list) -> None:
+    """Phase 17: the JAX package's orbax checkpoints, read without JAX on
+    the card's machine (module docstring), from the committed fixture
+    (``ORBAX_FIXTURE``: the small model's variables at step 3 and an AdamW
+    ``TrainState`` under grad_accum 2 at step 5, mid-accumulation, and
+    their leaves as an .npz)."""
+    import csv
+    import warnings
+
+    import picopose_tpu_torch.serve as serve_module
+    from picopose_tpu_torch import kernels, run_test
+    from picopose_tpu_torch.eval import runner
+    from picopose_tpu_torch.native import codec
+    from picopose_tpu_torch.serve import PoseEstimator
+    from picopose_tpu_torch.train import step as ts
+    from picopose_tpu_torch.utils import checkpoint as ckpt
+    from picopose_tpu_torch.utils.ocdbt import OcdbtStore
+    from picopose_tpu_torch.utils.orbax_read import read_step_dir
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    fixture = os.path.join(here, ORBAX_FIXTURE)
+    var_dir = os.path.join(fixture, "variables", "checkpoints", "3")
+    train_log = os.path.join(fixture, "train")
+    with np.load(os.path.join(fixture, "leaves.npz")) as z:
+        ref = fixture_tree(z)
+    want = leaves_of(ref)
+
+    # every leaf bitwise the .npz's
+    t0 = time.perf_counter()
+    tree = read_step_dir(os.path.join(train_log, "checkpoints", "5"))
+    read_s = time.perf_counter() - t0
+    got = leaves_of(tree)
+    check(got.keys() == want.keys(), f"the TrainState reads {len(got)} leaves, the .npz holds {len(want)}")
+    for k, v in want.items():
+        check(got[k].dtype == v.dtype and got[k].shape == v.shape and np.array_equal(got[k], v),
+              f"leaf {k} reads bitwise as the .npz holds it")
+    variables = ckpt.load_any(var_dir)
+    var_leaves = leaves_of(variables)
+    check(var_leaves.keys() == {k for k in want if k.split("/")[0] in ("params", "batch_stats")}
+          and all(np.array_equal(v, want[k]) for k, v in var_leaves.items()),
+          "the variables step directory reads bitwise the .npz's params and batch_stats")
+    nbytes = sum(v.nbytes for v in got.values())
+
+    # the decoder on the fixture's largest frame, on the host's CPU
+    item = os.path.join(train_log, "checkpoints", "5", "default")
+    store = OcdbtStore(item)
+    size, key = max((len(store.read(k)), k) for k in store.list() if not k.endswith(".zarray"))
+    meta = json.loads(store.read(key.rsplit("/", 1)[0] + "/.zarray"))
+    out_bytes = int(np.prod(meta["chunks"])) * np.dtype("<u2" if meta["dtype"] == "bfloat16" else meta["dtype"]).itemsize
+    frame = store.read(key)
+    out = np.empty(out_bytes, np.uint8)
+    times = []
+    for _ in range(5):
+        t = time.perf_counter()
+        codec.zstd_decompress(frame, out_bytes, out=out)
+        times.append(time.perf_counter() - t)
+    mbs = out_bytes / min(times) / 1e6
+    print(f"[orbax] fixture TrainState: {len(got)} leaves, {nbytes} bytes decoded, read in {read_s!r} s "
+          f"({nbytes / read_s / 1e9!r} GB/s, {os.cpu_count()} threads); its largest frame {key} ({size} -> "
+          f"{out_bytes} bytes: a tile repeated, so matches, not literals) decodes at {mbs!r} MB/s, best of 5, "
+          f"one thread, on the host's {host_cpu()}")
+
+    # PoseEstimator from the orbax directory and from the .npz's variables, on phase 7's first frame
+    t0 = time.perf_counter()
+    frame_key = sorted(world["frames"])[0]
+    img = world["frames"][frame_key]
+    dets = [{"category_id": d["category_id"], "segmentation": d["segmentation"]} for d in world["dets"]
+            if (d["scene_id"], d["image_id"]) == frame_key][:4]
+    K = np.asarray(world["K"], np.float64).reshape(3, 3)
+    poses = []
+    for kw in ({"checkpoint": var_dir}, {"variables": {"params": ref["params"], "batch_stats": ref["batch_stats"]}}):
+        est = PoseEstimator(**kw, **ORBAX_MODEL, compute_dtype="float32", seed=seed, n_template_view=EVAL_VIEWS)
+        with patched((serve_module, "load_template_views", lambda *a: world["templates"][a])):  # phase 7's views
+            for obj in sorted({d["category_id"] for d in dets}):
+                est.register_object(obj, os.path.join(world["template_root"], "smoke"))
+        res = est.estimate(img, K, dets)
+        poses.append([(r.R, r.t, r.score) for r in res])
+        del est
+    check(len(poses[0]) == len(dets) and all(np.isfinite(R).all() and np.isfinite(t).all() for R, t, _ in poses[0]),
+          "PoseEstimator(checkpoint=<orbax dir>): a finite pose per detection")
+    check(all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]) and a[2] == b[2]
+              for a, b in zip(*poses)), "PoseEstimator: the orbax directory's poses bitwise the .npz variables'")
+    est_s = time.perf_counter() - t0
+
+    # run_test.main on phase 7's tree, from the orbax directory and from the .npz's variables
+    t0 = time.perf_counter()
+    overrides = [f"model.vit_type={ORBAX_MODEL['vit_type']}", "model.blocks_to_take=[0,1,2,3]",
+                 "model.compute_dtype=float32"]
+    cli = list(argv)
+    cli[cli.index("--checkpoint_path") + 1] = var_dir
+    cli[cli.index("--set") + 1:cli.index("--set") + 1] = overrides
+    rows, launches = [], []
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        for i, variables_of in enumerate((None, lambda *a, **kw: {"params": ref["params"],
+                                                                  "batch_stats": ref["batch_stats"]})):
+            swaps = [(runner, "load_template_views", lambda *a: world["templates"][a])]
+            if variables_of is not None:
+                swaps.append((run_test, "load_any", variables_of))
+            with warnings.catch_warnings(), patched(*swaps):
+                warnings.simplefilter("ignore")
+                kernels.reset_launches()
+                (path,) = run_test.main(["--version_id", str(170 + i), *cli])
+                torch.cuda.synchronize()
+                launches.append(dict(kernels.LAUNCHES))
+            with open(path) as f:
+                rows.append([r[:6] for r in csv.reader(f)])
+    finally:
+        os.chdir(cwd)
+    check(len(rows[0]) == len(world["rows"]), "run_test from the orbax directory: a row per instance")
+    check(rows[0] == rows[1], "run_test: the orbax directory's CSV rows bitwise the .npz variables' (all but time)")
+    check(all(launches[0].get(k, 0) > 0 for k in kernels.KERNELS if k != "match_scores_int8"),
+          f"run_test from the orbax directory went through K1-K5: {launches[0]}")
+    cli_s = time.perf_counter() - t0
+
+    # resume: the TrainState restored from the orbax directory and from the .npz, one compiled step each
+    t0 = time.perf_counter()
+    tx = ts.make_optimizer(grad_accum=2)
+    model_kw = dict(**ORBAX_MODEL, compute_dtype=torch.float32)
+    a = ts.init_state(tx, seed, device="cuda", **model_kw)
+    b = ts.init_state(tx, seed + 1, device="cuda", **model_kw)
+    ckpt.restore(train_log, None, a)
+    ckpt.load_payload(b, ckpt.train_payload_from_tree(ref, b, "leaves.npz"), "leaves.npz")
+    diff = train_state_diff(a, b)
+    check(not diff and a.step == 5 and a.optimizer.mini_step == 1 and a.optimizer.updates == 2,
+          f"the restored states are bitwise equal, at step 5, mini_step 1, 2 updates: {diff[:4]}")
+    batch = train_batch(2, seed)
+    kernels.reset_launches()
+    la = ts.make_train_step(a)(a, batch, torch.Generator(device="cuda").manual_seed(seed))
+    lb = ts.make_train_step(b)(b, batch, torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    diff = train_state_diff(a, b)
+    check(all(torch.equal(la[k], lb[k]) for k in la) and not diff and a.optimizer.updates == 3,
+          f"one compiled step from each: losses and the whole state bitwise, the update applied: {diff[:4]}")
+    check(all(torch.isfinite(v).all() for v in la.values()), "the resumed step's losses are finite")
+    del a, b
+    torch.cuda.empty_cache()
+    print(f"[orbax] PoseEstimator {est_s!r} s, run_test x2 {cli_s!r} s ({len(rows[0])} rows each, launches "
+          f"{launches[0]}), resumed compiled step x2 {time.perf_counter() - t0!r} s (losses "
+          f"{ {k: float(v) for k, v in la.items()}!r}); phase {time.perf_counter() - t_phase!r} s")
 
 
 DECODER_RADII = (1, 2, 3, 4)  # lookup radii: config radius 2, 4 (the default), 6 and 8 (RAFT's published 4)
@@ -4782,10 +4982,14 @@ def main() -> int:
         t = time.perf_counter()
         formats_phase(SEED, *a)
         t_dec.append(time.perf_counter() - t)
+        t = time.perf_counter()
+        orbax_phase(SEED, *a)
+        t_dec.append(time.perf_counter() - t)
 
     eval_cli_phase(SEED, then=decoder)
     print(f"[phase] eval CLI {time.perf_counter() - t0 - sum(t_dec)!r} s; configurable decoder (phase 11) "
-          f"{t_dec[0]!r} s; devices (phase 13c) {t_dec[1]!r} s; image formats (phase 16) {t_dec[2]!r} s")
+          f"{t_dec[0]!r} s; devices (phase 13c) {t_dec[1]!r} s; image formats (phase 16) {t_dec[2]!r} s; "
+          f"orbax checkpoints (phase 17) {t_dec[3]!r} s")
     t0 = time.perf_counter()
     train_launches, step_ms = train_phase(SEED)
     print(f"[phase] training step {time.perf_counter() - t0!r} s")

@@ -5,7 +5,9 @@
 The port's counterpart of tools/export_torch.py, with the same arguments.
 <checkpoint> is a train state the port saved
 (``log/<model>/version_<id>/checkpoints/<step>.pt``, utils/checkpoint.py::
-save) or a reference torch ``.ckpt`` / ``.pth``.  Either is read by
+save), a reference torch ``.ckpt`` / ``.pth``, or the JAX package's orbax
+step directory (``.../checkpoints/<step>/``, read without JAX by
+utils/orbax_read.py).  Each is read by
 utils/checkpoint.py::load_any and goes through the porter
 (utils/torch_port.py) into flax-layout variables, then back to the
 reference ``Net``'s keys, as the JAX tool round-trips a torch file: the
@@ -18,9 +20,8 @@ where the input carried it.  ``--depth`` is
 the ViT's block count (24 for ViT-L, 12 for ViT-S); ``--raw`` writes a
 bare ``Net`` state dict instead of the Lightning ``{'state_dict':
 {'network.*'}}`` wrapper.  Load into the reference with ``strict=False``.
-An orbax checkpoint directory (the JAX package's) raises: export it with
-tools/export_torch.py on a machine with JAX.  Runs on the host; it needs
-no card.
+A directory that is not an orbax checkpoint raises with its path.  Runs
+on the host; it needs no card.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ import torch
 
 def get_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description="Export a checkpoint as a reference-loadable torch .ckpt")
-    ap.add_argument("checkpoint", help="a port train state (.pt) or a torch .ckpt / .pth")
+    ap.add_argument("checkpoint", help="a port train state (.pt), a torch .ckpt / .pth or an orbax step dir")
     ap.add_argument("out", help="output .ckpt path")
     ap.add_argument("--depth", type=int, default=24, help="ViT depth (24 for ViT-L)")
     ap.add_argument("--raw", action="store_true", help="bare state dict, no Lightning wrapper")
@@ -41,7 +42,7 @@ def get_parser() -> argparse.ArgumentParser:
 
 
 def reference_state_dict(checkpoint: str, depth: int = 24) -> dict[str, np.ndarray]:
-    """The reference ``Net`` state dict a checkpoint file exports to."""
+    """The reference ``Net`` state dict a checkpoint exports to."""
     from picopose_tpu_torch.utils.checkpoint import load_any
     from picopose_tpu_torch.utils.torch_export import export_state_dict
     from picopose_tpu_torch.utils.weights import state_dict_from_flax

@@ -4,7 +4,9 @@ rasterizer, bound with ctypes.
 The counterpart of the JAX package's native layer: ``csrc/fastpath.cpp``
 (RLE decode, mask box, crop / resize / normalise, mask crop) and
 ``csrc/rasterizer.cpp`` (the software template renderer), the port's own
-copies of those sources.  At first use ``load_library`` compiles every
+copies of those sources, and ``csrc/zstd.cpp`` (the zstd decoder and the
+CRC32C of the orbax checkpoint reader, native/codec.py), which the JAX
+package leaves to tensorstore.  At first use ``load_library`` compiles every
 source under ``csrc/`` with one ``g++`` call (``CXX_FLAGS``: the JAX
 package's Makefile flags) into ``build/`` next to this file
 (git-ignored).  The library's name carries a hash of the sources and
@@ -34,7 +36,7 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall")
 LD_FLAGS = ("-shared", "-lpthread")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
 # C entry point -> (argument types, result type)
 ENTRY_POINTS = {
@@ -45,6 +47,9 @@ ENTRY_POINTS = {
     "crop_mask_nearest": ([_P, _I, _I, _I, _I, _I, _I, _I, _P], None),
     "render_templates_tex": ([_P, _P, _I, _P, _I, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P], None),
     "render_templates": ([_P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P], None),
+    "zstd_decompress": ([_P, _L, _P, _L, ctypes.c_char_p, _I], _L),
+    "zstd_census": ([_P, _I], _I),
+    "crc32c": ([_P, _L], ctypes.c_uint32),
 }
 
 CALLS: collections.Counter = collections.Counter()

@@ -9,10 +9,13 @@ Counterpart of run_test.py (:18-131) with the same flags plus ``--device``
 ``picopose-stage3-<hyp>hyp_<dataset>-test.csv`` under
 ``log/<model>/version_<id>/<dataset>_eval/``, relative to the working
 directory.  ``--checkpoint_path`` takes a reference PyTorch checkpoint
-(``.ckpt``/``.pth``) or a train state the port saved; ``none`` resolves ``--iter``
-(or the latest step) to ``log/<model>/version_<id>/checkpoints/<step>.pt``
-as the JAX entry point resolves its step directories, and with no checkpoint found the weights are drawn from seed 0
-(a smoke run, with a warning).
+(``.ckpt``/``.pth``), a train state the port saved or the JAX package's
+orbax step directory (no JAX needed: utils/orbax_read.py); ``none``
+resolves ``--iter`` (or the latest step) under
+``log/<model>/version_<id>/checkpoints/`` to ``<step>.pt`` or, from a
+JAX run, ``<step>/``, as the JAX entry point resolves its step
+directories, and with no checkpoint found the weights are drawn from
+seed 0 (a smoke run, with a warning).
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from picopose_tpu_torch.eval.runner import evaluate_dataset
 from picopose_tpu_torch.models import PicoPose
 from picopose_tpu_torch.models.dinov2 import VIT_CONFIGS
 from picopose_tpu_torch.models.picopose import model_kwargs
-from picopose_tpu_torch.utils.checkpoint import checkpoint_dir, checkpoint_path, load_any
+from picopose_tpu_torch.utils.checkpoint import load_any, saved_steps, step_path
 from picopose_tpu_torch.utils.config import load_config
 from picopose_tpu_torch.utils.weights import init_random_, load_flax_variables
 
@@ -64,17 +67,12 @@ def main(argv: list[str] | None = None) -> list[str]:
 
     log_dir = os.path.join("log", args.model, f"version_{args.version_id}")
     ckpt_path = args.checkpoint_path
-    step_dir = checkpoint_dir(log_dir)
-    steps = {int(n.removesuffix(".pt")) for n in os.listdir(step_dir)
-             if n.removesuffix(".pt").isdigit()} if os.path.isdir(step_dir) else set()
+    steps = saved_steps(log_dir)
     if ckpt_path == "none" and steps:
         # resolve by step under the version's log dir, as the JAX entry point
-        # does: <step>.pt is a train state; a <step>/ directory is an orbax
-        # checkpoint, which load_any refuses
-        step = args.iter if args.iter != -1 else max(steps)
-        ckpt_path = checkpoint_path(log_dir, step)
-        if not os.path.exists(ckpt_path):
-            ckpt_path = os.path.join(step_dir, str(step))
+        # does: <step>.pt is the port's train state, a <step>/ directory the
+        # JAX package's orbax checkpoint; load_any reads either
+        ckpt_path = step_path(log_dir, args.iter if args.iter != -1 else max(steps))
 
     if ckpt_path != "none":
         print(f"loading checkpoint {ckpt_path}")

@@ -75,9 +75,7 @@ from picopose_tpu_torch.ops.preprocess import preprocess_frame_graphed
 from picopose_tpu_torch.utils.checkpoint import load_any
 from picopose_tpu_torch.utils.graphs import GraphCache
 from picopose_tpu_torch.utils.precast import precast_inference_params
-from picopose_tpu_torch.utils.weights import init_random_, load_flax_variables
-
-BF16_TAG = [("bf16", np.uint16)]  # numpy has no bfloat16: raw bits under this dtype
+from picopose_tpu_torch.utils.weights import BF16_TAG, init_random_, load_flax_variables
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
@@ -137,7 +135,9 @@ class PoseEstimator:
         devices: Sequence[str | torch.device] | None = None,
     ):
         """``checkpoint``: a reference PyTorch checkpoint (``.ckpt`` or
-        ``.pth``) or a train state the port saved (utils/checkpoint.py);
+        ``.pth``), a train state the port saved (utils/checkpoint.py) or
+        the JAX package's orbax step directory, variables or a training
+        ``TrainState`` (its params and batch stats are read);
         ``variables``, the JAX package's flax variables (``params`` and
         ``batch_stats`` as arrays), take precedence over it; with neither
         the weights are drawn from ``seed``, with a warning.  ``device``:

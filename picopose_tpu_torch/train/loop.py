@@ -18,9 +18,10 @@ checkpoint per epoch with every one kept, resume):
     capture refuses another thread's); the consumer's stream waits on the
     copy's event and each tensor is recorded on that stream.  On the CPU
     batches pass as they are;
-  * ``warm_start``: model weights from a checkpoint file (:195-298): a full
+  * ``warm_start``: model weights from a checkpoint (:195-298): a full
     PicoPose checkpoint (the reference's Lightning ``.ckpt``, a raw ``Net``
-    state dict ``.pth`` or a train state of utils/checkpoint.py) fills
+    state dict ``.pth``, a train state of utils/checkpoint.py or the JAX
+    package's orbax step directory, variables or ``TrainState``) fills
     every parameter and BatchNorm statistic; torch-hub DINOv2 backbone
     weights (``.pth``), the reference's ``pretrained: True``, fill the ViT
     only.  The step counter and the optimizer stay as they are; a layout
@@ -34,7 +35,9 @@ checkpoint per epoch with every one kept, resume):
     (:375): every rank loads the whole global batch (the same batches,
     since the workers reseed each from (seed, epoch, start)) and trains
     on its rows (``parallel.shard_batch``).  Rank 0 logs; every rank takes
-    part in a checkpoint (rank 0 writes it).
+    part in a checkpoint (rank 0 writes it).  ``resume`` continues from
+    the latest save under the log directory, the port's ``<step>.pt`` or
+    the JAX package's orbax ``<step>/`` (utils/checkpoint.py::restore).
 
 A producer's exception (a loader thread, a worker process, the uploader)
 is raised in the training loop.  The JAX loop's quirks are kept: on
@@ -308,6 +311,9 @@ def warm_start(state, path: str, num_levels: int = 3):
     model = state.model
     depth = len(model.feature_extractor.dinov2.blocks)
     raw = read_weights(path)
+    if os.path.isdir(path):  # the JAX package's orbax checkpoint: flax variables
+        _graft(model, state_dict_from_flax(raw), "warm_start")
+        return state
     sd = raw.get("state_dict", raw) if isinstance(raw, dict) else raw
     keys = [str(k) for k in sd]
     if any(k.startswith(("network.", "feature_extractor.")) for k in keys):

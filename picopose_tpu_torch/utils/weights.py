@@ -27,8 +27,28 @@ import torch
 from torch import nn
 
 
+BF16_TAG = [("bf16", np.uint16)]  # numpy has no bfloat16: raw bits under this dtype
+
+
+def bf16_bits_to_f32(a: np.ndarray) -> np.ndarray:
+    """bf16 raw bits (uint16, or under ``BF16_TAG``) -> fp32, exactly."""
+    return (np.ascontiguousarray(a).view(np.uint16).astype(np.uint32) << 16).view(np.float32)
+
+
+def f32_to_bf16_bits(a) -> np.ndarray:
+    """fp32 -> bf16 raw bits (uint16), rounded to nearest even; NaN stays NaN."""
+    u = np.asarray(a, np.float32).view(np.uint32)
+    r = ((u + 0x7FFF + ((u >> 16) & 1)) >> 16).astype(np.uint16)
+    return np.where(np.isnan(np.asarray(a, np.float32)), np.uint16(0x7FC0), r)
+
+
 def _np(x) -> np.ndarray:
-    return np.asarray(x, dtype=np.float32)
+    """A leaf as fp32 numpy: jax / ml_dtypes arrays, numpy arrays, and bf16
+    bits under ``BF16_TAG`` (utils/zarr2.py reads bf16 leaves so)."""
+    a = x if isinstance(x, np.ndarray) else np.asarray(x)
+    if a.dtype.names == ("bf16",):
+        return bf16_bits_to_f32(a)
+    return np.asarray(a, dtype=np.float32)
 
 
 def _dense(out: dict, key: str, tree: Mapping) -> None:

@@ -153,5 +153,6 @@ def test_pose_estimator_takes_a_checkpoint(small):
 
 
 def test_load_any_refuses_a_directory(tmp_path):
-    with pytest.raises(ValueError, match="tools/export_torch.py"):
+    """A directory that is not an orbax checkpoint raises with its path."""
+    with pytest.raises(ValueError, match=f"{tmp_path}: not an orbax checkpoint"):
         load_any(str(tmp_path))

@@ -185,8 +185,8 @@ def test_cli_writes_the_csv_where_the_jax_entry_point_would(tree, weights, csvs,
 
 def test_cli_checkpoint_resolution(tree, tmp_path, monkeypatch, capsys):
     """--checkpoint_path none: random weights (with the warning) when the
-    version has no checkpoints; a step directory found there is an orbax
-    checkpoint, which the port refuses with the export command."""
+    version has no checkpoints; a step directory found there is read as
+    an orbax checkpoint, and one that is not raises with its path."""
     monkeypatch.chdir(tmp_path)
     out = run_test.main(_cli_args(tree, 4) + ["--hyp", "1"])
     assert "WARNING: random init" in capsys.readouterr().out
@@ -194,7 +194,7 @@ def test_cli_checkpoint_resolution(tree, tmp_path, monkeypatch, capsys):
                                 "picopose-stage3-1hyp_fakeds-test.csv")]
     assert len(read_csv(out[0])) == 6
     os.makedirs(tmp_path / "log" / "picopose" / "version_5" / "checkpoints" / "40")
-    with pytest.raises(ValueError, match="tools/export_torch.py"):
+    with pytest.raises(ValueError, match=os.path.join("version_5", "checkpoints", "40") + ": not an orbax checkpoint"):
         run_test.main(_cli_args(tree, 5))
 
 
@@ -254,11 +254,16 @@ def test_raw_image_cache_decodes_each_frame_once():
     from picopose_tpu_torch.eval.runner import RawImageCache
 
     class Frames:
-        calls, fail = [], False
+        calls, fail, waiters = [], False, 0
 
         def load_raw(self, index):
             self.calls.append(index)
             time.sleep(0.05)
+            # a failing decode ends only when every other thread waits on it (on a
+            # loaded host a thread may start after 0.05 s, and would decode again)
+            deadline = time.monotonic() + 10
+            while self.fail and cache.hits < self.waiters and time.monotonic() < deadline:
+                time.sleep(0.001)
             if self.fail:
                 raise OSError(f"frame {index}")
             return np.full((2, 2, 3), index, np.uint8), np.eye(3)
@@ -278,7 +283,7 @@ def test_raw_image_cache_decodes_each_frame_once():
     sys.setswitchinterval(1e-6)
     try:
         for fail, indices in ((False, (1, 3, 5)), (True, (2,))):
-            frames.fail = fail
+            frames.fail, frames.waiters = fail, cache.hits + n - 1
             threads = [threading.Thread(target=ask, args=(indices[k % len(indices)],)) for k in range(n)]
             for t in threads:
                 t.start()

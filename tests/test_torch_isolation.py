@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: it imports neither JAX, flax nor the JAX
 package, nor the host libraries the JAX package reads images, configs and
-checkpoints with (PIL, cv2, imageio, PyYAML, orbax), and its entry points
-never fall back to the CPU on their own."""
+checkpoints with (PIL, cv2, imageio, PyYAML, orbax, tensorstore, and the
+zstd bindings zstandard and zstd), and its entry points never fall back to
+the CPU on their own."""
 
 import ast
 import os
@@ -15,7 +16,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.join(ROOT, "picopose_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "picopose_tpu")
 # host libraries of the JAX package that the port does without
-HOST_LIBRARIES = ("PIL", "cv2", "imageio", "yaml", "orbax")
+HOST_LIBRARIES = ("PIL", "cv2", "imageio", "yaml", "orbax", "tensorstore", "zstandard", "zstd")
 
 
 def _port_files():
@@ -88,7 +89,8 @@ def test_import_leaves_jax_out_of_sys_modules():
         "picopose_tpu_torch.parallel.shardings, picopose_tpu_torch.parallel.collectives, "
         "picopose_tpu_torch.synthetic_world, picopose_tpu_torch.train_to_ar, "
         "picopose_tpu_torch.synthetic_demo, picopose_tpu_torch.serve_demo, picopose_tpu_torch.export_torch, "
-        "picopose_tpu_torch.ops, picopose_tpu_torch.geom; "
+        "picopose_tpu_torch.ops, picopose_tpu_torch.geom, picopose_tpu_torch.utils.orbax_read, "
+        "picopose_tpu_torch.utils.ocdbt, picopose_tpu_torch.utils.zarr2, picopose_tpu_torch.native.codec; "
         "print(sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN + HOST_LIBRARIES!r}))"
     )
@@ -188,8 +190,8 @@ def _code_strings(path):
 
 def test_port_files_name_neither_the_jax_native_directory_nor_its_library():
     """The port builds its own copies of the C++ sources (picopose_tpu_torch/
-    native/csrc); its code names neither the top-level ``native/`` nor
-    ``libpicopose_native.so``."""
+    native/csrc) and its own zstd decoder; its code names neither the
+    top-level ``native/`` nor ``libpicopose_native.so``."""
     bad = set()
     for f in _port_files():
         for s in _code_strings(f):
@@ -197,7 +199,7 @@ def test_port_files_name_neither_the_jax_native_directory_nor_its_library():
                 bad.add((os.path.relpath(f, ROOT), s))
     assert not bad, bad
     sources = os.listdir(os.path.join(PACKAGE, "native", "csrc"))
-    assert sorted(sources) == ["fastpath.cpp", "rasterizer.cpp"]
+    assert sorted(sources) == ["fastpath.cpp", "rasterizer.cpp", "zstd.cpp"]
 
 
 def test_the_port_loads_its_own_host_library():
