@@ -242,9 +242,11 @@ Phases (any failure exits non-zero before the result line):
      ``PoseEstimator(checkpoint=<variables dir>)`` and ``run_test.main``
      on phase 7's tree from the orbax directory against the same
      variables from the .npz, poses and CSV rows bitwise, the run through
-     K1-K5; the ``TrainState`` restored from the orbax directory and from
-     the .npz, bitwise, and one compiled step from each, the losses and
-     the whole state after it bitwise.
+     K1-K5; the ``TrainState`` restored from the orbax directory, from
+     the .npz and from tests/data/orbax_sharded/ (the same state saved by
+     two JAX processes over a 2 x 2 fsdp_tp mesh: a chunk per shard, in
+     two process stores), bitwise, and one compiled step from each, the
+     losses and the whole state after it bitwise.
 Launch counts are the wrappers' (``kernels.LAUNCHES``), which count a
 kernel where they launch it: an eager call and a program's warm-up, not
 a capture or a replay.  What a replay ran is counted by kernel name in a
@@ -2543,6 +2545,7 @@ def formats_phase(seed: int, root: str, world: dict, argv: list) -> None:
 
 
 ORBAX_FIXTURE = os.path.join("tests", "data", "orbax_small")  # tests/make_orbax_fixture.py writes it
+ORBAX_SHARDED = os.path.join("tests", "data", "orbax_sharded")  # and, with --processes 2, this
 ORBAX_MODEL = dict(vit_type="vit_tiny_test", blocks_to_take=(0, 1, 2, 3))  # the fixture's config, fp32
 
 
@@ -2695,7 +2698,8 @@ def orbax_phase(seed: int, root: str, world: dict, argv: list) -> None:
           f"run_test from the orbax directory went through K1-K5: {launches[0]}")
     cli_s = time.perf_counter() - t0
 
-    # resume: the TrainState restored from the orbax directory and from the .npz, one compiled step each
+    # resume: the TrainState restored from the orbax directory, from the .npz and from the two
+    # processes' sharded save, one compiled step each
     t0 = time.perf_counter()
     tx = ts.make_optimizer(grad_accum=2)
     model_kw = dict(**ORBAX_MODEL, compute_dtype=torch.float32)
@@ -2706,6 +2710,12 @@ def orbax_phase(seed: int, root: str, world: dict, argv: list) -> None:
     diff = train_state_diff(a, b)
     check(not diff and a.step == 5 and a.optimizer.mini_step == 1 and a.optimizer.updates == 2,
           f"the restored states are bitwise equal, at step 5, mini_step 1, 2 updates: {diff[:4]}")
+    t_sharded = time.perf_counter()
+    c = ts.init_state(tx, seed + 2, device="cuda", **model_kw)
+    ckpt.restore(os.path.join(here, ORBAX_SHARDED, "train"), None, c)
+    diff = train_state_diff(a, c)
+    check(not diff, f"the two processes' fsdp_tp save restores bitwise the one process's: {diff[:4]}")
+    restore_sharded_s = time.perf_counter() - t_sharded
     batch = train_batch(2, seed)
     kernels.reset_launches()
     la = ts.make_train_step(a)(a, batch, torch.Generator(device="cuda").manual_seed(seed))
@@ -2715,11 +2725,23 @@ def orbax_phase(seed: int, root: str, world: dict, argv: list) -> None:
     check(all(torch.equal(la[k], lb[k]) for k in la) and not diff and a.optimizer.updates == 3,
           f"one compiled step from each: losses and the whole state bitwise, the update applied: {diff[:4]}")
     check(all(torch.isfinite(v).all() for v in la.values()), "the resumed step's losses are finite")
-    del a, b
+    t_sharded = time.perf_counter()
+    before = dict(kernels.LAUNCHES)
+    lc = ts.make_train_step(c)(c, batch, torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    step_sharded_s = time.perf_counter() - t_sharded
+    diff = train_state_diff(a, c)
+    check(all(torch.equal(la[k], lc[k]) for k in la) and not diff,
+          f"the step from the sharded save: losses and the whole state bitwise the one process's: {diff[:4]}")
+    ran = {k: v - before.get(k, 0) for k, v in kernels.LAUNCHES.items()}
+    check(all(ran.get(k, 0) > 0 for k in ("layernorm", "attention", "corr_window", "warp")),
+          f"the step from the sharded save went through K1, K2, K4 and K5: {ran}")
+    del a, b, c
     torch.cuda.empty_cache()
     print(f"[orbax] PoseEstimator {est_s!r} s, run_test x2 {cli_s!r} s ({len(rows[0])} rows each, launches "
-          f"{launches[0]}), resumed compiled step x2 {time.perf_counter() - t0!r} s (losses "
-          f"{ {k: float(v) for k, v in la.items()}!r}); phase {time.perf_counter() - t_phase!r} s")
+          f"{launches[0]}), resumed compiled step x3 {time.perf_counter() - t0!r} s (losses "
+          f"{ {k: float(v) for k, v in la.items()}!r}); the sharded save's restore {restore_sharded_s!r} s and "
+          f"step {step_sharded_s!r} s; phase {time.perf_counter() - t_phase!r} s")
 
 
 DECODER_RADII = (1, 2, 3, 4)  # lookup radii: config radius 2, 4 (the default), 6 and 8 (RAFT's published 4)

@@ -97,8 +97,10 @@ def leaf_spec(pstr: str, shape: tuple[int, ...], mode: str, n_data: int, n_model
 # ---------------------------------------------------------------- flax paths of the port's tensors
 
 # flax axis i of a kernel is the port weight's axis PERM[i], by the class
-# of models/layers.py that holds it
+# of models/layers.py that holds it; utils/weights.py flips a
+# ConvTranspose kernel's flax axes 0 and 1
 _PERMS = {"Linear": (1, 0), "Conv2d": (2, 3, 1, 0), "ConvTranspose2d": (2, 3, 0, 1)}
+_FLIPPED = {"ConvTranspose2d": (0, 1)}
 _LEVEL_LISTS = {"proj_conv": "proj_{}_conv", "proj_bn": "proj_{}_bn"}
 
 
@@ -227,6 +229,40 @@ def shard_of(full: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
     if spec.model is not None:
         t = model_part(t, spec, mesh.n_model, mesh.model_index)
     return t.contiguous().clone() if t is full else t.contiguous()
+
+
+def _chunk_range(d: int, n: int, i: int) -> tuple[int, int]:
+    """``torch.chunk(n)``'s piece ``i`` of an axis of ``d``."""
+    size = -(-d // n)
+    return min(i * size, d), min((i + 1) * size, d)
+
+
+def shard_ranges(shape, spec: Spec, mesh: Mesh) -> list[list[tuple[int, int]]]:
+    """The indices ``shard_of`` takes of a whole tensor of ``shape``: per
+    axis, ascending (start, stop) ranges (the model axis one per block)."""
+    out = [[(0, int(d))] for d in shape]
+    if spec.data is not None:
+        out[spec.data] = [_chunk_range(int(shape[spec.data]), mesh.n_data, mesh.data_index)]
+    if spec.model is not None:
+        size = int(shape[spec.model]) // spec.blocks
+        lo, hi = _chunk_range(size, mesh.n_model, mesh.model_index)
+        out[spec.model] = [(j * size + lo, j * size + hi) for j in range(spec.blocks)]
+    return out
+
+
+def flax_ranges(model: nn.Module, name: str, shape, spec: Spec, mesh: Mesh) -> tuple[str, list]:
+    """(flax path, ``shard_ranges`` on the flax leaf's axes) of the port
+    parameter ``name`` of whole ``shape``: the part of the JAX package's
+    leaf that this rank's shard is made from."""
+    path, perm = flax_leaf(model, name, len(shape))
+    port = shard_ranges(shape, spec, mesh)
+    module = type(model.get_submodule(name.rpartition(".")[0])).__name__
+    flipped = _FLIPPED.get(module, ()) if path.endswith("/kernel") else ()
+    ranges = []
+    for i, p in enumerate(perm):
+        d = int(shape[p])
+        ranges.append([(d - b, d - a) for a, b in reversed(port[p])] if i in flipped else port[p])
+    return path, ranges
 
 
 def join_model_parts(parts: torch.Tensor, spec: Spec, n: int) -> torch.Tensor:

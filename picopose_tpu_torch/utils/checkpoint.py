@@ -40,6 +40,11 @@ package's ``<step>/`` directories beside the port's ``<step>.pt`` files
 optax's Adam moments and count, or SGD's trace; ``MultiSteps``'
 ``mini_step`` and accumulated gradients) into the port's layout and
 restores it as a ``.pt`` file of the same content would be restored.
+Under ranks each rank decodes only the zarr chunks that meet its part of
+each leaf (``rank_region``), as orbax's restore into a sharded template
+reads for the JAX loop: its shard of a split parameter and of its
+moments, and of the accumulated gradients what ``local_optimizer_state``
+keeps (nothing of a gradient not split over 'data' off data rank 0).
 """
 
 from __future__ import annotations
@@ -52,11 +57,14 @@ import torch
 import numpy as np
 
 from picopose_tpu_torch.parallel.distributed import all_hosts_barrier, process_info
-from picopose_tpu_torch.parallel.shardings import full_optimizer_state, full_state_dict, local_optimizer_state, shard_of
+from picopose_tpu_torch.parallel.shardings import (
+    flax_ranges, full_optimizer_state, full_state_dict, local_optimizer_state, shard_of,
+)
 from picopose_tpu_torch.utils.orbax_read import read_step_dir
 from picopose_tpu_torch.utils.torch_export import export_state_dict
 from picopose_tpu_torch.utils.torch_port import load_torch_checkpoint, port_picopose
 from picopose_tpu_torch.utils.weights import state_dict_from_flax
+from picopose_tpu_torch.utils.zarr2 import Region
 
 _TRAIN_STATE_KEYS = {"model", "optimizer", "scheduler", "mini_step", "step", "epoch"}
 
@@ -116,17 +124,52 @@ def restore(log_dir: str, step: int | None, state):
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {checkpoint_dir(log_dir)}")
     path = step_path(log_dir, step)
-    if os.path.isdir(path):
-        payload = train_payload_from_tree(read_step_dir(path), state, path)
-    else:
-        payload = torch.load(path, map_location=state.model.device, weights_only=True)
-    return load_payload(state, payload, f"checkpoint at step {step}")
+    what = f"checkpoint at step {step}"
+    if not os.path.isdir(path):
+        return load_payload(state, torch.load(path, map_location=state.model.device, weights_only=True), what)
+    local = getattr(state, "layout", None) is not None
+    tree = read_step_dir(path, region=rank_region(state) if local else None)
+    return load_payload(state, train_payload_from_tree(tree, state, path), what, local=local)
 
 
-def load_payload(state, payload: dict, what: str):
+_MOMENTS = ("mu", "nu", "trace", "acc_grads")
+
+
+def rank_region(state):
+    """A leaf's key path in the JAX package's ``TrainState`` -> the part
+    of it (utils/zarr2.py's region) that this rank restores under
+    ``state.layout``: a split parameter's shard and its moments' (optax's
+    ``mu``, ``nu``, ``trace``, ``MultiSteps``' ``acc_grads``), nothing of
+    an accumulated gradient that ``local_optimizer_state`` zeroes here,
+    and all of every other leaf (None)."""
+    layout = state.layout
+    parts = {}  # flax path under params/ -> (ranges or None, zeroed here, axes)
+    for name, spec, shape in zip(layout.names, layout.specs, layout.shapes):
+        path, ranges = flax_ranges(state.model, name, shape, spec, layout.mesh)
+        zeroed = spec.data is None and layout.mesh.data_index != 0
+        parts[path[len("params/"):]] = (ranges if spec.split else None, zeroed, len(shape))
+
+    def region(keys: tuple) -> Region | None:
+        keys = [str(k) for k in keys]
+        at = None  # the key after which the parameter's flax path follows
+        if keys[0] == "params":
+            at = 0
+        elif keys[0] == "opt_state":
+            at = next((i for i, k in enumerate(keys) if k in _MOMENTS), None)
+        part = None if at is None else parts.get("/".join(keys[at + 1:]))
+        if part is None:
+            return None
+        ranges, zeroed, ndim = part
+        return [[]] * ndim if zeroed and keys[at] == "acc_grads" else ranges
+
+    return region
+
+
+def load_payload(state, payload: dict, what: str, local: bool = False):
     """Copy ``payload`` (``save``'s layout) into ``state`` in place and
-    return it; under ranks each rank keeps its shards.  ``what`` names the
-    payload in errors."""
+    return it; under ranks each rank keeps its shards, or with ``local``
+    the payload holds them already (``rank_region``'s parts; a gradient
+    left out, None, is zeroed).  ``what`` names the payload in errors."""
     layout = getattr(state, "layout", None)
     if layout is None:
         state.model.load_state_dict(payload["model"])  # copies into the parameters and buffers
@@ -134,11 +177,16 @@ def load_payload(state, payload: dict, what: str):
         model = dict(payload["model"])
         with torch.no_grad():
             for name, spec, t in layout.split():
-                t.copy_(shard_of(model.pop(name), spec, layout.mesh))
+                part = model.pop(name)
+                part = part if local else shard_of(part, spec, layout.mesh)
+                if part.shape != t.shape:
+                    raise ValueError(f"{what}: {name} has shape {tuple(part.shape)} here, {tuple(t.shape)} expected")
+                t.copy_(part)
         missing, unexpected = state.model.load_state_dict(model, strict=False)
         if sorted(missing) != sorted(n for n, _, _ in layout.split()) or unexpected:
             raise ValueError(f"{what}: layout mismatch (missing {missing[:3]}, unexpected {unexpected[:3]})")
-        payload = local_optimizer_state(payload, layout.specs, layout.mesh)
+        if not local:
+            payload = local_optimizer_state(payload, layout.specs, layout.mesh)
     try:
         state.optimizer.load_state_dict(payload)
     except ValueError as e:
@@ -237,8 +285,12 @@ def train_payload_from_tree(tree: dict, state, what: str) -> dict:
     if (kind == "SGD" and not (trace and sched)) or (kind == "Adam" and not adam):
         raise ValueError(f"{what}: the saved optimizer state is not {opt.spec.opt_type}'s "
                          f"(its states hold {[sorted(s) if isinstance(s, dict) else s for s in chain]})")
-    name_of = {id(p): n for n, p in state.model.named_parameters()}
-    names = [name_of[id(p)] for p in opt.params]
+    layout = getattr(state, "layout", None)
+    if layout is not None:  # the optimizer holds the rank's shards
+        names = layout.names
+    else:
+        name_of = {id(p): n for n, p in state.model.named_parameters()}
+        names = [name_of[id(p)] for p in opt.params]
     as_port = lambda t: {k: _tensor(v) for k, v in state_dict_from_flax({"params": t, "batch_stats": stats}).items()}
     model = as_port(tree["params"])
     moments = ({"momentum_buffer": as_port(trace[0]["trace"])} if kind == "SGD"
@@ -248,7 +300,7 @@ def train_payload_from_tree(tree: dict, state, what: str) -> dict:
     grads = None
     if mini_step:
         acc = as_port(multi["acc_grads"])
-        grads = [acc[n] * mini_step for n in names]
+        grads = [acc[n] * mini_step if acc[n].numel() else None for n in names]  # None: a part left out
     return {
         "model": model,
         "optimizer": {"state": {i: {k: m[n] for k, m in moments.items()} for i, n in enumerate(names)}},

@@ -22,10 +22,10 @@ from __future__ import annotations
 import json
 import os
 from concurrent.futures import ThreadPoolExecutor
-from typing import Collection
+from typing import Callable, Collection
 
 from picopose_tpu_torch.utils.ocdbt import OcdbtStore
-from picopose_tpu_torch.utils.zarr2 import read_array
+from picopose_tpu_torch.utils.zarr2 import Region, read_array
 
 METADATA = "_METADATA"
 _EMPTY = {"None": lambda: None, "Tuple": tuple, "Dict": dict, "List": list}
@@ -61,12 +61,15 @@ def _containers(node, kind: int | None):
     return out
 
 
-def read_step_dir(path: str, top: Collection[str] | None = None) -> dict:
+def read_step_dir(path: str, top: Collection[str] | None = None,
+                  region: Callable[[tuple], Region | None] | None = None) -> dict:
     """The tree saved at ``path`` (an orbax step or item directory), or
     with ``top`` only the subtrees under those top-level keys (a train
     state's ``params`` and ``batch_stats`` without its optimizer state),
     its arrays read by a thread per core (at most 32), which decode chunks
-    in parallel."""
+    in parallel.  ``region``: a leaf's key path (a tuple of dict keys and
+    sequence indices) -> the part of it to read (utils/zarr2.py), None
+    for all of it."""
     item = item_dir(path)
     with open(os.path.join(item, METADATA)) as f:
         meta = json.load(f)
@@ -83,9 +86,11 @@ def read_step_dir(path: str, top: Collection[str] | None = None) -> dict:
             raise ValueError(f"{item}: key types {[t for _, t in keys]}, only 1 (sequence) and 2 (dict) are read")
         if top is None or keys[0][0] in top:
             leaves.append((keys, entry["value_metadata"].get("value_type")))
-    names = [".".join(str(k) for k, _ in keys) for keys, vt in leaves if vt not in _EMPTY]
+    arrays = [tuple(k for k, _ in keys) for keys, vt in leaves if vt not in _EMPTY]
+    names = [".".join(str(k) for k in path) for path in arrays]
+    parts = [region(path) if region else None for path in arrays]
     with ThreadPoolExecutor(min(32, os.cpu_count() or 1)) as pool:
-        values = dict(zip(names, pool.map(lambda name: read_array(store, name), names)))
+        values = dict(zip(names, pool.map(lambda a: read_array(store, *a), zip(names, parts))))
     # the tree, each node keyed (key -> (child, type of the child's keys))
     tree: dict = {}
     for keys, vt in leaves:

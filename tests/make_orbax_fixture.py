@@ -1,9 +1,11 @@
-"""Write ``tests/data/orbax_small/``: checkpoints of the JAX package, saved
-by its own orbax code, that the port reads without JAX (utils/orbax_read.py)
-in tests/test_torch_orbax.py and in ``chip_smoke.py`` phase 17, on a
-machine that has no orbax.
+"""Write ``tests/data/orbax_small/`` and ``tests/data/orbax_sharded/``:
+checkpoints of the JAX package, saved by its own orbax code, that the port
+reads without JAX (utils/orbax_read.py) in tests/test_torch_orbax.py,
+tests/torch_dist_worker.py and ``chip_smoke.py`` phase 17, on a machine
+that has no JAX and no orbax.
 
     JAX_PLATFORMS=cpu python tests/make_orbax_fixture.py [--out DIR] [--seed 0]
+    JAX_PLATFORMS=cpu python tests/make_orbax_fixture.py --processes 2 [--out DIR] [--seed 0]
 
 At the parity tests' small config (``vit_tiny_test``, taps 0-3, fp32;
 tests/torch_parity.py::SMALL), through picopose_tpu/utils/checkpoint.py's
@@ -19,6 +21,18 @@ tests/torch_parity.py::SMALL), through picopose_tpu/utils/checkpoint.py's
   leaf being the tile repeated to the shape (``np.resize``), ``<path>``
   its keys joined by "/".
 
+With ``--processes 2`` the script writes ``orbax_sharded/`` instead: the
+same ``TrainState`` (every leaf bitwise ``orbax_small``'s) as a pod saves
+it, in ``train/checkpoints/5/`` only.  It starts two processes of itself,
+each with two CPU devices (``--xla_force_host_platform_device_count=2``),
+joined by the JAX package's ``parallel/distributed.py::initialize`` over
+gloo CPU collectives; they build ``make_mesh(n_data=2, n_model=2)``, lay
+the state out with ``shard_state(state, mesh, "fsdp_tp")`` and save it
+with ``utils/checkpoint.py``'s ``manager`` and ``save``.  Each process
+writes the shards it holds into its own ``ocdbt.process_<i>/`` store, one
+zarr chunk per shard, so the split leaves are stored as several chunks
+over both mesh axes (~20 s).
+
 The small model has 71 M parameters (the heads' widths do not shrink with
 the ViT's), so the leaves are not independent draws, which would take
 some 1.1 GB: each is a seeded tile of ``TILE`` values (scaled as an
@@ -32,12 +46,17 @@ from __future__ import annotations
 import argparse
 import os
 import shutil
+import socket
+import subprocess
 import sys
 
 import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(ROOT, "tests", "data", "orbax_small")
+OUT_SHARDED = os.path.join(ROOT, "tests", "data", "orbax_sharded")
+MESH = (2, 2)  # (n_data, n_model) of the sharded save
+PROCESSES = 2  # its processes, of MESH[0] * MESH[1] // PROCESSES CPU devices each
 TILE = 61  # values per tile: a prime, so a tile's repeats do not line up with a leaf's rows
 VARIABLES_STEP, TRAIN_STEP = 3, 5
 GRAD_ACCUM, MINI_STEP, UPDATES = 2, 1, 2
@@ -102,16 +121,15 @@ def leaves(seed: int = 0) -> dict[str, np.ndarray]:
     return {p: expand(t, s) for p, (t, s) in tiles(seed).items()}
 
 
-def write(out: str = OUT, seed: int = 0) -> None:
+def train_state(seed: int = 0):
+    """The JAX package's ``TrainState`` that ``leaves(seed)`` describes."""
     import jax
     import jax.numpy as jnp
 
     from picopose_tpu.train import step as js
-    from picopose_tpu.utils import checkpoint as ckpt
 
-    flat = leaves(seed)
     tree: dict = {}
-    for path, value in flat.items():
+    for path, value in leaves(seed).items():
         node = tree
         keys = path.split("/")
         for k in keys[:-1]:
@@ -127,14 +145,24 @@ def write(out: str = OUT, seed: int = 0) -> None:
             node = node[str(getattr(k, "key", getattr(k, "name", getattr(k, "idx", k))))]
         values.append(node)
     opt_state = jax.tree_util.tree_unflatten(jax.tree_util.tree_structure(template), values)
-    state = js.TrainState(tree["step"], tree["params"], tree["batch_stats"], opt_state)
+    return js.TrainState(tree["step"], tree["params"], tree["batch_stats"], opt_state)
+
+
+def _save(log_dir: str, step: int, item) -> None:
+    from picopose_tpu.utils import checkpoint as ckpt
+
+    mgr = ckpt.manager(log_dir)
+    ckpt.save(mgr, step, item)
+    mgr.wait_until_finished()
+
+
+def write(out: str = OUT, seed: int = 0) -> None:
+    state = train_state(seed)
     shutil.rmtree(out, ignore_errors=True)
     os.makedirs(out)
     for name, step, item in (("variables", VARIABLES_STEP, {"params": state.params, "batch_stats": state.batch_stats}),
                              ("train", TRAIN_STEP, state)):
-        mgr = ckpt.manager(os.path.join(out, name))
-        ckpt.save(mgr, step, item)
-        mgr.wait_until_finished()
+        _save(os.path.join(out, name), step, item)
     arrays = {}
     for path, (tile, shape) in tiles(seed).items():
         arrays[f"tile/{path}"] = tile
@@ -142,14 +170,58 @@ def write(out: str = OUT, seed: int = 0) -> None:
     np.savez_compressed(os.path.join(out, "leaves.npz"), **arrays)
 
 
+def write_sharded(out: str = OUT_SHARDED, seed: int = 0) -> None:
+    """Start ``PROCESSES`` processes of this script (``_sharded_process``)
+    and wait for them."""
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = {**os.environ, "JAX_PLATFORMS": "cpu",
+           "XLA_FLAGS": f"--xla_force_host_platform_device_count={MESH[0] * MESH[1] // PROCESSES}"}
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--out", out, "--seed", str(seed),
+                               "--processes", str(PROCESSES), "--process_id", str(i), "--port", str(port)],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for i in range(PROCESSES)]
+    logs = [p.communicate(timeout=600)[0] for p in procs]
+    for i, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise RuntimeError(f"process {i} of the sharded save failed (exit code {p.returncode}):\n{log[-3000:]}")
+
+
+def _sharded_process(out: str, seed: int, process_id: int, port: int) -> None:
+    """One process of the sharded save."""
+    import jax
+
+    jax.config.update("jax_cpu_collectives_implementation", "gloo")
+    from picopose_tpu.parallel import distributed
+    from picopose_tpu.parallel.mesh import make_mesh
+    from picopose_tpu.parallel.shardings import shard_state
+
+    distributed.initialize(coordinator_address=f"localhost:{port}", num_processes=PROCESSES, process_id=process_id)
+    mesh = make_mesh(n_data=MESH[0], n_model=MESH[1])
+    state = shard_state(train_state(seed), mesh, "fsdp_tp")
+    _save(os.path.join(out, "train"), TRAIN_STEP, state)
+    distributed.all_hosts_barrier("saved")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--out", default=OUT)
+    ap.add_argument("--out", default=None, help="default: tests/data/orbax_small, with --processes 2 orbax_sharded")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--processes", type=int, choices=(1, PROCESSES), default=1,
+                    help=f"{PROCESSES}: the sharded save of orbax_sharded/")
+    ap.add_argument("--process_id", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--port", type=int, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
-    write(args.out, args.seed)
-    total = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(args.out) for f in fs)
-    print(f"wrote {args.out}: {total} bytes")
+    out = args.out or (OUT if args.processes == 1 else OUT_SHARDED)
+    if args.process_id is not None:
+        _sharded_process(out, args.seed, args.process_id, args.port)
+        return
+    (write if args.processes == 1 else write_sharded)(out, args.seed)
+    total = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(out) for f in fs)
+    print(f"wrote {out}: {total} bytes")
 
 
 if __name__ == "__main__":

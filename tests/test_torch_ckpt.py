@@ -17,6 +17,8 @@ flip, permute and rename):
     ``variables`` win over ``checkpoint``.
 """
 
+import shutil
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -53,7 +55,8 @@ def case(request, tmp_path_factory):
     jax_save_torch_checkpoint(variables, paths["ckpt"], lightning=True)
     jax_save_torch_checkpoint(variables, paths["pth"], lightning=False)
     model = port_model(cfg, variables)
-    return cfg, depth, variables, paths, model
+    yield cfg, depth, variables, paths, model
+    shutil.rmtree(d, ignore_errors=True)  # ~0.7 GB for vits14
 
 
 @pytest.fixture(scope="module")
@@ -61,9 +64,18 @@ def small(tmp_path_factory):
     """The small model's case alone, for the tests that build several models."""
     cfg = dict(SMALL)
     variables = random_flax_variables(JaxPicoPose(**cfg, compute_dtype=jnp.float32), seed=3)
-    path = str(tmp_path_factory.mktemp("small") / "model.ckpt")
+    d = tmp_path_factory.mktemp("small")
+    path = str(d / "model.ckpt")
     jax_save_torch_checkpoint(variables, path)
-    return cfg, variables, path, port_model(cfg, variables)
+    yield cfg, variables, path, port_model(cfg, variables)
+    shutil.rmtree(d, ignore_errors=True)  # ~0.5 GB
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's, emptied when the test ends (an exported file is ~0.3 GB)."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def port_model(cfg, variables):

@@ -20,6 +20,7 @@ and ``export_dinov2`` against the JAX package's.
 
 import os
 import runpy
+import shutil
 import subprocess
 import sys
 
@@ -52,9 +53,18 @@ def variables():
 
 @pytest.fixture(scope="module")
 def reference_ckpt(variables, tmp_path_factory):
-    path = str(tmp_path_factory.mktemp("ckpt") / "jax.ckpt")
-    jax_save_torch_checkpoint(variables, path)
-    return path
+    d = tmp_path_factory.mktemp("ckpt")
+    jax_save_torch_checkpoint(variables, str(d / "jax.ckpt"))
+    yield str(d / "jax.ckpt")
+    shutil.rmtree(d, ignore_errors=True)
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's, emptied when the test ends (a train state's file and the
+    exported checkpoints take ~1.1 GB)."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def _load(path):

@@ -39,7 +39,15 @@ Tolerances (measured largest errors in brackets):
   one-device file's keys, shapes and counters, its values within the
   tolerances above; restored bitwise at world size 1 (here) and at its
   own in another layout (the fsdp file under tp 1 x 2, the fsdp_tp file
-  under ddp 4 x 1, in the workers).
+  under ddp 4 x 1, in the workers);
+* a JAX training run resumed over the ranks: the committed orbax
+  fixtures (tests/make_orbax_fixture.py: one process's save, and two
+  processes' save over a 2 x 2 fsdp_tp mesh), each rank reading only the
+  chunks that meet its part, restore in ddp, fsdp and tp over 2 ranks (a
+  group of their own, beside the training runs) and in fsdp_tp and ddp
+  over 4, bitwise the port's one-process restore of the fixture (saved
+  here as a ``.pt`` file and restored in the same layout); the step from
+  the two processes' save is bitwise the step from the ``.pt``.
 
 ``python -m torch.distributed.run --nproc_per_node 2 -m
 picopose_tpu_torch.run_train --dist_backend gloo`` with
@@ -120,12 +128,16 @@ def _runs(work):
     np.savez(os.path.join(work, "batch.npz"), **batch)
     with open(os.path.join(work, "noise.pkl"), "wb") as f:
         pickle.dump([tuple(t.numpy() for t in n) for n in noises], f)
+    state = worker.fresh_state(work)  # the orbax fixture's one-process restore, as the ranks' reference
+    ckpt.restore(worker.ORBAX["orbax_small"], None, state)
+    ckpt.save(os.path.join(work, worker.PT), state.step, state, 0)
+    del state
 
     ctx = mp.get_context("spawn")
     procs = []
-    for world in worker.WORLDS:
+    for world, task in worker.GROUPS:
         port = free_port()
-        procs += [ctx.Process(target=worker.main, args=(r, world, port, work)) for r in range(world)]
+        procs += [ctx.Process(target=worker.main, args=(r, world, port, work, task)) for r in range(world)]
     for p in procs:
         p.start()
     try:
@@ -163,18 +175,21 @@ def _runs(work):
             p.join(timeout=900)
     codes = [p.exitcode for p in procs]
     assert codes == [0] * len(procs), f"a rank failed (exit codes {codes}): see its traceback above"
-    worlds = {}
-    for world in worker.WORLDS:
-        worlds[world] = []
+    groups = {}
+    for world, task in worker.GROUPS:
+        groups[world, task] = []
         for r in range(world):
-            with open(os.path.join(work, f"world{world}_rank{r}.pkl"), "rb") as f:
-                worlds[world].append(pickle.load(f))
+            with open(os.path.join(work, f"{task}{world}_rank{r}.pkl"), "rb") as f:
+                groups[world, task].append(pickle.load(f))
+    worlds = {world: groups[world, "train"] for world in worker.WORLDS}
+    orbax = {world: [r["orbax"] for r in groups[world, "orbax" if world in worker.ORBAX_APART else "train"]]
+             for world in worker.ORBAX_LAYOUTS}
     tensors = {}
     for m in worker.MODES:  # into memory, off the disk
         tensors[m] = torch.load(os.path.join(work, f"{m}.pt"), weights_only=True)
         os.remove(os.path.join(work, f"{m}.pt"))
-    yield dict(work=work, initial=initial, ref=ref, one=one, worlds=worlds, tensors=tensors, batch=batch,
-               params=_params(state.model))
+    yield dict(work=work, initial=initial, ref=ref, one=one, worlds=worlds, orbax=orbax, groups=groups,
+               tensors=tensors, batch=batch, params=_params(state.model))
 
 
 def _ranks(runs, mode):
@@ -252,7 +267,7 @@ def test_each_rank_trains_on_its_rows_of_the_global_batch(runs, mode):
 
 
 def test_broadcast_and_barrier(runs):
-    for world, ranks in runs["worlds"].items():
+    for (world, _), ranks in runs["groups"].items():
         assert [r["broadcast"] for r in ranks] == [{"from": 0, "world": world}] * world
 
 
@@ -282,7 +297,39 @@ def test_rank0_checkpoint_is_the_one_device_file_and_restores_at_world_1_and_n(r
     assert (state.step, state.optimizer.updates, state.optimizer.mini_step) == (3, 1, 1)
 
 
+@pytest.mark.parametrize("world,mode", [(w, m) for w, layouts in worker.ORBAX_LAYOUTS.items() for m, _, _ in layouts])
+def test_a_jax_run_resumes_over_ranks_as_its_one_process_restore(runs, world, mode):
+    """Each rank's shards, buffers, moments, gradients and counters
+    restored from either orbax fixture are bitwise its part of the
+    one-process restore (the ``.pt`` file restored in this layout), and
+    the step from the two processes' save is bitwise the step from the
+    ``.pt``; that save is decoded in part under a split layout."""
+    for rank in runs["orbax"][world]:
+        ref = rank[mode, worker.PT]
+        assert ref["before"]["counters"] == repr((5, 2, 2, 1))  # step 5, mid-accumulation
+        assert ref["after"]["counters"] == repr((6, 3, 3, 0))  # the step completed it and updated
+        changed = [k for k in ref["before"] if k.startswith("model.") and ref["after"][k] != ref["before"][k]]
+        assert any(".weight" in k for k in changed)
+        for source in worker.ORBAX:
+            got = rank[mode, source]
+            differ = [k for k in ref["before"] if got["before"][k] != ref["before"][k]]
+            assert not differ, (source, differ[:5])
+        got = rank[mode, "orbax_sharded"]
+        assert got["losses"] == ref["losses"] and got["after"] == ref["after"]
+        whole, part = rank[mode, "orbax_small"]["decoded"], rank[mode, "orbax_sharded"]["decoded"]
+        if mode in ("fsdp", "fsdp_tp"):
+            assert part < 0.6 * whole, (part, whole)
+
+
 # ---------------------------------------------------------------- the training CLI over two ranks
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's, emptied when the test ends (the CLI runs write ~1.6 GB)."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
 
 
 def _cli_args(tree, bs, n_devices):

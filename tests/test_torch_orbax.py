@@ -22,7 +22,9 @@ tensorstore, orbax (through the JAX package's own ``save``) or zstandard.
   A flipped byte of a node or manifest raises (CRC32C).
 * zarr v2 arrays tensorstore writes over OCDBT: every dtype, partial edge
   chunks, missing chunks (fill value), the "/" separator, no compressor,
-  0-d; order "F" and another compressor raise.
+  0-d; order "F" and another compressor raise.  Regions of every dtype
+  (blocks of ranges, partial edge chunks, an empty part) are bitwise the
+  slices of a whole read and decode the chunks that meet them.
 * ``load_any`` of a variables and of a ``TrainState`` step directory, leaf
   for leaf bitwise (dtype and shape) the JAX package's ``load_any``;
   ``PoseEstimator`` and ``run_test`` (``--iter`` on a JAX log dir) give
@@ -37,11 +39,22 @@ tensorstore, orbax (through the JAX package's own ``save``) or zstandard.
   tests/test_torch_train_compiled.py's tolerances (losses within 1e-4
   relative, the state's change within 1e-2 relative RMS per parameter
   group, every parameter within 2 lr of the JAX one).
-* The committed fixture (tests/data/orbax_small/) reads as
-  tests/make_orbax_fixture.py would write it.
+* The committed fixtures (tests/data/orbax_small/, and orbax_sharded/,
+  two JAX processes' save over a 2 x 2 fsdp_tp mesh) read as
+  tests/make_orbax_fixture.py would write them, each leaf of orbax_sharded
+  bitwise orbax_small's; a corrupt chunk in its ``ocdbt.process_1/``
+  raises naming its file.  Restored at data rank 1 of fsdp over 2 (a mesh
+  without a process group), each leaf decodes exactly the chunks that
+  meet the rank's part, found here from the port's weight conversion and
+  ``shard_of`` of leaves of flat indices, and the rank's tensors are
+  bitwise ``shard_of`` of the one-process restore.
 """
 
+import collections
+import json
+import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -71,11 +84,16 @@ from picopose_tpu_torch import export_torch, run_test
 from picopose_tpu_torch.native import codec
 from picopose_tpu_torch.native.codec import ZstdError, crc32c, zstd_decompress
 from picopose_tpu_torch.serve import PoseEstimator
+from picopose_tpu_torch.parallel.mesh import Mesh
+from picopose_tpu_torch.parallel.shardings import (
+    flax_leaf, local_optimizer_state, shard_of, shard_state, state_shardings,
+)
 from picopose_tpu_torch.train import loop as T
 from picopose_tpu_torch.train import step as ts
 from picopose_tpu_torch.utils import checkpoint as ckpt
+from picopose_tpu_torch.utils import zarr2
 from picopose_tpu_torch.utils.config import load_config
-from picopose_tpu_torch.utils.ocdbt import OcdbtError, OcdbtStore
+from picopose_tpu_torch.utils.ocdbt import OcdbtError, OcdbtStore, Ref
 from picopose_tpu_torch.utils.orbax_read import read_step_dir
 from picopose_tpu_torch.utils.weights import state_dict_from_flax
 from picopose_tpu_torch.utils.zarr2 import ZarrError, read_array
@@ -417,6 +435,51 @@ def test_zarr_refuses_order_f_and_other_compressors(tmp_path):
         read_array(store, "z")
     with pytest.raises(ZarrError, match="no .zarray"):
         read_array(store, "absent")
+
+
+SHAPE, CHUNKS = (37, 23, 3), (16, 10, 2)
+REGIONS = [  # per axis: ascending ranges, None for the whole axis
+    [None, None, None],
+    [[(0, 16)], None, [(1, 3)]],  # one row of chunks; the part of an edge chunk
+    [[(5, 21)], [(9, 11)], None],  # across chunk boundaries
+    [[(2, 4), (17, 19), (33, 37)], [(0, 3), (20, 23)], [(2, 3)]],  # blocks; partial edge chunks
+    [[], None, None],  # an empty part
+]
+
+
+def _indices(ranges, size: int) -> np.ndarray:
+    return np.arange(size) if ranges is None else np.array([i for a, b in ranges for i in range(a, b)], np.int64)
+
+
+@pytest.fixture(scope="module")
+def zarr_dtypes(tmp_path_factory):
+    """One array of SHAPE per dtype of ZARR_DTYPES, in chunks of CHUNKS."""
+    root = tmp_path_factory.mktemp("zarr_regions")
+    names = {}
+    for i, dtype in enumerate(ZARR_DTYPES):
+        data = _values(dtype, SHAPE, seed=i)
+        _zarr_over_ocdbt(str(root), f"x{i}", data, CHUNKS, dtype,
+                         compressor={"id": "zstd", "level": 5}).write(data).result()
+        names[dtype] = f"x{i}"
+    yield OcdbtStore(str(root)), names
+    shutil.rmtree(root)
+
+
+@pytest.mark.parametrize("dtype", ZARR_DTYPES)
+def test_zarr_regions_are_the_slices_of_a_whole_read(zarr_dtypes, dtype):
+    store, names = zarr_dtypes
+    whole = read_array(store, names[dtype])
+    for region in REGIONS:
+        zarr2.CHUNKS.clear()
+        got = read_array(store, names[dtype], region)
+        ref = whole
+        for axis, (ranges, size) in enumerate(zip(region, SHAPE)):
+            ref = ref.take(_indices(ranges, size), axis=axis)
+        assert got.dtype == whole.dtype and got.shape == ref.shape and got.tobytes() == ref.tobytes(), region
+        meets = [{i // c for i in _indices(r, n)} for r, n, c in zip(region, SHAPE, CHUNKS)]
+        assert zarr2.CHUNKS[names[dtype]] == math.prod(len(m) for m in meets), region
+    with pytest.raises(ZarrError, match="outside an axis of 23"):
+        read_array(store, names[dtype], [None, [(20, 24)], None])
 
 
 # ---------------------------------------------------------------- orbax checkpoints
@@ -825,3 +888,135 @@ def test_the_committed_fixture_reads_as_the_script_writes_it():
     _assert_trees_equal(train, jax.tree.map(np.asarray, jckpt.load_any(os.path.join(out, "train", "checkpoints", "5"))))
     total = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(out) for f in fs)
     assert total < 3 * 1024 * 1024, total
+
+
+SHARDED_TRAIN = os.path.join(make_orbax_fixture.OUT_SHARDED, "train", "checkpoints", "5")
+
+
+def _leaf_at(tree, path: str):
+    for k in path.split("/"):
+        tree = tree[int(k)] if isinstance(tree, list) else tree[k]
+    return tree
+
+
+def test_the_sharded_fixture_is_two_processes_save_of_the_small_ones_state():
+    """tests/data/orbax_sharded/ against the script's tiles and, leaf for
+    leaf, bitwise orbax_small's TrainState; both processes' stores hold
+    chunks, split leaves are stored as a chunk per shard over both mesh
+    axes; under 3 MB.  (The JAX package's ``load_any`` does not read it in
+    one process: orbax asks for the four devices it was saved from.)"""
+    tiles = make_orbax_fixture.tiles(0)
+    got = read_step_dir(SHARDED_TRAIN)
+    small = read_step_dir(os.path.join(make_orbax_fixture.OUT, "train", "checkpoints", "5"))
+    _assert_trees_equal(got, small)
+    for p, (tile, shape) in tiles.items():
+        node, ref = _leaf_at(got, p), make_orbax_fixture.expand(tile, shape)
+        assert node.dtype == ref.dtype and node.shape == ref.shape and node.tobytes() == ref.tobytes(), p
+    store = OcdbtStore(os.path.join(SHARDED_TRAIN, "default"))
+    stores = {store.locate(k).path.split("/")[0] for k in store.list() if isinstance(store.locate(k), Ref)}
+    assert {"ocdbt.process_0", "ocdbt.process_1"} <= stores
+    assert any(f.startswith("ocdbt.process_1/d/") for f in
+               (os.path.relpath(os.path.join(d, f), os.path.join(SHARDED_TRAIN, "default"))
+                for d, _, fs in os.walk(os.path.join(SHARDED_TRAIN, "default", "ocdbt.process_1")) for f in fs))
+    for name in ("params.affine_regressor.fc1.kernel", "params.feature_extractor.dinov2.blocks_0.attn.qkv.kernel"):
+        meta = json.loads(store.read(f"{name}/.zarray"))  # fsdp over 'data' on axis 0, tp over 'model' on axis 1
+        assert [s // c for s, c in zip(meta["shape"], meta["chunks"])] == list(make_orbax_fixture.MESH), name
+        assert all(f"{name}/{i}.{j}" in store for i in range(2) for j in range(2)), name
+    total = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(make_orbax_fixture.OUT_SHARDED) for f in fs)
+    assert total < 3 * 1024 * 1024, total
+
+
+def test_a_corrupt_chunk_in_a_process_store_raises_naming_its_file(tmp_path):
+    dst = str(tmp_path / "5")
+    shutil.copytree(SHARDED_TRAIN, dst)
+    store = OcdbtStore(os.path.join(dst, "default"))
+    key, ref = next((k, store.locate(k)) for k in store.list()
+                    if isinstance(store.locate(k), Ref) and store.locate(k).path.startswith("ocdbt.process_1/")
+                    and not k.endswith(".zarray"))
+    path = os.path.join(dst, "default", ref.path)
+    with open(path, "r+b") as f:  # the chunk's zstd magic number
+        f.seek(ref.offset)
+        f.write(bytes(4))
+    with pytest.raises(ZarrError, match=re.escape(f"chunk {key} in {path}")):
+        read_step_dir(dst)
+
+
+FSDP2 = ("fsdp", 2, 1)
+FSDP2_RANK = 1  # data rank 1: its part of each split leaf, and none of a replicated leaf's accumulated gradient
+
+
+@pytest.fixture(scope="module")
+def fsdp2_parts():
+    """The one-process restore of orbax_sharded (and the bytes it
+    decodes), the chunks of each of its leaves, and at ``FSDP2_RANK`` of
+    fsdp over 2 the chunks of each split params leaf that meet its part:
+    the port's weight conversion (utils/weights.py) applied to leaves of
+    their flat indices (as two fp32 halves, each exact below 2^24), the
+    rank's part cut by ``shard_of``, and the chunks of the indices in it."""
+    one = _port_state(2)
+    zarr2.CHUNK_BYTES.clear()
+    ckpt.restore(os.path.dirname(os.path.dirname(SHARDED_TRAIN)), None, one)
+    whole = sum(zarr2.CHUNK_BYTES.values())
+    store = OcdbtStore(os.path.join(SHARDED_TRAIN, "default"))
+    chunks = collections.Counter(k.rsplit("/", 1)[0] for k in store.list() if not k.endswith(".zarray"))
+    tree = read_step_dir(SHARDED_TRAIN, top=("params", "batch_stats"))
+    index = lambda f: jax.tree.map(lambda a: f(np.arange(a.size, dtype=np.int64).reshape(a.shape)).astype(np.float32),
+                                   tree)
+    hi, lo = (state_dict_from_flax(index(f)) for f in (lambda i: i >> 12, lambda i: i & 4095))
+    mesh = Mesh(FSDP2[1], FSDP2[2], FSDP2_RANK, torch.device("cpu"))
+    shardings = state_shardings(mesh, one, FSDP2[0])
+    meets = {}
+    for name, p in one.model.named_parameters():
+        path, _ = flax_leaf(one.model, name, p.ndim)
+        leaf, key, spec = path.replace("/", "."), path[len("params/"):], shardings.param(name)
+        if not spec.split:  # the whole leaf
+            meets[key] = (chunks[leaf], False)
+            continue
+        meta = json.loads(store.read(f"{leaf}/.zarray"))
+        grid = [-(-n // c) for n, c in zip(meta["shape"], meta["chunks"])]
+        h, l = (shard_of(torch.from_numpy(np.ascontiguousarray(d[name])), spec, mesh).numpy().astype(np.int64).ravel()
+                for d in (hi, lo))
+        ids = [i // c for i, c in zip(np.unravel_index((h << 12) + l, meta["shape"]), meta["chunks"])]
+        hit = np.bincount(np.ravel_multi_index(ids, grid), minlength=math.prod(grid)) > 0
+        meets[key] = (int(hit.sum()), spec.data is not None)
+    return one, whole, chunks, meets
+
+
+def test_a_rank_decodes_only_the_chunks_that_meet_its_part(fsdp2_parts):
+    """``restore`` under fsdp over 2 at ``FSDP2_RANK``: each params leaf and its
+    ``mu``, ``nu`` and ``acc_grads`` decode the chunks that meet the
+    rank's part (none of an accumulated gradient off data rank 0 that is
+    not split over 'data'), every other leaf all of its chunks; the
+    rank's tensors are bitwise its part of the one-process restore."""
+    one, whole, chunks, meets = fsdp2_parts
+    mesh = Mesh(FSDP2[1], FSDP2[2], FSDP2_RANK, torch.device("cpu"))
+    state = shard_state(_port_state(2, seed=7), mesh, FSDP2[0])
+    zarr2.CHUNKS.clear()
+    zarr2.CHUNK_BYTES.clear()
+    ckpt.restore(os.path.dirname(os.path.dirname(SHARDED_TRAIN)), None, state)
+    fewer = 0
+    for name, total in chunks.items():
+        keys = name.split(".")
+        at = {"params": 0, "opt_state": next((i for i, k in enumerate(keys) if k in ("mu", "nu", "acc_grads")), None)
+              }.get(keys[0])
+        if at is None:
+            assert zarr2.CHUNKS[name] == total, name
+            continue
+        n, data_split = meets["/".join(keys[at + 1:])]
+        if keys[at] == "acc_grads" and not data_split:  # data rank 0 alone holds it
+            n = 0
+        assert zarr2.CHUNKS[name] == n, (name, zarr2.CHUNKS[name], n, total)
+        fewer += n < total
+    assert fewer > 100 and sum(zarr2.CHUNK_BYTES.values()) < 0.55 * whole
+
+    layout, full = state.layout, one.model.state_dict()
+    for name, spec, t in zip(layout.names, layout.specs, layout.local):
+        assert torch.equal(t, shard_of(full[name], spec, mesh)), name
+    for name, b in state.model.named_buffers():
+        assert torch.equal(b, full[name]), name
+    ref, got = local_optimizer_state(one.optimizer.state_dict(), layout.specs, mesh), state.optimizer.state_dict()
+    for i, m in ref["optimizer"]["state"].items():
+        assert all(torch.equal(got["optimizer"]["state"][i][k], v) for k, v in m.items()), i
+    assert all(torch.equal(a, b) for a, b in zip(got["grads"], ref["grads"]))
+    assert (state.step, got["scheduler"], got["mini_step"]) == (one.step, ref["scheduler"], ref["mini_step"]) == (
+        5, {"last_epoch": 2}, 1)

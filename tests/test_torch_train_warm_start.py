@@ -5,6 +5,8 @@ parameter and BatchNorm statistic, a DINOv2 backbone ``.pth`` the ViT only.
 Both sides load the same float32 values, so the comparison is bitwise.
 """
 
+import shutil
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -41,7 +43,8 @@ def files(trees, tmp_path_factory):
     bad = torch.load(d / "full.ckpt", weights_only=False)
     bad["state_dict"]["network.affine_regressor.fc2.weight"] = torch.zeros(256, 512)
     torch.save(bad, d / "bad_shape.ckpt")
-    return d
+    yield d
+    shutil.rmtree(d, ignore_errors=True)  # ~0.55 GB
 
 
 def _states(trees):
